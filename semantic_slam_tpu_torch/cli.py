@@ -1,0 +1,175 @@
+"""Command-line entry of the PyTorch/CUDA port.
+
+  python -m semantic_slam_tpu_torch.cli synth --out lab.npz --steps 240 --height 480 --width 640
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --profile yolo_detector --out results/ --device cuda
+
+``run`` replays a log through the port's engine on the 30 Hz tick grid and
+writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
+``stats.jsonl``, the TUM trajectories (with ``--compute-ate`` or a profile
+that asks for them) and the ``export_session`` files. ``synth`` is the JAX
+package's own command, which needs no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def make_config(args):
+    from semantic_slam_tpu.config import PROFILES, CapacityConfig
+
+    if args.profile not in PROFILES:
+        sys.exit(f"unknown profile {args.profile!r}; have {sorted(PROFILES)}")
+    cfg = PROFILES[args.profile]
+    if args.compute_ate:
+        cfg = cfg.replace(compute_txt_for_ate=True)
+    if args.max_keyframes:
+        cfg = cfg.replace(
+            capacity=CapacityConfig(
+                max_keyframes=args.max_keyframes,
+                max_landmarks=max(args.max_keyframes // 4, 16),
+                max_odom_edges=args.max_keyframes,
+                max_landmark_edges=args.max_keyframes * 4,
+                max_detections_per_frame=cfg.capacity.max_detections_per_frame,
+            )
+        )
+    if args.crop_size:
+        cfg = cfg.replace(
+            segmentation=dataclasses.replace(
+                cfg.segmentation,
+                crop_height=args.crop_size,
+                crop_width=args.crop_size,
+                num_hypotheses=min(cfg.segmentation.num_hypotheses, args.crop_size),
+            )
+        )
+    return cfg
+
+
+def load_replay_log(path: str):
+    from semantic_slam_tpu.io import replay as replay_mod
+
+    if not path.endswith(".npz"):
+        sys.exit(f"unsupported log {path!r}: the port reads .npz logs")
+    return replay_mod.load_log(path)
+
+
+def make_synthetic_log(**kwargs):
+    """An in-process synthetic log: ``semantic_slam_tpu.io.synthetic``'s
+    generator (the one ``synth`` writes to disk), which needs no JAX."""
+    from semantic_slam_tpu.io import synthetic as synth_mod
+
+    return synth_mod.make_synthetic_log(**kwargs)
+
+
+def run_session(log, cfg, device: str):
+    """Replay ``log`` through a fresh engine; returns the engine."""
+    from semantic_slam_tpu.io import replay as replay_mod
+    from semantic_slam_tpu_torch.runtime.engine import SlamEngine
+
+    engine = SlamEngine(cfg, device=device)
+    replay_mod.replay(log, engine)
+    return engine
+
+
+def write_outputs(out_dir: str, profile: str, cfg, engine, log) -> dict:
+    """The shutdown work of ``semantic_slam_tpu.cli run``: TUM dumps, viz
+    exports, summary.json and stats.jsonl. Returns the summary."""
+    from semantic_slam_tpu.eval import ate as ate_mod
+    from semantic_slam_tpu.io import tum as tum_mod
+    from semantic_slam_tpu.viz.markers import export_session
+
+    os.makedirs(out_dir, exist_ok=True)
+    kf_t = np.array([k.stamp for k in engine.keyframes])
+    kf_poses = engine.get_keyframe_poses()
+    if cfg.compute_txt_for_ate:
+        tum_mod.write_tum(os.path.join(out_dir, "robot_pose.txt"), kf_t, kf_poses)
+        vio_t = np.array([t for t, _ in engine.vio_traj])
+        vio_p = np.stack([p for _, p in engine.vio_traj]) if engine.vio_traj else np.zeros((0, 7))
+        tum_mod.write_tum(os.path.join(out_dir, "vio_pose.txt"), vio_t, vio_p)
+        if log.gt:
+            gt_t = np.array([e.t for e in log.gt])
+            gt_p = np.stack([e.pose7 for e in log.gt])
+            tum_mod.write_tum(os.path.join(out_dir, "gt_pose.txt"), gt_t, gt_p)
+
+    export_session(out_dir, engine)
+
+    history = engine.stats_history
+    summary = {
+        "profile": profile,
+        "device": str(engine.device),
+        "keyframes": len(engine.keyframes),
+        "landmarks": int(engine.table.count),
+        "edges": int(engine.graph.num_edges()),
+        "optimize_calls": len([s for s in history if s["iterations"] > 0]),
+        "mean_solve_ms": float(np.mean([s["solve_seconds"] for s in history]) * 1e3) if history else None,
+    }
+    if log.gt:
+        gt_t = np.array([e.t for e in log.gt])
+        gt_xyz = np.stack([e.pose7[:3] for e in log.gt])
+        vio_t = np.array([t for t, _ in engine.vio_traj])
+        vio_xyz = np.stack([p[:3] for _, p in engine.vio_traj])
+        summary["ate_rmse_optimized"] = ate_mod.ate_rmse(kf_t, kf_poses[:, :3], gt_t, gt_xyz, align=False)
+        summary["ate_rmse_vio"] = ate_mod.ate_rmse(vio_t, vio_xyz, gt_t, gt_xyz, align=False)
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    with open(os.path.join(out_dir, "stats.jsonl"), "w") as f:
+        for s in history:
+            f.write(json.dumps(s) + "\n")
+    return summary
+
+
+def cmd_run(args) -> dict:
+    cfg = make_config(args)
+    log = load_replay_log(args.log)
+    engine = run_session(log, cfg, args.device)
+    summary = write_outputs(args.out, args.profile, cfg, engine, log)
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="semantic_slam_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("synth", help="generate a synthetic replay log (no JAX needed)")
+    s.add_argument("--out", required=True)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--steps", type=int, default=720)
+    s.add_argument("--sensor-every", type=int, default=3)
+    s.add_argument("--drift", type=float, default=0.006)
+    s.add_argument("--loops", type=float, default=2.0)
+    s.add_argument("--height", type=int, default=240)
+    s.add_argument("--width", type=int, default=320)
+    s.add_argument("--cam-pitch-deg", type=float, default=0.0)
+    s.add_argument("--scene", default="lab", choices=["lab", "kitti", "dense_indoor", "corridor"])
+    s.add_argument("--depth", action="store_true")
+
+    r = sub.add_parser("run", help="replay a log through the engine")
+    r.add_argument("--log", required=True)
+    r.add_argument("--profile", default="yolo_detector")
+    r.add_argument("--out", default="results")
+    r.add_argument("--compute-ate", action="store_true")
+    r.add_argument("--max-keyframes", type=int, default=0, help="cap graph capacities")
+    r.add_argument("--crop-size", type=int, default=0, help="override bbox crop grid")
+    r.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.cmd == "synth":
+        from semantic_slam_tpu.cli import cmd_synth
+
+        cmd_synth(args)
+    else:
+        cmd_run(args)
+
+
+if __name__ == "__main__":
+    main()

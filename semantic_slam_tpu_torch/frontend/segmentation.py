@@ -1,0 +1,114 @@
+"""Frontend orchestrator: organized cloud + 2-D detections -> plane objects
+(port of ``semantic_slam_tpu.frontend.segmentation``).
+
+Normals are computed once on the full image; each bounding box is resampled
+onto a fixed crop grid (count gates corrected by the sampling ratio); plane
+extraction runs for all detections in one batch; the outputs are packed into
+flat ``DetectedObjects`` of D*P rows. Reference behaviors kept: the class
+whitelist (id < 0), the far-edge-only spurious-box test
+(plane_segmentation.cpp:34-38), the ``norm_point_thres`` gate on the box
+AREA, and the world pose that adds the robot translation after rotating.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from semantic_slam_tpu_torch.core import frames
+from semantic_slam_tpu_torch.frontend import normals as nrm_mod
+from semantic_slam_tpu_torch.frontend import planes as planes_mod
+
+Tensor = torch.Tensor
+
+
+class DetectedObjects(NamedTuple):
+    """Flat [D*P] plane-landmark observations for one keyframe."""
+
+    valid: Tensor  # [M] bool
+    class_id: Tensor  # [M] i32
+    prob: Tensor  # [M]
+    plane_type: Tensor  # [M] i32: 0 horizontal / 1 vertical
+    num_points: Tensor  # [M]
+    pose_cam: Tensor  # [M, 3] plane centroid, camera frame
+    normal_cam: Tensor  # [M, 4] oriented plane coeffs, camera frame
+    world_pose: Tensor  # [M, 3] centroid in world (reference recipe)
+
+
+def _bbox_sample(points, valid, normal, normal_valid, boxes, samp_h: int, samp_w: int):
+    """Strided gather of every box onto a fixed [samp_h*samp_w] grid:
+    (pts [D,N,3], normals [D,N,3], ok [D,N])."""
+    H, W = points.shape[:2]
+    D = boxes.shape[0]
+    dev, dtype = points.device, boxes.dtype
+    tlx, tly, bw, bh = boxes.unbind(-1)
+    jj = (torch.arange(samp_w, dtype=dtype, device=dev) + 0.5) * bw[:, None] / samp_w + tlx[:, None]
+    ii = (torch.arange(samp_h, dtype=dtype, device=dev) + 0.5) * bh[:, None] / samp_h + tly[:, None]
+    u = torch.clamp(jj.to(torch.int64), 0, W - 1)  # truncation toward zero, as astype(int32)
+    v = torch.clamp(ii.to(torch.int64), 0, H - 1)
+    vi, ui = v[:, :, None], u[:, None, :]
+    pts = points[vi, ui].reshape(D, -1, 3)
+    nr = normal[vi, ui].reshape(D, -1, 3)
+    ok = (valid & normal_valid)[vi, ui].reshape(D, -1)
+    return pts, nr, ok
+
+
+def segment_all(
+    points: Tensor,  # [H, W, 3] organized cloud, cam frame
+    cloud_valid: Tensor,  # [H, W] bool
+    boxes: Tensor,  # [D, 4] (tl_x, tl_y, w, h)
+    class_ids: Tensor,  # [D] i32, -1 = not whitelisted / absent
+    probs: Tensor,  # [D]
+    robot_xyzrpy: Tensor,  # [6]
+    cam_angle: Tensor,  # 0-d (radians)
+    num_point_seg: float,
+    norm_point_thres: float,
+    planar_area: float,
+    distance_thres: float,
+    cos_angular_thres: float,
+    samp_h: int = 128,
+    samp_w: int = 128,
+    max_planes: int = 4,
+    num_hypotheses: int = 128,
+    smoothing_size: int = 20,
+    strict_frames: bool = True,
+) -> DetectedObjects:
+    H, W = points.shape[:2]
+    D = boxes.shape[0]
+    dtype = points.dtype
+    N = samp_h * samp_w
+
+    normal, normal_valid = nrm_mod.compute_normals(points, cloud_valid, smoothing_size=smoothing_size)
+    h_cam = frames.horizontal_plane_normal_in_cam(robot_xyzrpy, cam_angle, strict=strict_frames)[:3]
+    T_cw = frames.t_cam_world(robot_xyzrpy, cam_angle, strict=strict_frames)
+
+    pts, nr, ok = _bbox_sample(points, cloud_valid, normal, normal_valid, boxes, samp_h, samp_w)
+    tlx, tly, bw, bh = boxes.unbind(-1)
+    # spurious bbox rejection -- exactly the reference's test
+    spurious = (bh < 0) | (bw < 0) | (tlx + bw > W) | (tly + bh > H)
+    # norm_point_thres gates on the CROP SIZE w*h (reference quirk)
+    det_ok = ~spurious & (class_ids >= 0) & (bw * bh >= norm_point_thres)
+    count_scale = torch.clamp(bw * bh, min=0.0) / N
+
+    ps = planes_mod.extract_planes(
+        pts, nr, ok & det_ok[:, None], h_cam, count_scale.to(dtype),
+        num_point_seg, planar_area, distance_thres, cos_angular_thres,
+        max_planes=max_planes, num_hypotheses=num_hypotheses,
+    )
+
+    M = D * max_planes
+    centroid = ps.centroid.reshape(M, 3)
+    ch = torch.cat([centroid, torch.ones((M, 1), dtype=dtype, device=points.device)], dim=-1)
+    world = torch.einsum("ij,mj->mi", T_cw, ch)[:, :3] + robot_xyzrpy[:3][None, :]
+
+    return DetectedObjects(
+        valid=(ps.valid & det_ok[:, None]).reshape(M),
+        class_id=class_ids.repeat_interleave(max_planes),
+        prob=probs.repeat_interleave(max_planes),
+        plane_type=ps.hv_flag.reshape(M),
+        num_points=ps.num_points.reshape(M),
+        pose_cam=centroid,
+        normal_cam=ps.coeffs.reshape(M, 4),
+        world_pose=world,
+    )

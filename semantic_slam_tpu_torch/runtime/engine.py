@@ -1,0 +1,645 @@
+"""The SLAM engine: keyframe queue, tick loop, graph growth, state sync (port
+of ``semantic_slam_tpu.runtime.engine`` for the dense-solver slice).
+
+The host drives the same sequential loop as the JAX engine (keyframe gate,
+latest-wins sensor pairing, queue bookkeeping, in numpy), and the device
+work runs eagerly on ``device``:
+
+  * ``_process_keyframe``  -- node + odometry-edge append, frontend
+    (normals, batched plane extraction), association, landmark ingest;
+  * ``_ingest_keyframes_batch`` -- a run of detection-less keyframes;
+  * ``_optimize_tick``     -- dense Schur LM, landmark marginals, table
+    sync, and the packed ``info`` vector that the host fetches once.
+
+Host traffic per tick: two flags per LM iteration and the ``info`` vector.
+The reference's optimize gate (at least ``min_edges`` edges) is decided on
+the host from the count mirrors; only while they are below the gate does
+the solver fetch the edge count.
+
+Configurations that need a path not ported yet raise ``NotImplementedError``
+naming it. Method names match the JAX engine, since
+``semantic_slam_tpu.io.replay`` drives the engine by duck typing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from semantic_slam_tpu.config import CLASS_TO_ID, PLANE_VERTICAL, SlamConfig
+from semantic_slam_tpu.core import np_geometry as npg
+from semantic_slam_tpu.runtime.keyframe_gate import KeyframeGate
+from semantic_slam_tpu.utils.profiling import log_optimize
+from semantic_slam_tpu_torch.assoc import association as assoc_mod
+from semantic_slam_tpu_torch.core import geometry as geo
+from semantic_slam_tpu_torch.frontend import depth as depth_mod
+from semantic_slam_tpu_torch.frontend import segmentation as seg_mod
+from semantic_slam_tpu_torch.graph import state as gs
+from semantic_slam_tpu_torch.graph.state import set_rows
+from semantic_slam_tpu_torch.solver import lm as lm_mod
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class KeyframeMeta:
+    stamp: float
+    odom: np.ndarray  # pose7
+    robot_pose: np.ndarray  # pose7 snapshot at creation
+    accum_distance: float
+    cloud: tuple[np.ndarray, np.ndarray | None] | None  # host (points [H,W,3], valid)
+    boxes: np.ndarray | None  # [D,4]
+    class_ids: np.ndarray | None
+    probs: np.ndarray | None
+    node_idx: int | None = None
+    # depth-image mode: cloud holds ([H,W] u16 depth, None) and these are set
+    depth_intr: np.ndarray | None = None  # [4] (fx, fy, cx, cy)
+    depth_scale: float = 1e-3
+
+
+def _unported(cfg: SlamConfig) -> list[str]:
+    """Paths this configuration needs that the port does not have yet."""
+    s = cfg.solver
+    missing = []
+    if s.linear_solver != "dense":
+        missing.append(f"linear_solver={s.linear_solver!r} (SoA Schur-PCG solver)")
+    if cfg.mesh.num_devices > 1:
+        missing.append("mesh.num_devices > 1 (sharded solver)")
+    if s.fixed_lag_window > 0:
+        missing.append("fixed_lag_window > 0 (fixed-lag marginalization)")
+    if cfg.use_plane_landmarks:
+        missing.append("use_plane_landmarks (plane landmarks)")
+    if s.ingest_window > 1:
+        missing.append("ingest_window > 1 (windowed ingest)")
+    if not cfg.information.use_const_inf_matrix:
+        missing.append("use_const_inf_matrix=False (fitness information)")
+    if cfg.segmentation.adaptive_normals:
+        missing.append("adaptive_normals (adaptive-window normals)")
+    if cfg.autosave_every_n_ticks > 0:
+        missing.append("autosave_every_n_ticks > 0 (checkpoint I/O)")
+    if cfg.save_graph:
+        missing.append("save_graph (g2o export)")
+    return missing
+
+
+def _ingest_keyframes_batch(graph: gs.GraphState, odoms: Tensor, prev_odom7: Tensor, has_prev: bool, info6: Tensor):
+    """Append a run of B keyframe nodes ``odoms [B,7]`` and the odometry
+    chain edges ``prev^-1 * odom`` (semantic_graph_slam.cpp:104-150); row 0
+    gets no edge when the graph was empty."""
+    B = odoms.shape[0]
+    dev = odoms.device
+    tgt = graph.num_poses + torch.arange(B, device=dev)
+    prevs = torch.cat([prev_odom7[None], odoms[:-1]])
+    meas = geo.pose_mul(geo.pose_inv(prevs), odoms)
+    first = 0 if has_prev else 1
+    n_e = B - first
+    e_tgt = graph.num_odom + torch.arange(n_e, device=dev)
+    return graph.replace(
+        poses=set_rows(graph.poses, tgt, odoms),
+        num_poses=graph.num_poses + B,
+        odom_i=set_rows(graph.odom_i, e_tgt, (tgt[first:] - 1).to(torch.int32)),
+        odom_j=set_rows(graph.odom_j, e_tgt, tgt[first:].to(torch.int32)),
+        odom_meas=set_rows(graph.odom_meas, e_tgt, meas[first:]),
+        odom_info=set_rows(graph.odom_info, e_tgt, info6),
+        num_odom=graph.num_odom + n_e,
+    )
+
+
+def _ingest_landmarks(graph: gs.GraphState, valid, lm_id, is_new, local, world, kf_idx, info3):
+    """Masked append of landmark nodes + observation edges. Association
+    assigns new ids sequentially from the table count, which equals
+    graph.num_landmarks, so node indices match table ids."""
+    new = valid & is_new
+    node_idx = graph.num_landmarks + torch.cumsum(new.to(torch.int32), dim=0) - 1
+    edge_idx = graph.num_lme + torch.cumsum(valid.to(torch.int32), dim=0) - 1
+    kf_col = torch.as_tensor(kf_idx, device=valid.device).to(torch.int32)
+    return graph.replace(
+        landmarks=set_rows(graph.landmarks, node_idx, world, new),
+        num_landmarks=graph.num_landmarks + torch.sum(new.to(torch.int32)).to(torch.int32),
+        lme_k=set_rows(graph.lme_k, edge_idx, kf_col, valid),
+        lme_l=set_rows(graph.lme_l, edge_idx, lm_id.to(torch.int32), valid),
+        lme_meas=set_rows(graph.lme_meas, edge_idx, local, valid),
+        lme_info=set_rows(graph.lme_info, edge_idx, info3, valid),
+        num_lme=graph.num_lme + torch.sum(valid.to(torch.int32)).to(torch.int32),
+    )
+
+
+def _process_keyframe(
+    graph, table, odom7, prev_odom7, has_prev, info6, points, cloud_valid, cam_intr,
+    depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle, seg_params: dict,
+    assoc_params: dict, lm_info3, *, samp_h, samp_w, max_planes, num_hypotheses,
+    smoothing_size, strict_frames, use_rtabmap_offset, depth_input,
+):
+    """One detection-bearing keyframe: node+edge append, (depth
+    backprojection,) frontend, association, landmark ingest."""
+    kf_idx = graph.num_poses
+    graph = _ingest_keyframes_batch(graph, odom7[None], prev_odom7, has_prev, info6)
+    if depth_input:
+        points, cloud_valid = depth_mod.backproject_depth(points, cam_intr, depth_scale)
+    dets = seg_mod.segment_all(
+        points, cloud_valid, boxes, class_ids, probs, robot_xyzrpy, cam_angle,
+        **seg_params, samp_h=samp_h, samp_w=samp_w, max_planes=max_planes,
+        num_hypotheses=num_hypotheses, smoothing_size=smoothing_size,
+        strict_frames=strict_frames,
+    )
+    table, res = assoc_mod.associate(
+        table, dets, robot_xyzrpy, cam_angle, **assoc_params,
+        strict_frames=strict_frames, rtabmap_y_offset=use_rtabmap_offset,
+    )
+    graph = _ingest_landmarks(
+        graph, res.valid, res.lm_id, res.is_new, res.local_pose, res.world_pose, kf_idx, lm_info3
+    )
+    return graph, table, dets
+
+
+def _optimize_tick(
+    graph, table, marginals, last_idx: int, *, do_opt: bool, init_lambda: float,
+    max_iterations: int, min_edges: int, rel_tol: float, robust_kind: str,
+    robust_delta: float, need_marginals: bool,
+):
+    """LM optimize, marginal recovery, table sync, packed stats. Returns
+    (graph, table, marginals, info [8+7] on the device, iterations)."""
+    zero = graph.poses.new_zeros(())
+    stats = lm_mod.LMStats(0, zero, zero, zero)
+    if do_opt:
+        out = lm_mod.lm_optimize(
+            graph, max_iterations=max_iterations, min_edges=min_edges, rel_tol=rel_tol,
+            robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda,
+            with_marginals=need_marginals,
+        )
+        if out[1].iterations > 0:  # the solve ran (enough edges)
+            graph, stats = out[0], out[1]
+            marg2 = out[2] if need_marginals else None
+            # Euclidean-gating profiles never read covariances: the table
+            # keeps its own (exported ones come from _export_covariances)
+            has_lms = table.count > 0
+            t2 = assoc_mod.sync_from_graph(table, graph.landmarks, table.cov if marg2 is None else marg2)
+            table = assoc_mod.LandmarkTable(
+                **{
+                    f: torch.where(has_lms, getattr(t2, f), getattr(table, f))
+                    for f in assoc_mod.TABLE_FIELDS
+                }
+            )
+            if marg2 is not None:
+                marginals = torch.where(has_lms, marg2, marginals)
+
+    dtype = graph.poses.dtype
+    head = torch.stack(
+        [
+            torch.tensor(float(stats.iterations), dtype=dtype, device=graph.poses.device),
+            stats.chi2_initial.to(dtype),
+            stats.chi2_final.to(dtype),
+            stats.lambda_final.to(dtype),
+            graph.num_poses.to(dtype),
+            graph.num_landmarks.to(dtype),
+            graph.num_odom.to(dtype),
+            graph.num_lme.to(dtype),
+        ]
+    )
+    info = torch.cat([head, graph.poses[last_idx]])  # + optimized last-keyframe estimate
+    return graph, table, marginals, info, stats.iterations
+
+
+def _is_det(kf: KeyframeMeta) -> bool:
+    return kf.boxes is not None and kf.cloud is not None and len(kf.boxes) > 0
+
+
+class SlamEngine:
+    """Single-session engine; feed with ``vio_callback``/``set_*`` then ``run()``.
+
+    ``device`` is where the graph, the table and every kernel live. A CUDA
+    device that does not exist is an error: nothing falls back to the CPU.
+    """
+
+    def __init__(self, config: SlamConfig, device: str | torch.device = "cuda"):
+        missing = _unported(config)
+        if missing:
+            raise NotImplementedError(
+                "not ported to semantic_slam_tpu_torch yet: " + "; ".join(missing)
+            )
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but torch sees no CUDA device")
+        self.cfg = config
+        self.dtype = torch.float64 if config.solver.dtype == "float64" else torch.float32
+        self._npdt = np.float64 if config.solver.dtype == "float64" else np.float32
+        dev, dt = self.device, self.dtype
+
+        cap = config.capacity
+        k0 = min(cap.initial_keyframes or cap.max_keyframes, cap.max_keyframes)
+        l0 = min(cap.initial_landmarks or cap.max_landmarks, cap.max_landmarks)
+        e10 = min(cap.initial_odom_edges or cap.max_odom_edges, cap.max_odom_edges)
+        e20 = min(cap.initial_landmark_edges or cap.max_landmark_edges, cap.max_landmark_edges)
+        self.graph = gs.make_graph(k0, l0, e10, e20, dtype=dt, device=dev)
+        self.table = assoc_mod.make_table(l0, dtype=dt, device=dev)
+        self.marginals = torch.eye(3, dtype=dt, device=dev).repeat(l0, 1, 1)
+        self.gate = KeyframeGate(
+            config.keyframe.delta_trans, config.keyframe.delta_angle, config.keyframe.delta_time
+        )
+
+        ident = np.array([0, 0, 0, 1, 0, 0, 0], np.float64)
+        self.robot_pose = ident.copy()
+        self.vio_pose = ident.copy()
+        self.prev_odom = ident.copy()
+        self.map2odom = ident.copy()
+        self.first_key_added = False
+
+        self._cloud: tuple[np.ndarray, np.ndarray | None] | None = None
+        self._cloud_depth_meta: tuple[np.ndarray, float] | None = None
+        self._dets: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None
+        self._det_available = False
+
+        self.keyframe_queue: list[KeyframeMeta] = []
+        self.keyframes: list[KeyframeMeta] = []
+
+        self._export_marg = None
+        self._export_marg_tick = -1
+        self._ticks_done = 0
+        self._last_lambda = 0.0
+
+        # host mirrors of device counts, refreshed by the per-tick info fetch
+        self._n_poses = 0
+        self._n_landmarks = 0
+        self._n_odom = 0
+        self._n_lme = 0
+
+        self.robot_traj: list[tuple[float, np.ndarray]] = []
+        self.vio_traj: list[tuple[float, np.ndarray]] = []
+        self.stats_history: list[dict[str, Any]] = []
+        self.last_detected_objects = None
+
+        inf = config.information
+        self._info6 = torch.diag(
+            torch.tensor([1.0 / inf.const_stddev_x] * 3 + [1.0 / inf.const_stddev_q] * 3, dtype=dt, device=dev)
+        )
+        self._lm_info3 = torch.eye(3, dtype=dt, device=dev) / config.association.land_noise_low
+        seg = config.segmentation
+        a = config.association
+        # scalar parameters stay host floats: compared against dtype tensors
+        # they round to the engine dtype, as the JAX engine's staged scalars do
+        self._seg_params = {
+            "num_point_seg": float(self._npdt(seg.num_point_seg)),
+            "norm_point_thres": float(self._npdt(seg.norm_point_thres)),
+            "planar_area": float(self._npdt(seg.planar_area)),
+            "distance_thres": float(self._npdt(seg.distance_thres)),
+            "cos_angular_thres": float(self._npdt(np.cos(np.deg2rad(seg.angular_thres_deg)))),
+        }
+        self._assoc_params = {
+            "use_maha": bool(a.use_maha_dist),
+            "maha_thres": float(self._npdt(a.maha_dist_thres)),
+            "eq_thres": float(self._npdt(a.eq_dist_thres)),
+            "land_noise": float(self._npdt(a.land_noise_low)),
+            "use_plane_gate": bool(a.use_plane_gate),
+            "plane_cos_thres": float(self._npdt(np.cos(np.deg2rad(a.plane_angle_thres_deg)))),
+            "plane_offset_thres": float(self._npdt(a.plane_offset_thres)),
+        }
+        self._cam_angle = torch.tensor(config.camera_angle_rad, dtype=dt, device=dev)
+
+        if config.add_first_lan:
+            self.add_first_pose_and_landmark()
+
+    def _tensor(self, a, dtype=None) -> Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype or self.dtype)
+
+    # ------------------------------------------------------------------
+    # sensor ingestion (latest-wins, semantic_graph_slam.cpp:342-364)
+    # ------------------------------------------------------------------
+
+    def set_point_cloud(self, points, valid) -> None:
+        self._cloud = (np.asarray(points), np.asarray(valid))
+        self._cloud_depth_meta = None
+
+    def set_depth_image(self, depth, intrinsics, depth_scale: float = 1e-3) -> None:
+        self._cloud = (np.asarray(depth, np.uint16), None)
+        self._cloud_depth_meta = (np.asarray(intrinsics, np.float64), float(depth_scale))
+
+    def set_detections(self, boxes: np.ndarray, class_ids: np.ndarray, probs: np.ndarray) -> None:
+        self._dets = (np.asarray(boxes), np.asarray(class_ids), np.asarray(probs))
+        self._det_available = True
+
+    def vio_callback(self, stamp: float, odom7: np.ndarray, odom_cov: np.ndarray | None = None) -> None:
+        """Gated keyframe creation (semantic_graph_slam.cpp:234-287)."""
+        odom7 = np.asarray(odom7, np.float64)
+        gate_hit = self.gate.update(odom7, stamp)
+        det_trigger = self.cfg.update_key_using_det and self._det_available
+        if not gate_hit and not det_trigger:
+            if self.first_key_added:
+                inc = npg.pose_mul(npg.pose_inv(self.prev_odom), odom7)
+                self.robot_pose = npg.pose_mul(self.robot_pose, inc)
+            self.vio_pose = odom7
+            self.prev_odom = odom7
+            self._record_traj(stamp)
+            return
+
+        cloud = self._cloud  # latest-wins; kept even when stale (:264-265)
+        if self._det_available and self._dets is not None:
+            boxes, cids, probs = self._dets
+            self._det_available = False
+        else:
+            boxes = cids = probs = None
+
+        dm = self._cloud_depth_meta
+        self.keyframe_queue.append(
+            KeyframeMeta(
+                stamp=stamp,
+                odom=odom7.copy(),
+                robot_pose=self.robot_pose.copy(),
+                accum_distance=self.gate.accum_distance,
+                cloud=cloud,
+                boxes=boxes,
+                class_ids=cids,
+                probs=probs,
+                depth_intr=None if dm is None else dm[0],
+                depth_scale=1e-3 if dm is None else dm[1],
+            )
+        )
+        self.vio_pose = odom7
+        self.prev_odom = odom7
+        self.first_key_added = True
+        self._record_traj(stamp)
+
+    def _record_traj(self, stamp: float) -> None:
+        self.robot_traj.append((stamp, self.robot_pose.copy()))
+        self.vio_traj.append((stamp, self.vio_pose.copy()))
+
+    # ------------------------------------------------------------------
+    # the tick (semantic_graph_slam.cpp:58-102)
+    # ------------------------------------------------------------------
+
+    def _opt_statics(self) -> dict:
+        s = self.cfg.solver
+        # edges only grow, so the mirrors (this tick's odometry edges, last
+        # tick's observation edges) bound the count from below: once they
+        # reach the gate, lm_optimize need not fetch the count
+        gate_passed = self._n_odom + self._n_lme >= s.min_edges_to_optimize
+        return dict(
+            max_iterations=s.max_iterations,
+            min_edges=0 if gate_passed else s.min_edges_to_optimize,
+            rel_tol=s.rel_decrease_tol,
+            robust_kind=s.robust_kernel,
+            robust_delta=s.robust_delta,
+            # eq-gating never reads landmark covariances: skip the recovery
+            need_marginals=bool(self.cfg.association.use_maha_dist),
+        )
+
+    def run(self) -> bool:
+        if not self.keyframe_queue:
+            return False
+        n = min(len(self.keyframe_queue), self.cfg.capacity.max_keyframes_per_update)
+        batch, self.keyframe_queue = self.keyframe_queue[:n], self.keyframe_queue[n:]
+
+        self._ensure_capacity(batch)
+
+        n_opt = max(1, self.cfg.solver.optimize_every_n_ticks)
+        do_opt = self._ticks_done % n_opt == 0
+        self._ticks_done += 1
+        init_lam = self._last_lambda if self.cfg.solver.warm_start_lambda else 0.0
+
+        t0 = time.perf_counter()
+        i = 0
+        while i < len(batch):
+            kf = batch[i]
+            has_prev = len(self.keyframes) > 0
+            prev_odom = self.keyframes[-1].odom if has_prev else kf.odom
+            if _is_det(kf):
+                self._process_keyframe_with_detections(kf, prev_odom, has_prev)
+                run = [kf]
+            else:
+                # contiguous run of detection-less keyframes -> one batched append
+                j = i
+                while j < len(batch) and not _is_det(batch[j]):
+                    j += 1
+                run = batch[i:j]
+                self.graph = _ingest_keyframes_batch(
+                    self.graph,
+                    self._tensor(np.stack([r.odom for r in run])),
+                    self._tensor(prev_odom),
+                    has_prev,
+                    self._info6,
+                )
+            for b, r in enumerate(run):
+                r.node_idx = self._n_poses
+                self._n_poses += 1
+                if has_prev or b > 0:
+                    self._n_odom += 1
+                self.keyframes.append(r)
+            i += len(run)
+
+        self.graph, self.table, self.marginals, info, iters = _optimize_tick(
+            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx,
+            do_opt=do_opt, init_lambda=init_lam, **self._opt_statics(),
+        )
+        info = info.cpu().numpy().astype(np.float64)  # the tick's device->host fetch
+        solve_s = time.perf_counter() - t0
+        self._absorb_info(info, iters)
+
+        if iters > 0:
+            # clamp: a stalled tick exits with lambda > 1e12, which would
+            # otherwise poison subsequent warm-started solves
+            self._last_lambda = min(float(info[3]), 1e6)
+
+        class _S:
+            iterations = iters
+            chi2_initial = info[1]
+            chi2_final = info[2]
+
+        log_optimize(
+            self.cfg.verbose, _S, solve_s,
+            self._n_poses + self._n_landmarks, self._n_odom + self._n_lme,
+        )
+        self._record_stats(iters, info, solve_s)
+        self.first_key_added = True
+        return True
+
+    def _absorb_info(self, info: np.ndarray, iters: int) -> None:
+        self._n_poses = int(info[4])
+        self._n_landmarks = int(info[5])
+        self._n_odom = int(info[6])
+        self._n_lme = int(info[7])
+        if iters > 0:
+            est = info[8:15]
+            self.robot_pose = est.copy()
+            self.map2odom = npg.pose_mul(est, npg.pose_inv(self.keyframes[-1].odom))
+
+    def _record_stats(self, iters: int, info: np.ndarray, seconds: float) -> None:
+        self.stats_history.append(
+            {
+                "iterations": iters,
+                "chi2_initial": float(info[1]),
+                "chi2_final": float(info[2]),
+                "solve_seconds": seconds,
+                "num_poses": self._n_poses,
+                "num_landmarks": self._n_landmarks,
+                "num_edges": self._n_odom + self._n_lme,
+            }
+        )
+
+    def finalize(self) -> bool:
+        """Drain the queue, then force one optimize pass over the current
+        graph (for ``optimize_every_n_ticks > 1`` sessions). No-op on an
+        empty graph."""
+        while self.keyframe_queue:
+            self.run()
+        if not self.keyframes:
+            return False
+        t0 = time.perf_counter()
+        self.graph, self.table, self.marginals, info, iters = _optimize_tick(
+            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx,
+            do_opt=True, init_lambda=0.0, **self._opt_statics(),
+        )
+        info = info.cpu().numpy().astype(np.float64)
+        self._absorb_info(info, iters)
+        self._record_stats(iters, info, time.perf_counter() - t0)
+        return iters > 0
+
+    # ------------------------------------------------------------------
+
+    def _process_keyframe_with_detections(self, kf: KeyframeMeta, prev_odom, has_prev: bool) -> None:
+        cfg = self.cfg
+        seg = cfg.segmentation
+        D = cfg.capacity.max_detections_per_frame
+        boxes = np.zeros((D, 4), np.float64)
+        cids = np.full((D,), -1, np.int32)
+        probs = np.zeros((D,), np.float64)
+        nd = min(len(kf.boxes), D)
+        boxes[:nd] = kf.boxes[:nd]
+        cids[:nd] = kf.class_ids[:nd]
+        probs[:nd] = kf.probs[:nd]
+
+        points, valid = kf.cloud
+        depth_input = kf.depth_intr is not None
+        if depth_input:
+            points_t = self._tensor(points, torch.int32)  # u16 depth, widened
+            valid_t = None
+            cam_intr = self._tensor(kf.depth_intr.astype(self._npdt))
+            depth_scale = self._tensor(self._npdt(kf.depth_scale))
+        else:
+            points_t = self._tensor(np.asarray(points, self._npdt))
+            valid_t = self._tensor(valid, torch.bool)
+            cam_intr = depth_scale = None
+
+        self.graph, self.table, dets = _process_keyframe(
+            self.graph, self.table,
+            self._tensor(kf.odom.astype(self._npdt)),
+            self._tensor(np.asarray(prev_odom, self._npdt)),
+            has_prev, self._info6, points_t, valid_t, cam_intr, depth_scale,
+            self._tensor(boxes.astype(self._npdt)),
+            self._tensor(cids, torch.int32),
+            self._tensor(probs.astype(self._npdt)),
+            self._tensor(npg.pose_to_xyzrpy(kf.robot_pose).astype(self._npdt)),
+            self._cam_angle, self._seg_params, self._assoc_params, self._lm_info3,
+            samp_h=seg.crop_height,
+            samp_w=seg.crop_width,
+            max_planes=seg.max_planes_per_detection,
+            num_hypotheses=seg.num_hypotheses,
+            smoothing_size=seg.normal_smoothing_size,
+            strict_frames=cfg.strict_reference_frames,
+            use_rtabmap_offset=cfg.association.use_rtab_map_odom,
+            depth_input=depth_input,
+        )
+        self.last_detected_objects = dets  # observability (seg_obj_vec_)
+
+    def add_first_pose_and_landmark(self) -> None:
+        """Synthetic seed (semantic_graph_slam.cpp:289-332): identity keyframe
+        + fixed 'bucket'/vertical landmark with 0.1 covariance."""
+        cfg = self.cfg
+        dev, dt = self.device, self.dtype
+        pose = np.array([cfg.first_lan_x, cfg.first_lan_y, cfg.first_lan_z])
+        t = self.table
+        one = torch.zeros((), dtype=torch.int64, device=dev)
+        self.table = t.replace(
+            world=set_rows(t.world, one, self._tensor(pose.astype(self._npdt))),
+            cov=set_rows(t.cov, one, torch.eye(3, dtype=dt, device=dev) * 0.1),
+            class_id=set_rows(t.class_id, one, torch.tensor(CLASS_TO_ID["bucket"], dtype=torch.int32, device=dev)),
+            plane_type=set_rows(t.plane_type, one, torch.tensor(PLANE_VERTICAL, dtype=torch.int32, device=dev)),
+            normal=set_rows(t.normal, one, self._tensor(np.array([-0.4, 0.86, 0.0, 0.0], self._npdt))),
+            count=torch.ones((), dtype=torch.int32, device=dev),
+        )
+        ident = np.array([0, 0, 0, 1, 0, 0, 0], np.float64)
+        ident_t = self._tensor(ident.astype(self._npdt))
+        self.graph = _ingest_keyframes_batch(self.graph, ident_t[None], ident_t, False, self._info6)
+        self.keyframes.append(
+            KeyframeMeta(
+                stamp=0.0, odom=ident, robot_pose=ident, accum_distance=0.0,
+                cloud=None, boxes=None, class_ids=None, probs=None, node_idx=0,
+            )
+        )
+        pose_t = self._tensor(pose[None, :].astype(self._npdt))
+        true1 = torch.ones((1,), dtype=torch.bool, device=dev)
+        self.graph = _ingest_landmarks(
+            self.graph, true1, torch.zeros((1,), dtype=torch.int32, device=dev), true1,
+            pose_t, pose_t, 0, torch.eye(3, dtype=dt, device=dev) / 0.1,
+        )
+        self._n_poses = 1
+        self._n_landmarks = 1
+        self._n_lme = 1
+
+    def _ensure_capacity(self, batch: list[KeyframeMeta]) -> None:
+        """Double capacities, from the host count mirrors, when the incoming
+        batch could overflow them."""
+        mpd = self.cfg.capacity.max_detections_per_frame * self.cfg.segmentation.max_planes_per_detection
+        need_poses = self._n_poses + len(batch)
+        need_lms = self._n_landmarks + mpd * len(batch)
+        need_oe = self._n_odom + len(batch)
+        need_le = self._n_lme + mpd * len(batch)
+        while (
+            need_poses > self.graph.max_poses
+            or need_oe > self.graph.odom_i.shape[0]
+            or need_le > self.graph.lme_k.shape[0]
+            or need_lms > self.graph.max_landmarks
+        ):
+            self.graph = gs.grow_graph(self.graph)
+            self.table = assoc_mod.grow_table(self.table)
+            self.marginals = torch.eye(3, dtype=self.dtype, device=self.device).repeat(
+                self.graph.max_landmarks, 1, 1
+            )
+
+    # ------------------------------------------------------------------
+    # getters mirroring the reference API (semantic_graph_slam.h:27-113)
+    # ------------------------------------------------------------------
+
+    def get_robot_pose(self) -> np.ndarray:
+        return self.robot_pose.copy()
+
+    def get_map2odom(self) -> np.ndarray:
+        return self.map2odom.copy()
+
+    def get_vio_pose(self) -> np.ndarray:
+        return self.vio_pose.copy()
+
+    def get_keyframe_poses(self) -> np.ndarray:
+        """Optimized keyframe trajectory [N,7]."""
+        return self.graph.poses[: self._n_poses].cpu().numpy().astype(np.float64)
+
+    def get_keyframe_pose(self, kf: KeyframeMeta) -> np.ndarray | None:
+        if kf.node_idx is None:
+            return None
+        return self.graph.poses[kf.node_idx].cpu().numpy().astype(np.float64)
+
+    def get_mapped_landmarks(self):
+        n = int(self.table.count)
+        t = self.table
+        return {
+            "pose": t.world[:n].cpu().numpy().astype(np.float64),
+            "covariance": self._export_covariances()[:n].cpu().numpy().astype(np.float64),
+            "class_id": t.class_id[:n].cpu().numpy(),
+            "plane_type": t.plane_type[:n].cpu().numpy(),
+            "normal": t.normal[:n].cpu().numpy().astype(np.float64),
+        }
+
+    def _export_covariances(self) -> Tensor:
+        """Landmark covariances for export: Mahalanobis profiles refresh
+        table.cov every optimizing tick; Euclidean ones recover marginals on
+        demand here, at most once per tick."""
+        if self.cfg.association.use_maha_dist:
+            return self.table.cov
+        if int(self.table.count) == 0 or self._n_lme == 0:
+            return self.table.cov
+        if self._export_marg_tick != self._ticks_done:
+            self._export_marg = lm_mod.landmark_marginals(self.graph)
+            self._export_marg_tick = self._ticks_done
+        return self._export_marg
