@@ -7,17 +7,29 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero
 before the result line:
 
 1. card   -- the card's name and power limit (nvidia-smi) and torch's name;
-2. build  -- compile every kernel of ``semantic_slam_tpu_torch/csrc`` with nvcc;
-3. kernel -- each kernel against its plain PyTorch version on the card, at the
-             shapes the main path gives it and at ragged / empty edge cases,
-             timed with CUDA events after warm-up;
-4. slice  -- a 640x480 synthetic session through the port's ``cli run`` path
-             (profile ``yolo_detector``, its own capacities K=512/L=128/E2=2048)
-             on the card, with the launch counters reset just before it.
+2. build  -- compile every kernel of ``semantic_slam_tpu_torch/csrc`` with nvcc,
+             one process per source, all started together;
+3. kernels against plain -- each kernel against its plain PyTorch version on
+             the card, at the shapes the main paths give it and at ragged /
+             empty edge cases, timed with CUDA events after warm-up:
+             K5 (RANSAC scoring) at [D=8, N=65,536, S=128]; K1-K4 (the SoA
+             Schur-PCG solver) at the bench shape K=4096/L=1024/E2=16384
+             (R=4), at the engine's ``--max-keyframes 4096`` shape (R=32) and
+             at a ragged K=1000, under robust none/huber/dcs;
+4. fixed-work LM -- 8 LM iterations of 128 CG steps at the bench shape,
+             through the kernels and through the plain versions;
+5. dense slice -- a 640x480 synthetic session through the port's ``cli run``
+             path (profile ``yolo_detector``, its own capacities
+             K=512/L=128/E2=2048, dense Schur LM), counters reset just before;
+6. pcg slice -- the same session with ``--solver pcg --max-keyframes 4096``
+             (K=4096/L=1024/E2=16384, R=32): every LM iteration runs K1-K4;
+             the counters are reset just before it and checked against the
+             LM's iteration counts just after.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``. Artifacts of the session go to
-``chiprun_out/chip_smoke/`` under the checkout.
+The line before the last is a JSON object with one entry per kernel (launches
+from the pcg slice, times and errors at its shapes, and each kernel's bound);
+the last line is ``{"ok": true, "device": {...}}``. Artifacts of the sessions
+go to ``chiprun_out/chip_smoke/`` under the checkout.
 """
 
 from __future__ import annotations
@@ -36,6 +48,23 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 # pairs within this distance of either threshold may count differently in the
 # kernel (FMA chain) and the plain version (cuBLAS matmul)
 THRESHOLD_BAND = 1e-6
+# K1-K3 against plain: max |kernel - plain| over max |plain|, per output (f32,
+# summation order only)
+LIN_RTOL = 1e-4
+# K4 against plain: ||kernel - plain|| / ||plain|| for dp and db, the repo's
+# kernel-vs-XLA CG bound (tools/tpu_kernel_check.py)
+SOLVE_RTOL = 5e-2
+# fixed-work LM: final chi2, kernels against plain
+LM_RTOL = 1e-3
+
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM rate, fp32 rate
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+BENCH = dict(K=4096, L=1024, E2=16384)  # bench.py's mid cell, R = 4
+ENGINE_R = 32  # yolo_detector: 8 detections x 4 planes per keyframe
+RAGGED = dict(K=1000, L=250, E2=7992)  # K not a multiple of any block size, R = 8
 
 
 class SmokeFailure(Exception):
@@ -49,6 +78,27 @@ def require(cond: bool, msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """The least time for the work: the larger of bytes over the HBM rate and
+    fp32 operations over the fp32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "flops": n_flops}
+
+
+def _time_ms(torch, fn, reps: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +121,7 @@ def card_info(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 3. kernel against its plain version
+# 3a. K5 against its plain version
 # ---------------------------------------------------------------------------
 
 
@@ -103,19 +153,6 @@ def _near_threshold(torch, pts, nrm, cand, hyp_n, hyp_d, dist_thres, cos_thres):
     align = nrm.double() @ hT
     near = (torch.abs(dist - dist_thres) < THRESHOLD_BAND) | (torch.abs(align - cos_thres) < THRESHOLD_BAND)
     return torch.sum(near & cand[:, :, None], dim=1)
-
-
-def _time_ms(torch, fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def check_score_hypotheses(torch) -> dict:
@@ -150,80 +187,330 @@ def check_score_hypotheses(torch) -> dict:
         if label == "path shape":
             ms = _time_ms(torch, lambda: kernels.score_hypotheses(*args, dist_thres, cos_thres))
             plain_ms = _time_ms(torch, lambda: kernels.score_hypotheses_ref(*args, dist_thres, cos_thres))
-            print(f"score_hypotheses [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of 20)")
-            result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            # bytes: points and normals (12 B each), the candidate mask (1 B),
+            # hypotheses (16 B) and counts (4 B); operations: per point and
+            # hypothesis two 3-term dot products as FMAs (12) and the offset add
+            b = bound(D * N * 25 + D * S * 20, D * N * S * 13)
+            print(f"score_hypotheses [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean "
+                  f"of 20); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+            result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
     return result
 
 
 # ---------------------------------------------------------------------------
-# 4. the slice
+# 3b. K1-K4 against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def run_slice(torch) -> dict:
-    from semantic_slam_tpu_torch import cli
-    from semantic_slam_tpu_torch.frontend import kernels
-    from semantic_slam_tpu_torch.runtime.engine import _is_det
+def _soa_case(torch, K: int, L: int, E2: int, R: int | None = None, perturb: bool = False):
+    """A seeded ``graph/synthetic.py`` graph (noise 0.05) on the card, in f32,
+    in SoA layout with R slots per pose (default: the graph's own bound);
+    ``perturb`` moves every pose by ~5 cm and ~0.02 rad (seeded)."""
+    from semantic_slam_tpu_torch.graph import synthetic as syn
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
 
-    t0 = time.perf_counter()
-    log = cli.make_synthetic_log(seed=0, n_steps=240, sensor_every=6, loops=1, H=480, W=640)
-    print(f"synthetic log: {len(log.clouds)} clouds, {len(log.detections)} detection frames "
-          f"({time.perf_counter() - t0:.1f} s on the host)")
+    g = syn.build_graph(K, L, E2, torch.float32, seed=0, noise=0.05, device="cuda")
+    R = R or syn.ell_rows_for(K, E2)[2]
+    if perturb:
+        # an LM iterate rather than the start: there every chain residual is
+        # 0 up to rounding (the poses integrate the odometry), and outputs
+        # made of rounding noise cannot be compared relative to themselves
+        dev = g.poses.device
+        gen = torch.Generator(device=dev).manual_seed(1)
+        t = g.poses[:, :3] + 0.05 * torch.randn(K, 3, generator=gen, device=dev)
+        q = torch.nn.functional.normalize(g.poses[:, 3:] + 0.01 * torch.randn(K, 4, generator=gen, device=dev), dim=-1)
+        g = g.replace(poses=torch.cat([t, q], dim=1))
+    se = soa.build_soa_edges(_edge_args(g), K, R, L)
+    pf, lf = _free_masks(g)
+    return g, se, pf, lf, R
+
+
+def _rel_err(torch, got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    d = float((got.double() - want.double()).abs().max())
+    return d, d / max(float(want.double().abs().max()), 1e-30)
+
+
+def _norm_err(torch, got, want) -> float:
+    return float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()).clamp_min(1e-30))
+
+
+def _init_lambda(torch, lin):
+    """The LM's first damping (``run_lm_loop_soa``'s seed)."""
+    diag_max = torch.maximum(lin.diag.diagonal(dim1=0, dim2=1).abs().max(),
+                             lin.Hll.diagonal(dim1=-2, dim2=-1).abs().max())
+    return 1e-5 * torch.clamp(diag_max, min=1.0)
+
+
+def _lin_bytes_flops(K: int, R: int, L: int, E_real: int) -> dict:
+    """Bytes and fp32 operations of each SoA kernel at one shape (4-byte
+    words; each input read once, each output written once). Operations are
+    counted from the plain versions' op sequences, rounded: about 230 per
+    observation slot to linearize, 3,000 per chain edge, 50 per slot and 520
+    per chain edge for the objective alone."""
+    E = K * R
+    return {
+        "chain_linearize": (4 * (50 * K + 120 * K + 1), 3000 * K),
+        "obs_linearize": (4 * (7 * K + 3 * L + 14 * E + L + 1 + 84 * K + 1 + 12 * E + 51 * K + 12 * L + 1),
+                          230 * E_real + 80 * K),
+        "resident_chi2": (4 * (7 * K + 3 * L + 13 * E + 43 * K + 1), 50 * E_real + 520 * K),
+    }
+
+
+def _solve_bytes_flops(K: int, R: int, L: int, E_real: int, steps: int) -> tuple[float, float]:
+    """K4: inputs v, O', the slot and CSR indices, Rt, the chain blocks and
+    diagonal, gp, gl, Hll, both masks; outputs dp, db. Per CG step about 93
+    operations per observation, 15 per landmark and 420 per pose (the two
+    matvec halves, the chain's four 6x6 products, the update and the
+    preconditioner), plus the set-up and back-substitution."""
+    E = K * R
+    n_bytes = 4 * (14 * E + 160 * K + 14 * L + 2 + 6 * K + 3 * L)
+    n_flops = steps * (93 * E_real + 15 * L + 420 * K) + 450 * K + 100 * L + 100 * E_real
+    return n_bytes, n_flops
+
+
+def check_soa_kernels(torch) -> dict:
+    """K1-K4 against their plain versions at the bench, engine and ragged
+    shapes; returns the engine shape's numbers per kernel."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels
+
+    out = {}
+    cases = (
+        ("bench R=4", BENCH, None, ("none", "huber", "dcs")),
+        (f"engine R={ENGINE_R}", BENCH, ENGINE_R, ("none", "huber", "dcs")),
+        ("ragged K=1000", RAGGED, None, ("none", "huber", "dcs")),
+    )
+    for label, shape, R_arg, kinds in cases:
+        g, se, pf, lf, R = _soa_case(torch, **shape, R=R_arg, perturb=True)
+        K, L = shape["K"], shape["L"]
+        E_real = int(se.lm_start[L])
+        bf = _lin_bytes_flops(K, R, L, E_real)
+        print(f"-- SoA kernels [{label}]: K={K} L={L} R={R}, {E_real} real slots of {K * R}")
+        timed = label.startswith("bench") or label.startswith("engine")
+        record = label.startswith("engine")
+        for kind in kinds:
+            # K2
+            ck = kernels.chain_linearize(g.poses, se)
+            cp = soa.soa_chain_linearize(g.poses, se)
+            errs = {n: _rel_err(torch, a, b) for n, a, b in zip(cp._fields, ck, cp)}
+            worst = max(e[1] for e in errs.values())
+            if kind == "none":
+                print(f"  chain_linearize (K2): max rel err {worst:.3g} (bound {LIN_RTOL:g}) "
+                      + ", ".join(f"{n} {e[1]:.2g}" for n, e in errs.items()))
+                require(worst <= LIN_RTOL, f"{label}: K2 disagrees with its plain version: {errs}")
+                if record:
+                    out["chain_linearize"] = {"max_abs_err": max(e[0] for e in errs.values())}
+            # K1 on the plain chain blocks, so that its own error shows
+            lk = kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind, 1.0)
+            lp = soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, kind, 1.0)
+            errs = {n: _rel_err(torch, getattr(lk, n), getattr(lp, n))
+                    for n in ("v", "Ow", "Rt", "gp", "diag", "gl", "Hll", "chi2")}
+            worst = max(e[1] for e in errs.values())
+            print(f"  obs_linearize (K1) [{kind}]: max rel err {worst:.3g} (bound {LIN_RTOL:g}) "
+                  + ", ".join(f"{n} {e[1]:.2g}" for n, e in errs.items()))
+            require(worst <= LIN_RTOL, f"{label} {kind}: K1 disagrees with its plain version: {errs}")
+            # K3
+            xk = kernels.resident_chi2(g.poses, g.landmarks, se, kind, 1.0)
+            xp = soa.soa_chi2(g.poses, g.landmarks, se, kind, 1.0)
+            e3 = _rel_err(torch, xk, xp)
+            print(f"  resident_chi2 (K3) [{kind}]: kernel {float(xk):.7g}, plain {float(xp):.7g}, rel err "
+                  f"{e3[1]:.3g} (bound {LIN_RTOL:g})")
+            require(e3[1] <= LIN_RTOL, f"{label} {kind}: K3 disagrees with its plain version")
+            if record and kind == "none":
+                out["obs_linearize"] = {"max_abs_err": max(e[0] for e in errs.values())}
+                out["resident_chi2"] = {"max_abs_err": e3[0]}
+
+        # K4 on the plain linearization at the LM's first damping
+        lin = soa.soa_linearize(g.poses, g.landmarks, se)
+        lam = _init_lambda(torch, lin)
+        for tol in (1e-8, 0.0):
+            dk, bk = kernels.resident_solve(lin, se, lam, pf, lf, 128, tol)
+            dpl, bpl = soa.soa_schur_step(lin, se, lam, pf, lf, 128, tol)
+            ed, eb = _norm_err(torch, dk, dpl), _norm_err(torch, bk, bpl)
+            finite = bool(torch.isfinite(dk).all() and torch.isfinite(bk).all())
+            print(f"  resident_solve (K4) [cg_tol={tol:g}, lam={float(lam):.4g}]: dp rel norm err {ed:.3g}, "
+                  f"db {eb:.3g} (bound {SOLVE_RTOL:g}); |dp| {float(torch.linalg.norm(dpl)):.4g}")
+            require(finite and ed <= SOLVE_RTOL and eb <= SOLVE_RTOL,
+                    f"{label} cg_tol={tol}: K4 disagrees with its plain version")
+            if record and tol == 0.0:
+                out["resident_solve"] = {"max_abs_err": max(_rel_err(torch, dk, dpl)[0], _rel_err(torch, bk, bpl)[0])}
+
+        if not timed:
+            continue
+        # times: CUDA events after warm-up; K4 at fixed work (cg_tol=0, 128 steps)
+        cp = soa.soa_chain_linearize(g.poses, se)
+        fns = {
+            "chain_linearize": (lambda: kernels.chain_linearize(g.poses, se),
+                                lambda: soa.soa_chain_linearize(g.poses, se)),
+            "obs_linearize": (lambda: kernels.obs_linearize(g.poses, g.landmarks, se, cp),
+                              lambda: soa.soa_obs_linearize(g.poses, g.landmarks, se, cp)),
+            "resident_chi2": (lambda: kernels.resident_chi2(g.poses, g.landmarks, se),
+                              lambda: soa.soa_chi2(g.poses, g.landmarks, se)),
+            "resident_solve": (lambda: kernels.resident_solve(lin, se, lam, pf, lf, 128, 0.0),
+                               lambda: soa.soa_schur_step(lin, se, lam, pf, lf, 128, 0.0)),
+        }
+        bf["resident_solve"] = _solve_bytes_flops(K, R, L, E_real, 128)
+        for name, (kern, plain) in fns.items():
+            reps = 5 if name == "resident_solve" else 20
+            ms, plain_ms = _time_ms(torch, kern, reps), _time_ms(torch, plain, reps)
+            b = bound(*bf[name])
+            print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of {reps}); "
+                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
+                  f"{b['flops'] / 1e6:.1f} Mflop)")
+            if record:
+                out[name].update(ms=ms, plain_ms=plain_ms, **b)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4. fixed-work LM
+# ---------------------------------------------------------------------------
+
+
+def check_fixed_lm(torch) -> dict:
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+
+    g, se, pf, lf, R = _soa_case(torch, **BENCH)
+    res = {}
+    for name, ops in (("kernels", soa.kernel_ops()), ("plain", soa.PLAIN_OPS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, stats, _ = soa.run_lm_loop_soa(g.poses, g.landmarks, se, pf, lf, 8, 0.0, 128, cg_tol=0.0, ops=ops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c0, c1 = float(stats.chi2_initial), float(stats.chi2_final)
+        res[name] = (stats.iterations, c0, c1, 1e3 * wall / max(stats.iterations, 1))
+        print(f"fixed-work LM [{name}] K={BENCH['K']} L={BENCH['L']} R={R}: {stats.iterations} iterations x 128 CG "
+              f"steps, chi2 {c0:.7g} -> {c1:.7g}, {res[name][3]:.3f} ms per LM iteration (host clock, synced)")
+        require(stats.iterations == 8 and math.isfinite(c1) and c1 < c0, f"fixed-work LM [{name}] failed: {stats}")
+    rel = abs(res["kernels"][2] - res["plain"][2]) / abs(res["plain"][2])
+    print(f"fixed-work LM: final chi2 rel diff {rel:.3g} (bound {LM_RTOL:g})")
+    require(rel <= LM_RTOL, "fixed-work LM: kernels and plain disagree on the final chi2")
+    return {"ms_per_iter_kernels": res["kernels"][3], "ms_per_iter_plain": res["plain"][3]}
+
+
+# ---------------------------------------------------------------------------
+# 5./6. the slices
+# ---------------------------------------------------------------------------
+
+WRAPPERS = (
+    ("chain_linearize", "semantic_slam_tpu_torch.solver.kernels"),
+    ("obs_linearize", "semantic_slam_tpu_torch.solver.kernels"),
+    ("resident_chi2", "semantic_slam_tpu_torch.solver.kernels"),
+    ("resident_solve", "semantic_slam_tpu_torch.solver.kernels"),
+    ("score_hypotheses", "semantic_slam_tpu_torch.frontend.kernels"),
+)
+
+
+def _wrappers():
+    import importlib
+
+    return {name: getattr(importlib.import_module(mod), name) for name, mod in WRAPPERS}
+
+
+def run_slice(torch, log, extra: list[str], label: str) -> dict:
+    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.runtime.engine import _is_det
+    from semantic_slam_tpu_torch.solver import ellk_soa
+
     args = cli.build_parser().parse_args(
         ["run", "--log", "in-process", "--profile", "yolo_detector", "--device", "cuda",
-         "--compute-ate", "--out", os.path.join(OUT_DIR, "session")]
+         "--compute-ate", "--out", os.path.join(OUT_DIR, label), *extra]
     )
     cfg = cli.make_config(args)
     cap = cfg.capacity
-    print(f"capacities K={cap.max_keyframes} L={cap.max_landmarks} E2={cap.max_landmark_edges} "
+    print(f"[{label}] capacities K={cap.max_keyframes} L={cap.max_landmarks} E2={cap.max_landmark_edges} "
           f"D={cap.max_detections_per_frame}; crop {cfg.segmentation.crop_height}x{cfg.segmentation.crop_width}, "
-          f"S={cfg.segmentation.num_hypotheses}")
+          f"S={cfg.segmentation.num_hypotheses}; solver {cfg.solver.linear_solver}")
 
-    kernels.score_hypotheses.launches = 0
-    t0 = time.perf_counter()
-    engine = cli.run_session(log, cfg, args.device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.score_hypotheses.launches
+    # the SoA LM's iterations per call, to check the launch counts against
+    calls = []
+    orig = ellk_soa.lm_optimize_soa
+
+    def recording(*a, **kw):
+        res = orig(*a, **kw)
+        calls.append(res[1].iterations)
+        return res
+
+    wrappers = _wrappers()
+    ellk_soa.lm_optimize_soa = recording
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        engine = cli.run_session(log, cfg, args.device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+    finally:
+        ellk_soa.lm_optimize_soa = orig
     summary = cli.write_outputs(args.out, args.profile, cfg, engine, log)
-    print("summary:", json.dumps(summary))
+    print(f"[{label}] summary:", json.dumps(summary))
 
     g, t = engine.graph, engine.table
     tensors = [getattr(g, f) for f in ("poses", "landmarks", "lme_k", "num_lme")] + [t.world, t.cov, engine.marginals]
-    require(all(x.device.type == "cuda" for x in tensors), "graph/table state is not on the card")
-    require(g.poses.shape[0] == cap.max_keyframes, f"graph capacity {g.poses.shape[0]} != profile K")
-    require(summary["keyframes"] > 0, "no keyframes")
-    require(summary["landmarks"] > 0, "no landmarks mapped")
+    require(all(x.device.type == "cuda" for x in tensors), f"[{label}] graph/table state is not on the card")
+    require(g.poses.shape[0] == cap.max_keyframes, f"[{label}] graph capacity {g.poses.shape[0]} != K")
+    require(summary["keyframes"] > 0, f"[{label}] no keyframes")
+    require(summary["landmarks"] > 0, f"[{label}] no landmarks mapped")
     opt = [s for s in engine.stats_history if s["iterations"] > 0]
-    require(len(opt) > 0, "no optimizing tick")
+    require(len(opt) > 0, f"[{label}] no optimizing tick")
     for s in opt:
         require(math.isfinite(s["chi2_final"]) and s["chi2_final"] <= s["chi2_initial"],
-                f"LM tick went uphill or non-finite: {s}")
-    require(math.isfinite(summary["ate_rmse_optimized"]), "ATE is not finite")
+                f"[{label}] LM tick went uphill or non-finite: {s}")
+    require(math.isfinite(summary["ate_rmse_optimized"]), f"[{label}] ATE is not finite")
     poses = engine.get_keyframe_poses()
-    require(poses.shape == (summary["keyframes"], 7) and bool((abs(poses) < 1e3).all()), "bad keyframe poses")
+    require(poses.shape == (summary["keyframes"], 7) and bool((abs(poses) < 1e3).all()), f"[{label}] bad poses")
 
     n_det_kf = sum(1 for kf in engine.keyframes if _is_det(kf))
     rounds = cfg.segmentation.max_planes_per_detection
-    print(f"score_hypotheses launches in the session: {launches} "
-          f"({n_det_kf} detection keyframes x {rounds} extraction rounds = {n_det_kf * rounds})")
-    require(launches > 0 and launches == n_det_kf * rounds, "kernel launches do not match the extraction rounds")
+    print(f"[{label}] launches: {launches}; score_hypotheses expected {n_det_kf} detection keyframes x {rounds} "
+          f"extraction rounds = {n_det_kf * rounds}")
+    require(launches["score_hypotheses"] > 0 and launches["score_hypotheses"] == n_det_kf * rounds,
+            f"[{label}] K5 launches do not match the extraction rounds")
+    iters = [s["iterations"] for s in engine.stats_history]
+    if cfg.solver.linear_solver == "pcg":
+        ran = [it for it in calls if it > 0]
+        require(ran == [it for it in iters if it > 0], f"[{label}] LM calls {calls} do not match the ticks {iters}")
+        expect = {
+            "chain_linearize": sum(it + 2 for it in ran),
+            "obs_linearize": sum(it + 2 for it in ran),
+            "resident_solve": sum(ran),
+            "resident_chi2": sum(ran) + sum(1 for it in calls if it == 0),
+        }
+        print(f"[{label}] SoA LM calls (iterations): {calls}; expected launches: K1/K2 = sum(it + 2) over "
+              f"solves, K4 = sum(it), K3 = sum(it) + skipped solves = {expect}")
+        for name, n in expect.items():
+            require(n > 0 and launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
+    else:
+        require(not calls and all(launches[n] == 0 for n, _ in WRAPPERS[:4]),
+                f"[{label}] the dense path ran SoA kernels: {launches}")
 
     tick_ms = [1e3 * s["solve_seconds"] for s in engine.stats_history]
-    iters = [s["iterations"] for s in engine.stats_history]
+
     def steady_median(ticks):
         """Median after the first tick, which carries lazy CUDA / cuBLAS /
         cuSOLVER set-up."""
         rest = ticks[1:] or ticks
         return f"{statistics.median(rest):.2f} (n={len(rest)})" if rest else "none"
 
-    print(f"ticks: {len(tick_ms)}; ms per tick (host clock, ends in the info fetch): "
+    opt_ms = [x for x, it in zip(tick_ms, iters) if it > 0]
+    print(f"[{label}] ticks: {len(tick_ms)}; ms per tick (host clock, ends in the info fetch): "
           f"all = {[round(x, 2) for x in tick_ms]}")
-    print("median ms per tick after the first of its kind: frontend-only "
-          f"{steady_median([t for t, it in zip(tick_ms, iters) if it == 0])}, optimizing "
-          f"{steady_median([t for t, it in zip(tick_ms, iters) if it > 0])}")
-    print(f"LM iterations per tick: {iters}; session wall {wall:.2f} s")
-    return {"launches": launches, "summary": summary}
+    print(f"[{label}] median ms per tick after the first of its kind: frontend-only "
+          f"{steady_median([x for x, it in zip(tick_ms, iters) if it == 0])}, optimizing {steady_median(opt_ms)}")
+    print(f"[{label}] LM iterations per tick: {iters}; session wall {wall:.2f} s; "
+          f"optimizing-tick ms per LM iteration {sum(opt_ms) / max(sum(iters), 1):.3f}")
+    return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes)}
+
+
+def check_isolation() -> None:
+    jaxish = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "__graft_entry__"
+                    or m == "semantic_slam_tpu" or m.startswith("semantic_slam_tpu."))
+    require(not jaxish, f"the JAX package or jax was imported: {jaxish[:8]}")
 
 
 def main() -> int:
@@ -242,37 +529,56 @@ def main() -> int:
 
         phase("build")
         t0 = time.perf_counter()
-        lib = _build.build(verbose=True)
-        _build.library()
-        print(f"built {os.path.relpath(lib, ROOT)} from {[os.path.relpath(s, ROOT) for s in _build.sources()]} "
-              f"in {time.perf_counter() - t0:.1f} s")
+        libs = _build.build(verbose=True)
+        for src in _build.sources():
+            _build.library(src.stem)
+        print(f"built {[os.path.relpath(p, ROOT) for p in libs]} in {time.perf_counter() - t0:.1f} s")
 
-        phase("kernel against plain")
+        phase("kernels against plain")
         k5 = check_score_hypotheses(torch)
+        soa_k = check_soa_kernels(torch)
 
-        phase("slice on the card")
+        phase("fixed-work LM")
+        lm = check_fixed_lm(torch)
+
         os.makedirs(OUT_DIR, exist_ok=True)
-        sl = run_slice(torch)
+        from semantic_slam_tpu_torch import cli
 
-        require("jax" not in sys.modules, "jax was imported")
+        t0 = time.perf_counter()
+        log = cli.make_synthetic_log(seed=0, n_steps=240, sensor_every=6, loops=1, H=480, W=640)
+        print(f"synthetic log: {len(log.clouds)} clouds, {len(log.detections)} detection frames "
+              f"({time.perf_counter() - t0:.1f} s on the host)")
+        phase("dense slice on the card")
+        dense = run_slice(torch, log, [], "dense")
+        phase("pcg slice on the card")
+        pcg = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "4096"], "pcg")
+        require(pcg["keyframes"] == dense["keyframes"],
+                f"keyframes: pcg {pcg['keyframes']} != dense {dense['keyframes']}")
+
+        check_isolation()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    kernels_line = {
-        "kernels": [
-            {
-                "name": "score_hypotheses",
-                "route": "cuda",
-                "source": "semantic_slam_tpu_torch/csrc/score_hypotheses.cu",
-                "replaces": "semantic_slam_tpu/frontend/pallas_kernels.py:35",
-                "launches": sl["launches"],
-                "max_abs_err": k5["max_abs_err"],
-                "ms": k5["ms"],
-                "plain_ms": k5["plain_ms"],
-            }
-        ]
+    meta = {
+        "obs_linearize": ("semantic_slam_tpu_torch/csrc/soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:603"),
+        "chain_linearize": ("semantic_slam_tpu_torch/csrc/soa_linearize.cu",
+                            "semantic_slam_tpu/solver/pallas_cg.py:747"),
+        "resident_chi2": ("semantic_slam_tpu_torch/csrc/soa_chi2.cu", "semantic_slam_tpu/solver/pallas_cg.py:920"),
+        "resident_solve": ("semantic_slam_tpu_torch/csrc/soa_solve.cu", "semantic_slam_tpu/solver/pallas_cg.py:230"),
+        "score_hypotheses": ("semantic_slam_tpu_torch/csrc/score_hypotheses.cu",
+                             "semantic_slam_tpu/frontend/pallas_kernels.py:35"),
     }
+    numbers = {**soa_k, "score_hypotheses": k5}
+    kernels_line = {"kernels": [
+        {
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": pcg["launches"][name],
+            **{k: numbers[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+        }
+        for name, (src, rep) in meta.items()
+    ]}
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use, every ``csrc/*.cu`` of the package is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which
-is loaded with ``ctypes``. The library lands in ``build/semantic_slam_tpu_torch/``
-at the root of the checkout and is rebuilt when a source is newer. Nothing is
-built when the package is imported, and nothing is fetched: the build uses
+Each ``csrc/<name>.cu`` of the package is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into its own shared library ``lib<name>.so`` with a plain C
+interface, loaded with ``ctypes``. All sources that need a build are
+compiled at once, one ``nvcc`` process each, started together. The libraries
+land in ``build/semantic_slam_tpu_torch/`` at the root of the checkout and
+are rebuilt when their source, or a ``csrc/*.cuh`` header, is newer. Nothing
+is built when the package is imported, and nothing is fetched: the build uses
 only the sources in the package and the CUDA toolkit.
 """
 
@@ -20,14 +22,35 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 SOURCES_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "semantic_slam_tpu_torch"
-LIB_NAME = "libslam_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points of each library: name -> (argtypes, restype)
+SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
+    "score_hypotheses": {
+        "score_hypotheses_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P], ctypes.c_int),
+    },
+    "soa_linearize": {
+        "soa_chain_lin_scratch": ([_I], ctypes.c_longlong),
+        "soa_chain_lin_launch": ([_P] * 3 + [_I] + [_P] * 8, ctypes.c_int),
+        "soa_obs_lin_scratch": ([_I, _I], ctypes.c_longlong),
+        "soa_obs_lin_launch": ([_P] * 12 + [_I, _I, _I, _I, _F] + [_P] * 10, ctypes.c_int),
+    },
+    "soa_chi2": {
+        "soa_chi2_scratch": ([_I], ctypes.c_longlong),
+        "soa_chi2_launch": ([_P] * 7 + [_I, _I, _I, _F, _P, _P, _P], ctypes.c_int),
+    },
+    "soa_solve": {
+        "soa_solve_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
+        "soa_solve_launch": ([_P] * 16 + [_F, _I, _I, _I, _I, _P, _P, _P, _I, _P], ctypes.c_int),
+    },
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,45 +67,65 @@ def sources() -> list[Path]:
     return sorted(SOURCES_DIR.glob("*.cu"))
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if the library is missing or older than a source."""
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(src: Path, headers: list[Path]) -> bool:
+    lib = lib_path(src.stem)
+    if not lib.exists():
+        return True
+    t = lib.stat().st_mtime
+    return any(p.stat().st_mtime > t for p in (src, *headers))
+
+
+def build(verbose: bool = False) -> list[Path]:
+    """Compile every source whose library is missing or stale, all at once;
+    returns the libraries."""
     srcs = sources()
-    lib = BUILD_DIR / LIB_NAME
-    if lib.exists() and all(lib.stat().st_mtime >= s.stat().st_mtime for s in srcs):
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib)
-    return lib
+    headers = sorted(SOURCES_DIR.glob("*.cuh"))
+    todo = [s for s in srcs if _stale(s, headers)]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src in todo:
+            tmp = lib_path(src.stem).with_name(f"lib{src.stem}.so.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(src)]
+            jobs.append((src, tmp, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failures = []
+        for src, tmp, cmd, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+                continue
+            if verbose:
+                print(f"-- {src.name}\n{err}", end="")
+            os.replace(tmp, lib_path(src.stem))
+        if failures:
+            raise RuntimeError("\n".join(failures))
+    return [lib_path(s.stem) for s in srcs]
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.score_hypotheses_launch.argtypes = [p, p, p, p, p, i, i, i, f, f, p, p]
-    lib.score_hypotheses_launch.restype = ctypes.c_int
-    lib.slam_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.slam_cuda_error_string.restype = ctypes.c_char_p
-
-
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``lib<name>.so``, built on first call."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            _declare(lib)
-            _lib = lib
-    return _lib
+        if name not in _libs:
+            if not (SOURCES_DIR / f"{name}.cu").exists():
+                raise KeyError(f"no kernel source csrc/{name}.cu")
+            build()
+            lib = ctypes.CDLL(str(lib_path(name)))
+            for fn, (argtypes, restype) in SIGNATURES.get(name, {}).items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            lib.slam_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.slam_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+    return _libs[name]
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+def check(code: int, what: str, name: str) -> None:
+    """Raise if a C entry point of ``lib<name>.so`` returned a CUDA error."""
     if code != 0:
-        msg = library().slam_cuda_error_string(code).decode()
+        msg = library(name).slam_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")

@@ -2,12 +2,14 @@
 
   python -m semantic_slam_tpu_torch.cli synth --out lab.npz --steps 240 --height 480 --width 640
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --profile yolo_detector --out results/ --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 4096 --device cuda
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
 ``stats.jsonl``, the TUM trajectories (with ``--compute-ate`` or a profile
-that asks for them) and the ``export_session`` files. ``synth`` is the JAX
-package's own command, which needs no JAX.
+that asks for them) and the ``export_session`` files. ``--solver pcg`` runs
+the SoA Schur-PCG solver (kernels K1-K4 on the card). ``synth`` writes the
+same ``.npz`` log as the JAX package's command.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 
 
 def make_config(args):
-    from semantic_slam_tpu.config import PROFILES, CapacityConfig
+    from semantic_slam_tpu_torch.config import PROFILES, CapacityConfig
 
     if args.profile not in PROFILES:
         sys.exit(f"unknown profile {args.profile!r}; have {sorted(PROFILES)}")
@@ -48,11 +50,15 @@ def make_config(args):
                 num_hypotheses=min(cfg.segmentation.num_hypotheses, args.crop_size),
             )
         )
+    if args.solver:
+        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, linear_solver=args.solver))
+    if args.precond:
+        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, pcg_precond=args.precond))
     return cfg
 
 
 def load_replay_log(path: str):
-    from semantic_slam_tpu.io import replay as replay_mod
+    from semantic_slam_tpu_torch.io import replay as replay_mod
 
     if not path.endswith(".npz"):
         sys.exit(f"unsupported log {path!r}: the port reads .npz logs")
@@ -60,16 +66,15 @@ def load_replay_log(path: str):
 
 
 def make_synthetic_log(**kwargs):
-    """An in-process synthetic log: ``semantic_slam_tpu.io.synthetic``'s
-    generator (the one ``synth`` writes to disk), which needs no JAX."""
-    from semantic_slam_tpu.io import synthetic as synth_mod
+    """An in-process synthetic log (the generator ``synth`` writes to disk)."""
+    from semantic_slam_tpu_torch.io import synthetic as synth_mod
 
     return synth_mod.make_synthetic_log(**kwargs)
 
 
 def run_session(log, cfg, device: str):
     """Replay ``log`` through a fresh engine; returns the engine."""
-    from semantic_slam_tpu.io import replay as replay_mod
+    from semantic_slam_tpu_torch.io import replay as replay_mod
     from semantic_slam_tpu_torch.runtime.engine import SlamEngine
 
     engine = SlamEngine(cfg, device=device)
@@ -80,9 +85,9 @@ def run_session(log, cfg, device: str):
 def write_outputs(out_dir: str, profile: str, cfg, engine, log) -> dict:
     """The shutdown work of ``semantic_slam_tpu.cli run``: TUM dumps, viz
     exports, summary.json and stats.jsonl. Returns the summary."""
-    from semantic_slam_tpu.eval import ate as ate_mod
-    from semantic_slam_tpu.io import tum as tum_mod
-    from semantic_slam_tpu.viz.markers import export_session
+    from semantic_slam_tpu_torch.eval import ate as ate_mod
+    from semantic_slam_tpu_torch.io import tum as tum_mod
+    from semantic_slam_tpu_torch.viz.markers import export_session
 
     os.makedirs(out_dir, exist_ok=True)
     kf_t = np.array([k.stamp for k in engine.keyframes])
@@ -124,6 +129,32 @@ def write_outputs(out_dir: str, profile: str, cfg, engine, log) -> dict:
     return summary
 
 
+def cmd_synth(args) -> None:
+    """Write a synthetic session to an ``.npz`` log."""
+    import math
+
+    from semantic_slam_tpu_torch.io import replay as replay_mod
+    from semantic_slam_tpu_torch.io import synthetic as synth_mod
+
+    if not args.out.endswith(".npz"):
+        raise NotImplementedError(
+            f"not ported to semantic_slam_tpu_torch yet: synth --out {args.out!r} (.slog/.bag writers); use .npz"
+        )
+    log = synth_mod.make_synthetic_log(
+        seed=args.seed, n_steps=args.steps, sensor_every=args.sensor_every, drift_noise=args.drift,
+        loops=args.loops, H=args.height, W=args.width, cam_pitch=math.radians(args.cam_pitch_deg),
+        scene=args.scene,
+    )
+    if args.depth:
+        log = synth_mod.clouds_to_depth(log)
+    replay_mod.save_log(args.out, log)
+    print(
+        f"wrote {args.out}: {len(log.odom)} odom / {len(log.clouds)} clouds / "
+        f"{len(log.depths)} depths / {len(log.detections)} detections / "
+        f"{len(log.gt)} gt"
+    )
+
+
 def cmd_run(args) -> dict:
     cfg = make_config(args)
     log = load_replay_log(args.log)
@@ -158,14 +189,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--max-keyframes", type=int, default=0, help="cap graph capacities")
     r.add_argument("--crop-size", type=int, default=0, help="override bbox crop grid")
     r.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    r.add_argument("--solver", default="", choices=["", "dense", "pcg"],
+                   help="linear solver (default: the profile's, dense)")
+    r.add_argument("--precond", default="", choices=["", "jacobi"],
+                   help="PCG preconditioner (default: the profile's, jacobi)")
     return ap
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.cmd == "synth":
-        from semantic_slam_tpu.cli import cmd_synth
-
         cmd_synth(args)
     else:
         cmd_run(args)

@@ -1,0 +1,485 @@
+// Device math shared by the SoA Schur-PCG kernels (soa_linearize.cu,
+// soa_chi2.cu, soa_solve.cu), written for Hopper (sm_90a).
+//
+// Layouts are those of semantic_slam_tpu_torch/solver/ellk_soa.py: channel
+// tensors with the big axes last, [C, R, K] per landmark slot (slot (r, k) at
+// e = r*K + k, so neighbouring threads read neighbouring k) and [C, K] per
+// pose; channel c of a [C, N] array sits at c*N. Landmark tables are [L, C].
+//
+// The chain math mirrors solver/chain_soa.py (same Taylor cutoffs and guards,
+// atan2f for the quaternion log). The two halves of the Schur matvec,
+// mv_fwd_* and mv_bwd_pose, are the math of the TPU kernels
+// _mv_fwd_kernel / _mv_bwd_kernel (solver/pallas_tiled.py) and are kept as
+// device functions so a tiled solver can reuse them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace soa {
+
+struct V3 { float v[3]; };
+struct M3 { float m[3][3]; };
+struct Q4 { float w, x, y, z; };
+
+__device__ __forceinline__ V3 v3(float a, float b, float c) { V3 r; r.v[0] = a; r.v[1] = b; r.v[2] = c; return r; }
+__device__ __forceinline__ V3 add(const V3& a, const V3& b) { return v3(a.v[0] + b.v[0], a.v[1] + b.v[1], a.v[2] + b.v[2]); }
+__device__ __forceinline__ V3 sub(const V3& a, const V3& b) { return v3(a.v[0] - b.v[0], a.v[1] - b.v[1], a.v[2] - b.v[2]); }
+__device__ __forceinline__ V3 scale(const V3& a, float s) { return v3(a.v[0] * s, a.v[1] * s, a.v[2] * s); }
+__device__ __forceinline__ V3 neg(const V3& a) { return v3(-a.v[0], -a.v[1], -a.v[2]); }
+__device__ __forceinline__ float dot(const V3& a, const V3& b) { return a.v[0] * b.v[0] + a.v[1] * b.v[1] + a.v[2] * b.v[2]; }
+__device__ __forceinline__ V3 cross(const V3& a, const V3& b) {
+  return v3(a.v[1] * b.v[2] - a.v[2] * b.v[1], a.v[2] * b.v[0] - a.v[0] * b.v[2], a.v[0] * b.v[1] - a.v[1] * b.v[0]);
+}
+
+__device__ __forceinline__ M3 mzero() { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = 0.f;
+  return r;
+}
+__device__ __forceinline__ M3 eye3() { M3 r = mzero(); r.m[0][0] = r.m[1][1] = r.m[2][2] = 1.f; return r; }
+__device__ __forceinline__ M3 madd(const M3& A, const M3& B) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = A.m[i][j] + B.m[i][j];
+  return r;
+}
+__device__ __forceinline__ M3 msub(const M3& A, const M3& B) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = A.m[i][j] - B.m[i][j];
+  return r;
+}
+__device__ __forceinline__ M3 mscale(const M3& A, float s) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = A.m[i][j] * s;
+  return r;
+}
+__device__ __forceinline__ M3 mneg(const M3& A) { return mscale(A, -1.f); }
+__device__ __forceinline__ M3 mT(const M3& A) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = A.m[j][i];
+  return r;
+}
+// A @ B
+__device__ __forceinline__ M3 mul(const M3& A, const M3& B) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = A.m[i][0] * B.m[0][j] + A.m[i][1] * B.m[1][j] + A.m[i][2] * B.m[2][j];
+  return r;
+}
+// A^T @ B
+__device__ __forceinline__ M3 mulT(const M3& A, const M3& B) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = A.m[0][i] * B.m[0][j] + A.m[1][i] * B.m[1][j] + A.m[2][i] * B.m[2][j];
+  return r;
+}
+__device__ __forceinline__ V3 mv(const M3& A, const V3& x) {
+  return v3(A.m[0][0] * x.v[0] + A.m[0][1] * x.v[1] + A.m[0][2] * x.v[2],
+            A.m[1][0] * x.v[0] + A.m[1][1] * x.v[1] + A.m[1][2] * x.v[2],
+            A.m[2][0] * x.v[0] + A.m[2][1] * x.v[1] + A.m[2][2] * x.v[2]);
+}
+// A^T x
+__device__ __forceinline__ V3 mTv(const M3& A, const V3& x) {
+  return v3(A.m[0][0] * x.v[0] + A.m[1][0] * x.v[1] + A.m[2][0] * x.v[2],
+            A.m[0][1] * x.v[0] + A.m[1][1] * x.v[1] + A.m[2][1] * x.v[2],
+            A.m[0][2] * x.v[0] + A.m[1][2] * x.v[1] + A.m[2][2] * x.v[2]);
+}
+__device__ __forceinline__ M3 hat(const V3& w) {
+  M3 r = mzero();
+  r.m[0][1] = -w.v[2]; r.m[0][2] = w.v[1];
+  r.m[1][0] = w.v[2];  r.m[1][2] = -w.v[0];
+  r.m[2][0] = -w.v[1]; r.m[2][1] = w.v[0];
+  return r;
+}
+// hat(v) @ M, in chain_soa.hat_mul's op order
+__device__ __forceinline__ M3 hat_mul(const V3& v, const M3& M) { M3 r;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    r.m[0][j] = -v.v[2] * M.m[1][j] + v.v[1] * M.m[2][j];
+    r.m[1][j] = v.v[2] * M.m[0][j] - v.v[0] * M.m[2][j];
+    r.m[2][j] = -v.v[1] * M.m[0][j] + v.v[0] * M.m[1][j];
+  }
+  return r;
+}
+// O @ hat(v) (ellk_soa._ob_product)
+__device__ __forceinline__ M3 ob_product(const M3& O, const V3& v) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    r.m[i][0] = O.m[i][1] * v.v[2] - O.m[i][2] * v.v[1];
+    r.m[i][1] = -O.m[i][0] * v.v[2] + O.m[i][2] * v.v[0];
+    r.m[i][2] = O.m[i][0] * v.v[1] - O.m[i][1] * v.v[0];
+  }
+  return r;
+}
+
+// closed-form adjugate 3x3 inverse (lm.inv33)
+__device__ __forceinline__ M3 inv33(const M3& A) {
+  const float a = A.m[0][0], b = A.m[0][1], c = A.m[0][2];
+  const float d = A.m[1][0], e = A.m[1][1], f = A.m[1][2];
+  const float g = A.m[2][0], h = A.m[2][1], i = A.m[2][2];
+  M3 r;
+  r.m[0][0] = e * i - f * h; r.m[0][1] = c * h - b * i; r.m[0][2] = b * f - c * e;
+  r.m[1][0] = f * g - d * i; r.m[1][1] = a * i - c * g; r.m[1][2] = c * d - a * f;
+  r.m[2][0] = d * h - e * g; r.m[2][1] = b * g - a * h; r.m[2][2] = a * e - b * d;
+  const float det = a * r.m[0][0] + b * r.m[1][0] + c * r.m[2][0];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) r.m[p][q] = r.m[p][q] / det;
+  return r;
+}
+
+// 6x6 inverse by the 2x2 block Schur complement of two 3x3 inverses
+// (lm.inv66); M and out are row-major [36] in registers.
+__device__ __forceinline__ void inv66(const float* M, float* out) {
+  M3 A, B, C, D;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      A.m[i][j] = M[i * 6 + j];       B.m[i][j] = M[i * 6 + j + 3];
+      C.m[i][j] = M[(i + 3) * 6 + j]; D.m[i][j] = M[(i + 3) * 6 + j + 3];
+    }
+  const M3 Ai = inv33(A);
+  const M3 CAi = mul(C, Ai);
+  const M3 Si = inv33(msub(D, mul(CAi, B)));
+  const M3 AiB = mul(Ai, B);
+  const M3 AiBSi = mul(AiB, Si);
+  const M3 TL = madd(Ai, mul(AiBSi, CAi));
+  const M3 BL = mneg(mul(Si, CAi));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      out[i * 6 + j] = TL.m[i][j];       out[i * 6 + j + 3] = -AiBSi.m[i][j];
+      out[(i + 3) * 6 + j] = BL.m[i][j]; out[(i + 3) * 6 + j + 3] = Si.m[i][j];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// quaternions (w first) and the SE3 chain (solver/chain_soa.py)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Q4 qconj(const Q4& q) { return Q4{q.w, -q.x, -q.y, -q.z}; }
+__device__ __forceinline__ Q4 qmul(const Q4& a, const Q4& b) {
+  return Q4{a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
+            a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
+            a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
+            a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
+}
+__device__ __forceinline__ Q4 qnormalize(const Q4& q) {
+  const float n = sqrtf(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z);
+  return Q4{q.w / n, q.x / n, q.y / n, q.z / n};
+}
+__device__ __forceinline__ V3 qrotate(const Q4& q, const V3& v) {
+  const V3 u = v3(q.x, q.y, q.z);
+  const V3 uv = cross(u, v);
+  return add(v, scale(add(scale(uv, q.w), cross(u, uv)), 2.f));
+}
+__device__ __forceinline__ M3 rotmat(const Q4& q) {
+  const float xx = q.x * q.x, yy = q.y * q.y, zz = q.z * q.z;
+  const float wx = q.w * q.x, wy = q.w * q.y, wz = q.w * q.z;
+  const float xy = q.x * q.y, xz = q.x * q.z, yz = q.y * q.z;
+  M3 r;
+  r.m[0][0] = 1 - 2 * (yy + zz); r.m[0][1] = 2 * (xy - wz);     r.m[0][2] = 2 * (xz + wy);
+  r.m[1][0] = 2 * (xy + wz);     r.m[1][1] = 1 - 2 * (xx + zz); r.m[1][2] = 2 * (yz - wx);
+  r.m[2][0] = 2 * (xz - wy);     r.m[2][1] = 2 * (yz + wx);     r.m[2][2] = 1 - 2 * (xx + yy);
+  return r;
+}
+__device__ __forceinline__ V3 quat_log(Q4 q) {
+  const float sign = q.w < 0.f ? -1.f : 1.f;
+  q = Q4{q.w * sign, q.x * sign, q.y * sign, q.z * sign};
+  const float w = fminf(fmaxf(q.w, -1.f), 1.f);
+  const float vnorm = sqrtf(q.x * q.x + q.y * q.y + q.z * q.z);
+  const float theta = 2.f * atan2f(vnorm, fmaxf(w, 0.f));
+  const float s = vnorm < 1e-8f ? 2.f / fmaxf(w, 1e-12f) : theta / fmaxf(vnorm, 1e-32f);
+  return v3(s * q.x, s * q.y, s * q.z);
+}
+__device__ __forceinline__ M3 so3_ljac_inv(const V3& w) {
+  const float theta2 = dot(w, w);
+  const float theta = sqrtf(theta2 + 1e-32f);
+  const M3 W = hat(w);
+  const M3 W2 = mul(W, W);
+  const float half = 0.5f * theta;
+  const float cot = theta2 < 4e-3f
+      ? 1.f / 12.f + theta2 / 720.f + theta2 * theta2 / 30240.f
+      : (1.f - half * cosf(half) / fmaxf(sinf(half), 1e-32f)) / fmaxf(theta2, 1e-32f);
+  return madd(msub(eye3(), mscale(W, 0.5f)), mscale(W2, cot));
+}
+__device__ __forceinline__ M3 se3_Q(const V3& v, const V3& w) {
+  const float theta2 = dot(w, w);
+  const float theta = sqrtf(theta2 + 1e-32f);
+  const M3 V = hat(v), W = hat(w);
+  const M3 WV = mul(W, V), VW = mul(V, W), WW = mul(W, W);
+  const M3 W_VW = mul(W, VW);
+  const bool small = theta2 < 4e-3f;
+  const float t4 = theta2 * theta2;
+  const float s = sinf(theta), c = cosf(theta);
+  const float c1 = small ? 1.f / 6.f - theta2 / 120.f + t4 / 5040.f : (theta - s) / fmaxf(theta2 * theta, 1e-32f);
+  const float c2 = small ? 1.f / 24.f - theta2 / 720.f + t4 / 40320.f
+                         : (theta2 + 2.f * c - 2.f) / fmaxf(2.f * theta2 * theta2, 1e-32f);
+  const float c3 = small ? 1.f / 120.f - theta2 / 2520.f + t4 / 120960.f
+                         : (2.f * theta - 3.f * s + theta * c) / fmaxf(2.f * theta2 * theta2 * theta, 1e-32f);
+  M3 r = mscale(V, 0.5f);
+  r = madd(r, mscale(madd(madd(WV, VW), W_VW), c1));
+  r = madd(r, mscale(msub(madd(mul(WW, V), mul(V, WW)), mscale(W_VW, 3.f)), c2));
+  r = madd(r, mscale(madd(mul(W_VW, W), mul(WW, VW)), c3));
+  return r;
+}
+
+struct ChainRes { V3 rv, rw, rel_t; Q4 rel_q; };
+
+// r = log(m^-1 T_i^-1 T_j), translation part first
+__device__ __forceinline__ ChainRes chain_residual(const V3& ti, const Q4& qi, const V3& tj, const Q4& qj,
+                                                   const V3& mt, const Q4& mq) {
+  ChainRes out;
+  const Q4 qic = qconj(qi);
+  // R^T (t_j - t_i): the difference first, as chain_soa.chain_residual_ch
+  out.rel_t = qrotate(qic, sub(tj, ti));
+  out.rel_q = qnormalize(qmul(qic, qj));
+  const Q4 mqc = qconj(mq);
+  const V3 Et = qrotate(mqc, sub(out.rel_t, mt));
+  const Q4 Eq = qnormalize(qmul(mqc, out.rel_q));
+  out.rw = quat_log(Eq);
+  out.rv = mv(so3_ljac_inv(out.rw), Et);
+  return out;
+}
+
+// information quadrants of a [6,6,K] channel array at pose k
+struct Info6 { M3 O11, O12, O21, O22; };
+__device__ __forceinline__ Info6 load_info6(const float* O, int K, int k) {
+  Info6 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      r.O11.m[i][j] = O[(i * 6 + j) * K + k];
+      r.O12.m[i][j] = O[(i * 6 + j + 3) * K + k];
+      r.O21.m[i][j] = O[((i + 3) * 6 + j) * K + k];
+      r.O22.m[i][j] = O[((i + 3) * 6 + j + 3) * K + k];
+    }
+  return r;
+}
+
+__device__ __forceinline__ float chain_chi(const ChainRes& c, const Info6& O) {
+  const V3 Orv = add(mv(O.O11, c.rv), mv(O.O12, c.rw));
+  const V3 Orw = add(mv(O.O21, c.rv), mv(O.O22, c.rw));
+  return dot(c.rv, Orv) + dot(c.rw, Orw);
+}
+
+// Store H = T J (T = J'^T O quadrants, J = [[X, Y], [0, X]]) into [6,6,K].
+__device__ __forceinline__ void store_TJ(float* H, int K, int k, const M3& T11, const M3& T12, const M3& T21,
+                                         const M3& T22, const M3& X, const M3& Y) {
+  const M3 H11 = mul(T11, X);
+  const M3 H12 = madd(mul(T11, Y), mul(T12, X));
+  const M3 H21 = mul(T21, X);
+  const M3 H22 = madd(mul(T21, Y), mul(T22, X));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      H[(i * 6 + j) * K + k] = H11.m[i][j];
+      H[(i * 6 + j + 3) * K + k] = H12.m[i][j];
+      H[((i + 3) * 6 + j) * K + k] = H21.m[i][j];
+      H[((i + 3) * 6 + j + 3) * K + k] = H22.m[i][j];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// poses and the observation slot (solver/ellk_soa.py soa_linearize)
+// ---------------------------------------------------------------------------
+
+// pose k of a [7, K] channel array: t = rows 0-2, q = rows 3-6 (w first)
+__device__ __forceinline__ void load_pose(const float* P, int K, int k, V3& t, Q4& q) {
+  t = v3(P[k], P[K + k], P[2 * K + k]);
+  q = Q4{P[3 * K + k], P[4 * K + k], P[5 * K + k], P[6 * K + k]};
+}
+
+__device__ __forceinline__ V3 load_v3(const float* a, int n, int i) { return v3(a[i], a[n + i], a[2 * n + i]); }
+__device__ __forceinline__ void store_v3(float* a, int n, int i, const V3& x) {
+  a[i] = x.v[0]; a[n + i] = x.v[1]; a[2 * n + i] = x.v[2];
+}
+__device__ __forceinline__ M3 load_m3(const float* a, int n, int i) { M3 r;
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) r.m[p][q] = a[(p * 3 + q) * n + i];
+  return r;
+}
+__device__ __forceinline__ void store_m3(float* a, int n, int i, const M3& x) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) a[(p * 3 + q) * n + i] = x.m[p][q];
+}
+__device__ __forceinline__ V3 load_row3(const float* tab, int l) { return v3(tab[3 * l], tab[3 * l + 1], tab[3 * l + 2]); }
+// loads of data that other blocks of the same launch wrote: __ldcg reads
+// through L2, past this SM's (incoherent) L1
+__device__ __forceinline__ V3 load_v3_cg(const float* a, int n, int i) {
+  return v3(__ldcg(a + i), __ldcg(a + n + i), __ldcg(a + 2 * n + i));
+}
+__device__ __forceinline__ V3 load_row3_cg(const float* tab, int l) {
+  return v3(__ldcg(tab + 3 * l), __ldcg(tab + 3 * l + 1), __ldcg(tab + 3 * l + 2));
+}
+
+enum RobustKind { ROBUST_NONE = 0, ROBUST_HUBER = 1, ROBUST_DCS = 2 };
+
+// robust rho and IRLS weight (solver/robust.py)
+__device__ __forceinline__ void robust_rho_w(float chi, int kind, float delta, float& rho, float& w) {
+  if (kind == ROBUST_HUBER) {
+    const float d2 = delta * delta;
+    const float e = sqrtf(fmaxf(chi, 1e-30f));
+    rho = chi <= d2 ? chi : 2.f * delta * e - d2;
+    w = fminf(1.f, delta / e);
+  } else if (kind == ROBUST_DCS) {
+    const float phi = delta * delta;
+    rho = 2.f * phi * chi / (phi + fmaxf(chi, 1e-30f));
+    const float s = 2.f * phi / (phi + fmaxf(chi, 0.f));
+    w = fminf(1.f, s * s);
+  } else {
+    rho = chi;
+    w = 1.f;
+  }
+}
+
+// the observation residual of slot e of pose (t, Rt): v = Rt (l - t), O r, chi
+struct ObsSlot { V3 v, Or; M3 O; float chi; };
+__device__ __forceinline__ ObsSlot obs_slot(const M3& Rt, const V3& t, const float* lm, const int* ll_rk,
+                                            const float* meas, const float* info, int E, int e) {
+  ObsSlot s;
+  const V3 lw = load_row3(lm, ll_rk[e]);
+  s.v = mv(Rt, sub(lw, t));
+  const V3 r = sub(s.v, load_v3(meas, E, e));
+  s.O = load_m3(info, E, e);
+  s.Or = mv(s.O, r);
+  s.chi = dot(r, s.Or);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// the Schur matvec halves (TPU kernels K8 / K9)
+// ---------------------------------------------------------------------------
+
+// K8, per slot: Oa = O' (Jp x) with Jp x = -x_t + v x x_r
+__device__ __forceinline__ V3 mv_fwd_slot(const float* v, const float* Ow, int E, int e, const V3& xt, const V3& xr) {
+  const V3 ve = load_v3(v, E, e);
+  return mv(load_m3(Ow, E, e), add(neg(xt), cross(ve, xr)));
+}
+
+// K8, per landmark, one warp: T = sum over the landmark's slots of
+// Rt_k^T a_e, lanes striding the CSR segment, then a fixed shuffle tree; the
+// result is valid in lane 0. Deterministic: the order depends only on the
+// CSR. `a` may have been written by other blocks of the same launch.
+__device__ __forceinline__ V3 mv_fwd_landmark_warp(const float* Rt, const float* a, const int* lm_slots, int j0,
+                                                   int j1, int K, int E, int lane) {
+  V3 T = v3(0.f, 0.f, 0.f);
+  for (int j = j0 + lane; j < j1; j += 32) {
+    const int e = lm_slots[j];
+    T = add(T, mTv(load_m3(Rt, K, e % K), load_v3_cg(a, E, e)));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    T.v[0] += __shfl_down_sync(0xffffffffu, T.v[0], off);
+    T.v[1] += __shfl_down_sync(0xffffffffu, T.v[1], off);
+    T.v[2] += __shfl_down_sync(0xffffffffu, T.v[2], off);
+  }
+  return T;
+}
+
+// 6x6 channel block [6,6,K] at pose k times x
+__device__ __forceinline__ void m66_vec_acc(const float* M, int K, int k, const float* x, float* out) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) s += M[(i * 6 + j) * K + k] * x[j];
+    out[i] += s;
+  }
+}
+__device__ __forceinline__ void m66T_vec_acc(const float* M, int K, int k, const float* x, float* out) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) s += M[(j * 6 + i) * K + k] * x[j];
+    out[i] += s;
+  }
+}
+
+// K9, per pose: u = sum_r Jp^T (Oa - O' Rt z_l) + Hii x_k + Hij x_{k+1}
+//                 + Hij_{k-1}^T x_{k-1} + Hjj_{k-1} x_k
+// xm/xn/xp: the masked x at poses k, k+1 (0 past the end), k-1 (0 before 0).
+// Oa and zl may have been written by other blocks of the same launch.
+__device__ __forceinline__ void mv_bwd_pose(const float* v, const float* Ow, const float* Rt, const float* Oa,
+                                            const float* zl, const int* ll_rk, const float* Hii, const float* Hij,
+                                            const float* Hjj, int K, int R, int k, const float* xm,
+                                            const float* xn, const float* xp, float* u) {
+  const int E = R * K;
+  const M3 Rtk = load_m3(Rt, K, k);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) u[i] = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const int e = r * K + k;
+    const V3 m = sub(load_v3_cg(Oa, E, e), mv(load_m3(Ow, E, e), mv(Rtk, load_row3_cg(zl, ll_rk[e]))));
+    const V3 vm = cross(load_v3(v, E, e), m);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) { u[i] -= m.v[i]; u[i + 3] -= vm.v[i]; }
+  }
+  m66_vec_acc(Hii, K, k, xm, u);
+  m66_vec_acc(Hij, K, k, xn, u);
+  if (k > 0) {
+    m66T_vec_acc(Hij, K, k - 1, xp, u);
+    m66_vec_acc(Hjj, K, k - 1, xm, u);
+  }
+}
+
+// Deterministic block sum of NV values per thread (blockDim.x a multiple of
+// 32, at most 1024); the result is valid in thread 0.
+template <int NV>
+__device__ __forceinline__ void block_sum(float* vals, float* smem /* [32 * NV] */) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) vals[c] += __shfl_down_sync(0xffffffffu, vals[c], off);
+  __syncthreads();
+  if (lane == 0)
+#pragma unroll
+    for (int c = 0; c < NV; ++c) smem[warp * NV + c] = vals[c];
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      float s = lane < nw ? smem[lane * NV + c] : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+      vals[c] = s;
+    }
+  }
+}
+
+// out[0] = sum(a[0:na]) + sum(b[0:nb]), in a fixed order (one block of 256)
+__global__ void __launch_bounds__(256)
+reduce2_kernel(const float* __restrict__ a, int na, const float* __restrict__ b, int nb, float* __restrict__ out) {
+  __shared__ float smem[64];
+  float s[2] = {0.f, 0.f};
+  for (int i = threadIdx.x; i < na; i += blockDim.x) s[0] += a[i];
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) s[1] += b[i];
+  block_sum<2>(s, smem);
+  if (threadIdx.x == 0) out[0] = s[0] + s[1];
+}
+
+}  // namespace soa

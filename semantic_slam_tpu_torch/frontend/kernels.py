@@ -67,12 +67,12 @@ def score_hypotheses(
     counts = torch.zeros((D, S), dtype=torch.int32, device=pts.device)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        code = _build.library().score_hypotheses_launch(
+        code = _build.library("score_hypotheses").score_hypotheses_launch(
             f32[0].data_ptr(), f32[1].data_ptr(), cand_u8.data_ptr(),
             f32[2].data_ptr(), f32[3].data_ptr(), D, N, S,
             float(dist_thres), float(cos_thres), counts.data_ptr(), stream,
         )
-    _build.check(code, "score_hypotheses kernel launch")
+    _build.check(code, "score_hypotheses kernel launch", "score_hypotheses")
     score_hypotheses.launches += 1
     return counts.to(pts.dtype)
 

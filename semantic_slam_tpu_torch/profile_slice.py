@@ -1,9 +1,13 @@
 """Where a session's time goes: one traced, timed replay of the slice.
 
     python -m semantic_slam_tpu_torch.profile_slice --out chiprun_out/profile_slice
+    python -m semantic_slam_tpu_torch.profile_slice --solver pcg --max-keyframes 4096 \
+        --out <directory>
 
-Replays the ``chip_smoke.py`` session (the 640x480 synthetic log, profile
-``yolo_detector`` at its own capacities) three times in one process:
+Replays one of the ``chip_smoke.py`` sessions (the 640x480 synthetic log,
+profile ``yolo_detector``: the dense session at its own capacities, or with
+``--solver pcg --max-keyframes 4096`` the pcg one) three times in one
+process:
 
 1. warm-up, which carries the lazy CUDA / cuBLAS / cuSOLVER set-up;
 2. plain: no profiler and no extra syncs; gives the session wall and the
@@ -14,8 +18,9 @@ Replays the ``chip_smoke.py`` session (the 640x480 synthetic log, profile
    this one run.
 
 A layer's device ms is the kernel time that the profiler attributes to the
-ops inside its range. K5 is launched through ``ctypes``, so no op owns its
-launches: its device ms comes from the kernel events of that name. The busy
+ops inside its range. The hand-written kernels (K1-K5) are launched through
+``ctypes``, so no op owns their launches: a wrapper's device ms comes from
+the kernel events of its kernels' names (``CTYPES_KERNELS``). The busy
 share is the union of all kernel intervals over the traced run's wall; the
 timers' syncs and the profiler make that wall longer than the plain one.
 
@@ -45,12 +50,26 @@ LAYERS = (
     ("semantic_slam_tpu_torch.solver.lm", "schur_solve", "schur_solve"),
     ("semantic_slam_tpu_torch.solver.lm", "_cholesky_or_nan", "cholesky_ex"),
     ("semantic_slam_tpu_torch.solver.lm", "marginals_from_lin", "marginals_from_lin"),
+    ("semantic_slam_tpu_torch.solver.ellk_soa", "lm_optimize_soa", "lm_optimize_soa"),
+    ("semantic_slam_tpu_torch.solver.ellk_soa", "build_soa_edges", "build_soa_edges"),
+    ("semantic_slam_tpu_torch.solver.kernels", "chain_linearize", "chain_linearize"),
+    ("semantic_slam_tpu_torch.solver.kernels", "obs_linearize", "obs_linearize"),
+    ("semantic_slam_tpu_torch.solver.kernels", "resident_solve", "resident_solve"),
+    ("semantic_slam_tpu_torch.solver.kernels", "resident_chi2", "resident_chi2"),
+    ("semantic_slam_tpu_torch.solver.ellk_soa", "landmark_marginals_mf_ellk", "landmark_marginals_mf"),
     ("semantic_slam_tpu_torch.frontend.planes", "extract_planes", "extract_planes"),
     ("semantic_slam_tpu_torch.frontend.planes", "score_hypotheses", "score_hypotheses"),
     ("semantic_slam_tpu_torch.frontend.normals", "compute_normals", "compute_normals"),
     ("semantic_slam_tpu_torch.assoc.association", "associate", "associate"),
 )
-K5_KERNEL = "score_kernel"
+# wrapper label -> the names of the kernels it launches through ctypes
+CTYPES_KERNELS = {
+    "score_hypotheses": ("score_kernel",),
+    "chain_linearize": ("chain_kernel",),
+    "obs_linearize": ("pose_kernel", "landmark_kernel"),
+    "resident_chi2": ("chi2_kernel",),
+    "resident_solve": ("solve_kernel",),
+}
 
 
 def _sync_for(device: str):
@@ -151,8 +170,10 @@ def profile_session(log, cfg, device: str, out_dir: str | None = None) -> dict:
             device_us[e.name] += e.device_time_total
         elif e.device_type == DeviceType.CUDA and e.name not in labels:
             kernels.append(e)
-    k5 = [e for e in kernels if K5_KERNEL in e.name]
-    device_us["score_hypotheses"] = sum(e.time_range.elapsed_us() for e in k5)
+    hand = {label: [e for e in kernels if any(f"{n}(" in e.name for n in names)]
+            for label, names in CTYPES_KERNELS.items()}
+    for label, evs in hand.items():
+        device_us[label] = sum(e.time_range.elapsed_us() for e in evs)
     busy_us = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
 
     rows = []
@@ -173,7 +194,7 @@ def profile_session(log, cfg, device: str, out_dir: str | None = None) -> dict:
             "wall_s": traced_wall,
             **_tick_summary(traced),
             "kernel_events": len(kernels),
-            "k5_kernel_events": len(k5),
+            "hand_kernel_events": {label: len(evs) for label, evs in hand.items()},
             "device_busy_ms": 1e-3 * busy_us if on_card else None,
             "busy_share": 1e-3 * busy_us / (1e3 * traced_wall) if on_card else None,
         },
@@ -195,10 +216,10 @@ def _print_report(report: dict) -> None:
           f"{plain['median_optimizing_tick_ms']} ms, frontend-only {plain['median_frontend_tick_ms']} ms; "
           f"LM iterations {plain['lm_iterations']}")
     print(f"traced run: wall {traced['wall_s']:.4f} s; LM iterations {traced['lm_iterations']}; "
-          f"{traced['kernel_events']} kernel events ({traced['k5_kernel_events']} K5); "
+          f"{traced['kernel_events']} kernel events (hand-written: {traced['hand_kernel_events']}); "
           f"device busy {traced['device_busy_ms']} ms, busy share {traced['busy_share']}")
     print(f"{'layer':<20} {'calls':>6} {'host ms':>10} {'host ms/call':>13} {'dev ms':>10} {'dev ms/call':>12}")
-    for r in report["layers"]:
+    for r in (r for r in report["layers"] if r["calls"]):
         def fmt(x, w):
             return f"{x:>{w}.4f}" if x is not None else f"{'-':>{w}}"
 
@@ -217,6 +238,7 @@ def main(argv=None) -> None:
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--max-keyframes", type=int, default=0)
     ap.add_argument("--crop-size", type=int, default=0)
+    ap.add_argument("--solver", default="", choices=["", "dense", "pcg"])
     args = ap.parse_args(argv)
 
     if args.device == "cuda":
@@ -225,7 +247,8 @@ def main(argv=None) -> None:
         print(smi.stdout.strip() or smi.stderr.strip())
     log = cli.make_synthetic_log(seed=0, n_steps=args.steps, sensor_every=6, loops=1, H=args.height, W=args.width)
     run_args = ["run", "--log", "in-process", "--profile", "yolo_detector", "--device", args.device,
-                "--max-keyframes", str(args.max_keyframes), "--crop-size", str(args.crop_size)]
+                "--max-keyframes", str(args.max_keyframes), "--crop-size", str(args.crop_size),
+                "--solver", args.solver]
     cfg = cli.make_config(cli.build_parser().parse_args(run_args))
     report = profile_session(log, cfg, args.device, args.out)
     _print_report(report)

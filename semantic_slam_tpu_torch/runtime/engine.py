@@ -1,5 +1,6 @@
 """The SLAM engine: keyframe queue, tick loop, graph growth, state sync (port
-of ``semantic_slam_tpu.runtime.engine`` for the dense-solver slice).
+of ``semantic_slam_tpu.runtime.engine`` for one device: the dense Schur LM
+and the SoA Schur-PCG solver).
 
 The host drives the same sequential loop as the JAX engine (keyframe gate,
 latest-wins sensor pairing, queue bookkeeping, in numpy), and the device
@@ -8,7 +9,9 @@ work runs eagerly on ``device``:
   * ``_process_keyframe``  -- node + odometry-edge append, frontend
     (normals, batched plane extraction), association, landmark ingest;
   * ``_ingest_keyframes_batch`` -- a run of detection-less keyframes;
-  * ``_optimize_tick``     -- dense Schur LM, landmark marginals, table
+  * ``_optimize_tick``     -- the LM (dense Schur, or with
+    ``linear_solver="pcg"`` the SoA Schur-PCG solver of ``solver/ellk_soa.py``
+    and its kernels K1-K4, at every capacity), landmark marginals, table
     sync, and the packed ``info`` vector that the host fetches once.
 
 Host traffic per tick: two flags per LM iteration and the ``info`` vector.
@@ -17,8 +20,8 @@ the host from the count mirrors; only while they are below the gate does
 the solver fetch the edge count.
 
 Configurations that need a path not ported yet raise ``NotImplementedError``
-naming it. Method names match the JAX engine, since
-``semantic_slam_tpu.io.replay`` drives the engine by duck typing.
+naming it. Method names match the JAX engine, since ``io.replay`` drives
+either engine by duck typing.
 """
 
 from __future__ import annotations
@@ -30,17 +33,18 @@ from typing import Any
 import numpy as np
 import torch
 
-from semantic_slam_tpu.config import CLASS_TO_ID, PLANE_VERTICAL, SlamConfig
-from semantic_slam_tpu.core import np_geometry as npg
-from semantic_slam_tpu.runtime.keyframe_gate import KeyframeGate
-from semantic_slam_tpu.utils.profiling import log_optimize
 from semantic_slam_tpu_torch.assoc import association as assoc_mod
+from semantic_slam_tpu_torch.config import CLASS_TO_ID, PLANE_VERTICAL, SlamConfig
+from semantic_slam_tpu_torch.core import np_geometry as npg
 from semantic_slam_tpu_torch.core import geometry as geo
 from semantic_slam_tpu_torch.frontend import depth as depth_mod
 from semantic_slam_tpu_torch.frontend import segmentation as seg_mod
 from semantic_slam_tpu_torch.graph import state as gs
 from semantic_slam_tpu_torch.graph.state import set_rows
+from semantic_slam_tpu_torch.runtime.keyframe_gate import KeyframeGate
+from semantic_slam_tpu_torch.solver import ellk_soa as soa_mod
 from semantic_slam_tpu_torch.solver import lm as lm_mod
+from semantic_slam_tpu_torch.utils.profiling import log_optimize
 
 Tensor = torch.Tensor
 
@@ -65,8 +69,10 @@ def _unported(cfg: SlamConfig) -> list[str]:
     """Paths this configuration needs that the port does not have yet."""
     s = cfg.solver
     missing = []
-    if s.linear_solver != "dense":
-        missing.append(f"linear_solver={s.linear_solver!r} (SoA Schur-PCG solver)")
+    if s.linear_solver not in ("dense", "pcg"):
+        missing.append(f"linear_solver={s.linear_solver!r}")
+    if s.linear_solver == "pcg" and s.pcg_precond != "jacobi":
+        missing.append(f"pcg_precond={s.pcg_precond!r} (block-tridiagonal PCG preconditioner)")
     if cfg.mesh.num_devices > 1:
         missing.append("mesh.num_devices > 1 (sharded solver)")
     if s.fixed_lag_window > 0:
@@ -159,18 +165,23 @@ def _process_keyframe(
 def _optimize_tick(
     graph, table, marginals, last_idx: int, *, do_opt: bool, init_lambda: float,
     max_iterations: int, min_edges: int, rel_tol: float, robust_kind: str,
-    robust_delta: float, need_marginals: bool,
+    robust_delta: float, need_marginals: bool, linear_solver: str, pcg_iters: int,
+    ell_rows: tuple,
 ):
     """LM optimize, marginal recovery, table sync, packed stats. Returns
     (graph, table, marginals, info [8+7] on the device, iterations)."""
     zero = graph.poses.new_zeros(())
     stats = lm_mod.LMStats(0, zero, zero, zero)
     if do_opt:
-        out = lm_mod.lm_optimize(
-            graph, max_iterations=max_iterations, min_edges=min_edges, rel_tol=rel_tol,
+        kw = dict(
+            max_iterations=max_iterations, min_edges=min_edges, rel_tol=rel_tol,
             robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda,
             with_marginals=need_marginals,
         )
+        if linear_solver == "pcg":
+            out = soa_mod.lm_optimize_soa(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, **kw)
+        else:
+            out = lm_mod.lm_optimize(graph, **kw)
         if out[1].iterations > 0:  # the solve ran (enough edges)
             graph, stats = out[0], out[1]
             marg2 = out[2] if need_marginals else None
@@ -370,6 +381,15 @@ class SlamEngine:
     # the tick (semantic_graph_slam.cpp:58-102)
     # ------------------------------------------------------------------
 
+    def _ell_rows(self) -> tuple:
+        """Static per-pose edge-count bounds of the ELL layout
+        (``solver.pcg.build_slots``): the engine appends edges in keyframe
+        order, one odometry edge per side and at most
+        ``max_detections_per_frame * max_planes_per_detection`` landmark edges
+        per keyframe."""
+        mpd = self.cfg.capacity.max_detections_per_frame * self.cfg.segmentation.max_planes_per_detection
+        return (1, 1, mpd)
+
     def _opt_statics(self) -> dict:
         s = self.cfg.solver
         # edges only grow, so the mirrors (this tick's odometry edges, last
@@ -384,6 +404,9 @@ class SlamEngine:
             robust_delta=s.robust_delta,
             # eq-gating never reads landmark covariances: skip the recovery
             need_marginals=bool(self.cfg.association.use_maha_dist),
+            linear_solver=s.linear_solver,
+            pcg_iters=s.pcg_iters,
+            ell_rows=self._ell_rows(),
         )
 
     def run(self) -> bool:
@@ -640,6 +663,9 @@ class SlamEngine:
         if int(self.table.count) == 0 or self._n_lme == 0:
             return self.table.cov
         if self._export_marg_tick != self._ticks_done:
-            self._export_marg = lm_mod.landmark_marginals(self.graph)
+            if self.cfg.solver.linear_solver == "pcg":
+                self._export_marg = soa_mod.landmark_marginals_graph(self.graph, self._ell_rows())
+            else:
+                self._export_marg = lm_mod.landmark_marginals(self.graph)
             self._export_marg_tick = self._ticks_done
         return self._export_marg

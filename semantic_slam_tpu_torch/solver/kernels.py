@@ -1,0 +1,246 @@
+"""Hand-written CUDA kernels of the SoA Schur-PCG solver and their wrappers
+(port of the resident kernels of ``semantic_slam_tpu.solver.pallas_cg``).
+
+  * ``chain_linearize``    -- K2, ``csrc/soa_linearize.cu``
+  * ``obs_linearize``      -- K1, ``csrc/soa_linearize.cu``; ``resident_linearize``
+    runs K2 then K1
+  * ``resident_chi2``      -- K3, ``csrc/soa_chi2.cu``
+  * ``resident_solve``     -- K4, ``csrc/soa_solve.cu``
+
+On CPU tensors each wrapper runs its plain version (``solver/ellk_soa.py``
+``soa_chain_linearize``, ``soa_obs_linearize``, ``soa_chi2``,
+``soa_schur_step``). On CUDA tensors it
+launches its kernel on the current stream or raises; there is no other
+switch between the two. The kernels work in f32, as the TPU kernels do:
+inputs are cast to f32 and outputs back to the caller's dtype. No wrapper
+synchronizes with the host: scalars that live on the device (lambda, chi2)
+stay there. Each wrapper counts its kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from semantic_slam_tpu_torch.solver import ellk_soa as soa
+from semantic_slam_tpu_torch.solver.ellk_soa import ChainLin, SoAEdges, SoALin
+
+Tensor = torch.Tensor
+
+ROBUST_KINDS = {"none": 0, "huber": 1, "dcs": 2}
+MAX_SOLVE_BLOCKS = 4096  # K4's dot-product partials are sized for this many blocks
+
+
+def _f32(t: Tensor) -> Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def _i32(t: Tensor) -> Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _check_device(what: str, dev: torch.device, **tensors: Tensor) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected {dev}")
+
+
+def _check_shape(what: str, name: str, t: Tensor, shape: tuple) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _check_edges(what: str, se: SoAEdges, K: int, L: int) -> int:
+    R = se.ll_rk.shape[0]
+    for name, shape in (
+        ("ll_rk", (R, K)), ("meas", (3, R, K)), ("info", (3, 3, R, K)), ("o_meas_ch", (7, K)),
+        ("o_info_ch", (6, 6, K)), ("lm_slots", (R * K,)), ("lm_start", (L + 1,)),
+    ):
+        _check_shape(what, f"se.{name}", getattr(se, name), shape)
+    for name in ("ll_rk", "lm_slots", "lm_start"):
+        if getattr(se, name).dtype != torch.int32:
+            raise TypeError(f"{what}: se.{name} must be int32, got {getattr(se, name).dtype}")
+    return R
+
+
+def _robust(what: str, robust_kind: str) -> int:
+    if robust_kind not in ROBUST_KINDS:
+        raise ValueError(f"{what}: unknown robust kernel {robust_kind!r}")
+    return ROBUST_KINDS[robust_kind]
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def chain_linearize(poses: Tensor, se: SoAEdges) -> ChainLin:
+    """K2: the odometry chain's linearization."""
+    if poses.device.type == "cpu":
+        return soa.soa_chain_linearize(poses, se)
+    what = "chain_linearize"
+    dev = poses.device
+    _check_device(what, dev, o_meas_ch=se.o_meas_ch, o_info_ch=se.o_info_ch)
+    K = poses.shape[0]
+    _check_shape(what, "poses", poses, (K, 7))
+    _check_shape(what, "se.o_meas_ch", se.o_meas_ch, (7, K))
+    _check_shape(what, "se.o_info_ch", se.o_info_ch, (6, 6, K))
+
+    from semantic_slam_tpu_torch import _build
+
+    lib = _build.library("soa_linearize")
+    f32 = dict(dtype=torch.float32, device=dev)
+    pose_ch, o_meas, o_info = _f32(poses.T), _f32(se.o_meas_ch), _f32(se.o_info_ch)
+    Hii, Hij, Hjj = (torch.empty((6, 6, K), **f32) for _ in range(3))
+    gi, gj = torch.empty((6, K), **f32), torch.empty((6, K), **f32)
+    chi = torch.empty((), **f32)
+    scratch = torch.empty((lib.soa_chain_lin_scratch(K),), **f32)
+    with torch.cuda.device(dev):
+        code = lib.soa_chain_lin_launch(
+            pose_ch.data_ptr(), o_meas.data_ptr(), o_info.data_ptr(), K, Hii.data_ptr(), Hij.data_ptr(),
+            Hjj.data_ptr(), gi.data_ptr(), gj.data_ptr(), chi.data_ptr(), scratch.data_ptr(), _stream(dev),
+        )
+    _build.check(code, "soa_chain_lin kernel launch", "soa_linearize")
+    chain_linearize.launches += 1
+    dt = poses.dtype
+    return ChainLin(*(t.to(dt) for t in (Hii, Hij, Hjj, gi, gj, chi)))
+
+
+def obs_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, chain: ChainLin, robust_kind: str = "none",
+                  robust_delta: float = 1.0) -> SoALin:
+    """K1: the observation linearization, folded with K2's chain blocks."""
+    if poses.device.type == "cpu":
+        return soa.soa_obs_linearize(poses, landmarks, se, chain, robust_kind, robust_delta)
+    what = "obs_linearize"
+    dev = poses.device
+    _check_device(what, dev, landmarks=landmarks, **{f"se.{k}": v for k, v in se._asdict().items()},
+                  **{f"chain.{k}": v for k, v in chain._asdict().items()})
+    K, L = poses.shape[0], landmarks.shape[0]
+    _check_shape(what, "poses", poses, (K, 7))
+    _check_shape(what, "landmarks", landmarks, (L, 3))
+    R = _check_edges(what, se, K, L)
+    for name, shape in (("Hii", (6, 6, K)), ("Hij", (6, 6, K)), ("Hjj", (6, 6, K)), ("gi", (6, K)), ("gj", (6, K)),
+                        ("chi2", ())):
+        _check_shape(what, f"chain.{name}", getattr(chain, name), shape)
+    kind = _robust(what, robust_kind)
+
+    from semantic_slam_tpu_torch import _build
+
+    lib = _build.library("soa_linearize")
+    f32 = dict(dtype=torch.float32, device=dev)
+    pose_ch, lm, meas, info = _f32(poses.T), _f32(landmarks), _f32(se.meas), _f32(se.info)
+    Hii, Hij, Hjj, gi, gj, chi_chain = (_f32(t) for t in chain)
+    v, Ow = torch.empty((3, R, K), **f32), torch.empty((3, 3, R, K), **f32)
+    Rt = torch.empty((3, 3, K), **f32)
+    gp, diag = torch.empty((6, K), **f32), torch.empty((6, 6, K), **f32)
+    gl, Hll = torch.empty((L, 3), **f32), torch.empty((L, 3, 3), **f32)
+    chi = torch.empty((), **f32)
+    scratch = torch.empty((lib.soa_obs_lin_scratch(K, R),), **f32)
+    with torch.cuda.device(dev):
+        code = lib.soa_obs_lin_launch(
+            pose_ch.data_ptr(), lm.data_ptr(), meas.data_ptr(), info.data_ptr(), se.ll_rk.data_ptr(),
+            se.lm_slots.data_ptr(), se.lm_start.data_ptr(), Hii.data_ptr(), Hjj.data_ptr(), gi.data_ptr(),
+            gj.data_ptr(), chi_chain.data_ptr(), K, R, L, kind, float(robust_delta),
+            v.data_ptr(), Ow.data_ptr(), Rt.data_ptr(), gp.data_ptr(), diag.data_ptr(), gl.data_ptr(), Hll.data_ptr(),
+            chi.data_ptr(), scratch.data_ptr(), _stream(dev),
+        )
+    _build.check(code, "soa_obs_lin kernel launch", "soa_linearize")
+    obs_linearize.launches += 1
+    dt = poses.dtype
+    return SoALin(
+        v=v.to(dt), Ow=Ow.to(dt), Rt=Rt.to(dt), Hii=Hii.to(dt), Hij=Hij.to(dt), Hjj=Hjj.to(dt), Hll=Hll.to(dt),
+        gp=gp.to(dt), gl=gl.to(dt), diag=diag.to(dt), chi2=chi.to(dt),
+    )
+
+
+def resident_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str = "none",
+                       robust_delta: float = 1.0) -> SoALin:
+    """K2 then K1: the whole graph's linearization."""
+    return obs_linearize(poses, landmarks, se, chain_linearize(poses, se), robust_kind, robust_delta)
+
+
+def resident_chi2(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str = "none",
+                  robust_delta: float = 1.0) -> Tensor:
+    """K3: the objective alone, as a 0-d tensor on the device."""
+    if poses.device.type == "cpu":
+        return soa.soa_chi2(poses, landmarks, se, robust_kind, robust_delta)
+    what = "resident_chi2"
+    dev = poses.device
+    _check_device(what, dev, landmarks=landmarks, **{f"se.{k}": v for k, v in se._asdict().items()})
+    K, L = poses.shape[0], landmarks.shape[0]
+    _check_shape(what, "poses", poses, (K, 7))
+    _check_shape(what, "landmarks", landmarks, (L, 3))
+    R = _check_edges(what, se, K, L)
+    kind = _robust(what, robust_kind)
+
+    from semantic_slam_tpu_torch import _build
+
+    lib = _build.library("soa_chi2")
+    f32 = dict(dtype=torch.float32, device=dev)
+    pose_ch, lm = _f32(poses.T), _f32(landmarks)
+    meas, info, o_meas, o_info = _f32(se.meas), _f32(se.info), _f32(se.o_meas_ch), _f32(se.o_info_ch)
+    chi = torch.empty((), **f32)
+    scratch = torch.empty((lib.soa_chi2_scratch(K),), **f32)
+    with torch.cuda.device(dev):
+        code = lib.soa_chi2_launch(
+            pose_ch.data_ptr(), lm.data_ptr(), meas.data_ptr(), info.data_ptr(), se.ll_rk.data_ptr(),
+            o_meas.data_ptr(), o_info.data_ptr(), K, R, kind, float(robust_delta), chi.data_ptr(),
+            scratch.data_ptr(), _stream(dev),
+        )
+    _build.check(code, "soa_chi2 kernel launch", "soa_chi2")
+    resident_chi2.launches += 1
+    return chi.to(poses.dtype)
+
+
+def resident_solve(lin: SoALin, se: SoAEdges, lam: Tensor, pose_free: Tensor, lm_free: Tensor, n_steps: int,
+                   cg_tol: float = 1e-8, prior=None) -> tuple[Tensor, Tensor]:
+    """K4: the damped Schur-reduced PCG step (``n_steps`` steps under the
+    ``active`` mask against ``cg_tol``) and the landmark back-substitution.
+    ``lam`` is a 0-d tensor. Returns (dp [K,6], db [L,3])."""
+    if prior is not None:
+        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: resident_solve with a fixed-lag prior")
+    if lin.gp.device.type == "cpu":
+        return soa.soa_schur_step(lin, se, lam, pose_free, lm_free, n_steps, cg_tol)
+    what = "resident_solve"
+    dev = lin.gp.device
+    lam = torch.as_tensor(lam, device=dev)
+    _check_device(what, dev, lam=lam, pose_free=pose_free, lm_free=lm_free,
+                  **{f"lin.{k}": v for k, v in lin._asdict().items()},
+                  **{f"se.{k}": v for k, v in se._asdict().items()})
+    K, L = lin.gp.shape[1], lin.gl.shape[0]
+    R = _check_edges(what, se, K, L)
+    for name, shape in (
+        ("v", (3, R, K)), ("Ow", (3, 3, R, K)), ("Rt", (3, 3, K)), ("Hii", (6, 6, K)), ("Hij", (6, 6, K)),
+        ("Hjj", (6, 6, K)), ("diag", (6, 6, K)), ("gp", (6, K)), ("gl", (L, 3)), ("Hll", (L, 3, 3)),
+    ):
+        _check_shape(what, f"lin.{name}", getattr(lin, name), shape)
+    _check_shape(what, "pose_free", pose_free, (K,))
+    _check_shape(what, "lm_free", lm_free, (L,))
+    _check_shape(what, "lam", lam, ())
+    if n_steps < 0:
+        raise ValueError(f"{what}: n_steps={n_steps} must be >= 0")
+
+    from semantic_slam_tpu_torch import _build
+
+    lib = _build.library("soa_solve")
+    f32 = dict(dtype=torch.float32, device=dev)
+    ins = [_f32(getattr(lin, n)) for n in ("v", "Ow", "Rt", "Hii", "Hij", "Hjj", "diag", "gp", "gl", "Hll")]
+    lmf, pf, lam32 = _f32(lm_free), _f32(pose_free), _f32(lam)
+    dp, db = torch.empty((6, K), **f32), torch.empty((L, 3), **f32)
+    scratch = torch.empty((lib.soa_solve_scratch(K, R, L, MAX_SOLVE_BLOCKS),), **f32)
+    with torch.cuda.device(dev):
+        code = lib.soa_solve_launch(
+            *(t.data_ptr() for t in ins), lmf.data_ptr(), pf.data_ptr(), se.ll_rk.data_ptr(),
+            se.lm_slots.data_ptr(), se.lm_start.data_ptr(), lam32.data_ptr(), float(cg_tol), int(n_steps),
+            K, R, L, dp.data_ptr(), db.data_ptr(), scratch.data_ptr(), MAX_SOLVE_BLOCKS, _stream(dev),
+        )
+    _build.check(code, "soa_solve kernel launch", "soa_solve")
+    resident_solve.launches += 1
+    dt = lin.gp.dtype
+    return dp.T.to(dt), db.to(dt)
+
+
+chain_linearize.launches = 0  # kernel launches (CUDA path only)
+obs_linearize.launches = 0
+resident_chi2.launches = 0
+resident_solve.launches = 0

@@ -1,0 +1,155 @@
+"""Per-pose (ELL) edge layout and matrix-free landmark marginals (port of the
+subset of ``semantic_slam_tpu.solver.pcg`` that the SoA Schur-PCG path uses).
+
+Landmark observations are stored in a dense per-pose grid ``[K, R]`` (R =
+the static per-keyframe bound, empty slots info-masked) and odometry as the
+chain it is (row k holds the edge k -> k+1). Conversion from the graph's
+``[E]`` edge arrays happens once per solve: indices do not change inside the
+LM loop. Contract (``build_slots``): the real prefix of ``lme_k`` is sorted
+with at most R entries per pose, and odometry edge e joins poses (i, i+1); a
+non-chain odometry edge is dropped from the system, exactly. The engine
+builds no other kind.
+
+The marginal recovery eliminates the poses, not the landmarks: the pose
+block of a chain graph is exactly block tridiagonal, so parallel cyclic
+reduction (``solver/tridiag.py``) applies its inverse, and only the
+landmark-reduced information ``S = Hll - W^T Hpp^-1 W`` ([3L, 3L], bounded by
+the landmark table) is factored densely. Nothing dense grows with the
+trajectory. The fixed-lag prior and the sharded forms are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from semantic_slam_tpu_torch.graph.state import GraphState
+from semantic_slam_tpu_torch.solver import tridiag as td
+from semantic_slam_tpu_torch.solver.lm import _cholesky_or_nan
+
+Tensor = torch.Tensor
+
+
+def build_slots(idx: Tensor, mask: Tensor, n: int, r: int) -> Tensor:
+    """[n, r] slot table for a sorted, bounded segment index vector (port of
+    ``assembly.build_slots``): slot positions into the edge axis, -1 where
+    empty. ``mask`` marks the real edges (a prefix); the masked prefix of
+    ``idx`` must be nondecreasing with at most ``r`` entries per value."""
+    key = torch.where(mask, idx.long(), n)
+    counts = torch.bincount(key, minlength=n + 1)[:n]
+    hi = torch.cumsum(counts, 0)
+    lo = hi - counts
+    slots = lo[:, None] + torch.arange(r, device=idx.device)[None, :]
+    return torch.where(slots < hi[:, None], slots, -1)
+
+
+class EllEdges(NamedTuple):
+    """Static per-solve edge data in per-pose layout."""
+
+    ll: Tensor  # [K, R] landmark index per slot (0 where empty), int64
+    meas: Tensor  # [K, R, 3]
+    info: Tensor  # [K, R, 3, 3], zeroed on empty slots
+    o_meas: Tensor  # [K, 7] odometry measurement of edge k -> k+1
+    o_info: Tensor  # [K, 6, 6], zeroed where no chain edge leaves k
+    o_w: Tensor  # [K] chain-edge mask (float)
+
+
+class EllBlocks(NamedTuple):
+    """Per-pose-layout Hessian blocks, trimmed to what the marginal recovery
+    reads (the JAX type also carries H_ii/H_jj/H_kk for its matvec)."""
+
+    ll: Tensor  # [K, R]
+    H_ij: Tensor  # [K, 6, 6] chain edge k -> k+1
+    W_kl: Tensor  # [K, R, 6, 3]
+    Hll: Tensor  # [L, 3, 3]
+    diag: Tensor  # [K, 6, 6]
+
+
+def _gat(a: Tensor, e: Tensor) -> Tensor:
+    """a[e] with -1 reading a zero pad row."""
+    ap = torch.cat([a, torch.zeros((1,) + a.shape[1:], dtype=a.dtype, device=a.device)])
+    return ap[torch.where(e >= 0, e, a.shape[0])]
+
+
+def build_ell_edges(edge_args: tuple, K: int, R: int) -> EllEdges:
+    """[E]-layout edge arrays -> per-pose layout, once per solve."""
+    (oi, oj, o_meas, o_info, o_mask, lk, ll, l_meas, l_info, l_mask) = edge_args
+    dtype = l_meas.dtype
+    dev = l_meas.device
+    slots = build_slots(lk, l_mask, K, R)  # [K, R]
+    valid = (slots >= 0).to(dtype)
+    ll_e = _gat(ll.long(), slots)  # pad rows read index 0; their info is zeroed
+    meas_e = _gat(l_meas, slots)
+    info_e = _gat(l_info, slots) * valid[:, :, None, None]
+
+    so = build_slots(oi, o_mask, K, 1)[:, 0]  # [K]
+    oj_e = _gat(oj.long(), so)
+    # a slot whose edge does not go k -> k+1 is dropped (never mis-attributed)
+    o_w = ((so >= 0) & (oj_e == torch.arange(K, device=dev) + 1)).to(dtype)
+    # empty/dropped rows carry the identity measurement: a zero quaternion
+    # would NaN the (masked) Jacobian rows, and NaN * 0 stays NaN
+    ident = torch.zeros(7, dtype=dtype, device=dev)
+    ident[3] = 1.0
+    o_meas_e = torch.where(o_w[:, None] > 0, _gat(o_meas, so), ident[None, :])
+    o_info_e = _gat(o_info, so) * o_w[:, None, None]
+    return EllEdges(ll=ll_e, meas=meas_e, info=info_e, o_meas=o_meas_e, o_info=o_info_e, o_w=o_w)
+
+
+def _edge_args(g: GraphState):
+    return (
+        g.odom_i, g.odom_j, g.odom_meas, g.odom_info, g.odom_mask(),
+        g.lme_k, g.lme_l, g.lme_meas, g.lme_info, g.lme_mask(),
+    )
+
+
+def _ell_chain_upper(eb: EllBlocks, pose_free: Tensor) -> Tensor:
+    """Chain coupling blocks: upper[k] joins poses (k, k+1); couplings
+    touching fixed poses are zeroed."""
+    pf = pose_free.to(eb.H_ij.dtype)
+    pf_next = torch.cat([pf[1:], torch.zeros_like(pf[:1])])
+    return eb.H_ij * (pf * pf_next)[:, None, None]
+
+
+def landmark_marginals_mf_ellk(eb: EllBlocks, pose_free: Tensor, block_free: Tensor) -> Tensor:
+    """Matrix-free landmark marginal 3x3 blocks [L,3,3] from per-pose-layout
+    blocks (inactive landmarks get identity)."""
+    K, R = eb.ll.shape
+    B = eb.Hll.shape[0]
+    dtype = eb.diag.dtype
+    pf = pose_free.to(dtype)
+    lmf = block_free.to(dtype)
+    eye6 = torch.eye(6, dtype=dtype, device=pf.device)
+    Dm = eb.diag * pf[:, None, None] + eye6[None] * (1.0 - pf)[:, None, None]
+    fac = td.pcr_factor(Dm, _ell_chain_upper(eb, pose_free))
+
+    # W columns [K, 6, 3B]: slot (k, r) adds its [6,3] block at column ll[k,r]
+    W_m = eb.W_kl * (pf[:, None] * lmf[eb.ll])[:, :, None, None]
+    kl = (torch.arange(K, device=pf.device)[:, None] * B + eb.ll).reshape(-1)
+    Ukl = torch.zeros((K * B, 6, 3), dtype=dtype, device=pf.device)
+    Ukl.index_add_(0, kl, W_m.reshape(K * R, 6, 3))
+    U = Ukl.view(K, B, 6, 3).permute(0, 2, 1, 3).reshape(K, 6, 3 * B)
+    return _sigma_from_chain_parts(fac, U, eb.Hll, pose_free, block_free, dtype)
+
+
+def _sigma_from_chain_parts(fac, U: Tensor, Hll: Tensor, pose_free: Tensor, block_free: Tensor, dtype) -> Tensor:
+    """Invert the landmark-reduced information S = Hll - W^T Hpp^-1 W, given
+    the factored pose-chain tridiagonal and the W columns U [K,6,3B], and
+    return its diagonal 3x3 blocks."""
+    B = Hll.shape[0]
+    lmf = block_free.to(dtype)
+    eye3 = torch.eye(3, dtype=dtype, device=U.device)
+    X = td.pcr_solve_cols(fac, U)  # T^-1 W
+    UtX = torch.einsum("kac,kad->cd", U, X)
+    A = Hll * lmf[:, None, None] + eye3[None] * (1.0 - lmf)[:, None, None]
+    bidx = torch.arange(B, device=U.device)
+    S = (-UtX).reshape(B, 3, B, 3)
+    S[bidx, :, bidx, :] += A
+    S = S * (lmf[:, None] * lmf[None, :])[:, None, :, None]
+    S[bidx, :, bidx, :] += eye3[None] * (1.0 - lmf)[:, None, None]
+    S = S.reshape(3 * B, 3 * B)
+    S = 0.5 * (S + S.T) + 1e-8 * torch.eye(3 * B, dtype=dtype, device=U.device)
+    Sigma = torch.cholesky_inverse(_cholesky_or_nan(S))
+    sigma = Sigma.reshape(B, 3, B, 3)[bidx, :, bidx, :]
+    sigma = 0.5 * (sigma + sigma.transpose(-1, -2))
+    return sigma * lmf[:, None, None] + eye3[None] * (1.0 - lmf)[:, None, None]

@@ -1,5 +1,7 @@
-"""The port on the card: the CUDA kernel against its plain version, and a
-small session on the card against the same session on the CPU.
+"""The port on the card: the CUDA kernels against their plain versions (K5,
+the RANSAC scoring kernel; K1-K4, the SoA Schur-PCG solver's kernels), and
+small sessions on the card (dense and ``--solver pcg``) against the same
+sessions on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, carries the ``cuda`` marker
 and skips without a GPU. The file imports no JAX, because the machine with
@@ -71,10 +73,111 @@ def test_wrapper_rejects_bad_inputs(cuda):
         tk.score_hypotheses(t[0], t[1], t[2].cpu(), t[3], t[4], DIST, COS)
 
 
+# ---------------------------------------------------------------------------
+# K1-K4: the SoA Schur-PCG kernels
+# ---------------------------------------------------------------------------
+
+
+def soa_case(device, K=300, L=64, E2=2400, R=None):
+    """A seeded ``graph/synthetic.py`` graph in f32 with its poses moved by
+    ~5 cm / ~0.02 rad (numpy-seeded), so that no output is rounding noise."""
+    from semantic_slam_tpu_torch.graph import synthetic as syn
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    g = syn.build_graph(K, L, E2, torch.float32, seed=2, noise=0.05, device=device)
+    rng = np.random.default_rng(7)
+    dp = torch.as_tensor(np.concatenate([rng.normal(size=(K, 3)) * 0.05, rng.normal(size=(K, 4)) * 0.01], 1),
+                         dtype=torch.float32, device=device)
+    poses = g.poses + dp
+    poses = torch.cat([poses[:, :3], torch.nn.functional.normalize(poses[:, 3:], dim=-1)], 1)
+    g = g.replace(poses=poses)
+    se = soa.build_soa_edges(_edge_args(g), K, R or syn.ell_rows_for(K, E2)[2], L)
+    return g, se, _free_masks(g)
+
+
+def rel_err(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
+@pytest.mark.parametrize("R", [None, 16], ids=["R-own", "R-16"])
+def test_soa_linearize_and_chi2_match_plain(cuda, robust, R):
+    """K2, K1 and K3 against their plain versions on the card: each output
+    within 1e-4 of its own scale (f32, summation order only)."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    g, se, _ = soa_case(cuda, R=R)
+    counts = (sk.chain_linearize.launches, sk.obs_linearize.launches, sk.resident_chi2.launches)
+    ck, cp = sk.chain_linearize(g.poses, se), soa.soa_chain_linearize(g.poses, se)
+    for name, a, b in zip(cp._fields, ck, cp):
+        assert rel_err(a, b) <= 1e-4, name
+    lk = sk.obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
+    lp = soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
+    for name in ("v", "Ow", "Rt", "gp", "diag", "gl", "Hll", "chi2"):
+        assert rel_err(getattr(lk, name), getattr(lp, name)) <= 1e-4, name
+    xk = sk.resident_chi2(g.poses, g.landmarks, se, robust, 1.0)
+    assert rel_err(xk, soa.soa_chi2(g.poses, g.landmarks, se, robust, 1.0)) <= 1e-4
+    assert rel_err(xk, lk.chi2) <= 1e-4
+    torch.cuda.synchronize()
+    assert (sk.chain_linearize.launches, sk.obs_linearize.launches, sk.resident_chi2.launches) == tuple(
+        c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cg_tol", [1e-8, 0.0], ids=["early-exit", "fixed-work"])
+@pytest.mark.parametrize("lam", [1e-2, 1e2])
+def test_soa_solve_matches_plain(cuda, cg_tol, lam):
+    """K4 against its plain version on the card: dp and db within a relative
+    norm error of 5e-2 (the repo's kernel-vs-XLA CG bound), and exactly 0
+    on the fixed pose and the inactive landmarks."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    g, se, (pf, lf) = soa_case(cuda)
+    lin = soa.soa_linearize(g.poses, g.landmarks, se)
+    lam_t = torch.tensor(lam, device=cuda)
+    before = sk.resident_solve.launches
+    dk, bk = sk.resident_solve(lin, se, lam_t, pf, lf, 128, cg_tol)
+    dp, bp = soa.soa_schur_step(lin, se, lam_t, pf, lf, 128, cg_tol)
+    torch.cuda.synchronize()
+    assert sk.resident_solve.launches == before + 1
+    for got, want in ((dk, dp), (bk, bp)):
+        assert bool(torch.isfinite(got).all())
+        assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 5e-2
+    assert float(dk[~pf].abs().max()) == 0.0 and float(bk[~lf].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_soa_wrappers_reject_bad_inputs(cuda):
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    g, se, (pf, lf) = soa_case(cuda, K=40, L=8, E2=200)
+    with pytest.raises(TypeError, match="int32"):
+        sk.resident_chi2(g.poses, g.landmarks, se._replace(ll_rk=se.ll_rk.long()))
+    with pytest.raises(ValueError, match="shape"):
+        sk.resident_chi2(g.poses, g.landmarks[:-1], se)
+    with pytest.raises(ValueError, match="is on"):
+        sk.chain_linearize(g.poses, se._replace(o_info_ch=se.o_info_ch.cpu()))
+    with pytest.raises(ValueError, match="unknown robust"):
+        sk.obs_linearize(g.poses, g.landmarks, se, soa.soa_chain_linearize(g.poses, se), "cauchy")
+    lin = soa.soa_linearize(g.poses, g.landmarks, se)
+    with pytest.raises(ValueError, match="shape"):
+        sk.resident_solve(lin, se, torch.tensor(1.0, device=cuda), pf[:-1], lf, 8)
+
+
 SMALL_SESSIONS = {
-    # gating, capacities: (max_keyframes, max_landmark_edges), LM iteration cap
-    "euclid": (dict(use_maha_dist=False, use_eq_dist=True, eq_dist_thres=1.0, land_noise_low=0.1), (8, 32), 64),
-    "maha": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4), (16, 64), 32),
+    # gating, capacities: (max_keyframes, max_landmark_edges), LM iteration cap, linear solver
+    "euclid": (dict(use_maha_dist=False, use_eq_dist=True, eq_dist_thres=1.0, land_noise_low=0.1), (8, 32), 64,
+               "dense"),
+    "maha": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4), (16, 64), 32,
+             "dense"),
+    "maha-pcg": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4), (16, 64),
+                 32, "pcg"),
 }
 
 
@@ -82,14 +185,16 @@ SMALL_SESSIONS = {
 @pytest.mark.parametrize("gating", sorted(SMALL_SESSIONS))
 def test_small_session_card_matches_cpu(cuda, gating):
     """Same log, same config (f32) on the card and on the CPU: the same map,
-    and trajectories within the f32 tolerance 1e-3 (index_add_ and cuBLAS
-    sum in other orders than the CPU)."""
-    from semantic_slam_tpu.config import (
+    and trajectories within the f32 tolerance 1e-3 (index_add_, cuBLAS and
+    the kernels sum in other orders than the CPU). With ``pcg`` every LM
+    iteration on the card runs K1-K4."""
+    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.config import (
         AssociationConfig, CapacityConfig, KeyframeConfig, SegmentationConfig, SlamConfig, SolverConfig,
     )
-    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.solver import kernels as sk
 
-    assoc, (kf_cap, lme_cap), max_iterations = SMALL_SESSIONS[gating]
+    assoc, (kf_cap, lme_cap), max_iterations, solver = SMALL_SESSIONS[gating]
     cfg = SlamConfig(
         keyframe=KeyframeConfig(delta_trans=0.4, delta_angle=0.4, delta_time=2.0),
         segmentation=SegmentationConfig(
@@ -97,12 +202,14 @@ def test_small_session_card_matches_cpu(cuda, gating):
             max_planes_per_detection=2, num_hypotheses=64, normal_smoothing_size=10,
         ),
         association=AssociationConfig(**assoc),
-        solver=SolverConfig(max_iterations=max_iterations),
+        solver=SolverConfig(max_iterations=max_iterations, linear_solver=solver),
         capacity=CapacityConfig(max_keyframes=kf_cap, max_landmarks=16, max_odom_edges=kf_cap,
                                 max_landmark_edges=lme_cap, max_detections_per_frame=4),
     )
     log = cli.make_synthetic_log(seed=3, n_steps=120, sensor_every=5, drift_noise=0.008, H=120, W=160)
+    before = sk.resident_solve.launches
     gpu, cpu = cli.run_session(log, cfg, "cuda"), cli.run_session(log, cfg, "cpu")
+    assert (sk.resident_solve.launches > before) == (solver == "pcg")
     assert gpu.graph.poses.device.type == "cuda" and gpu.graph.max_poses > kf_cap  # grew on the card
     for e in (gpu, cpu):
         assert int(e.table.count) > 0

@@ -1,0 +1,118 @@
+"""The port stands alone.
+
+No module of ``semantic_slam_tpu_torch/`` and nothing in ``chip_smoke.py``
+imports ``jax``, the JAX package ``semantic_slam_tpu`` or ``__graft_entry__``
+(an ``ast`` scan of every import statement and every
+``importlib.import_module`` call with a literal name). And the port's copies
+of the JAX package's jax-free modules (``config``, ``core/np_geometry``,
+``runtime/keyframe_gate``, ``io/{replay,synthetic,tum}``, ``eval/ate``) give
+what their originals give on the same inputs, exactly.
+"""
+
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+
+from semantic_slam_tpu import config as jcfg
+from semantic_slam_tpu.core import np_geometry as jnpg
+from semantic_slam_tpu.eval import ate as jate
+from semantic_slam_tpu.io import replay as jreplay
+from semantic_slam_tpu.io import synthetic as jsyn
+from semantic_slam_tpu.io import tum as jtum
+from semantic_slam_tpu.runtime.keyframe_gate import KeyframeGate as JGate
+from semantic_slam_tpu_torch import config as tcfg
+from semantic_slam_tpu_torch.core import np_geometry as tnpg
+from semantic_slam_tpu_torch.eval import ate as tate
+from semantic_slam_tpu_torch.io import replay as treplay
+from semantic_slam_tpu_torch.io import synthetic as tsyn
+from semantic_slam_tpu_torch.io import tum as ttum
+from semantic_slam_tpu_torch.runtime.keyframe_gate import KeyframeGate as TGate
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "semantic_slam_tpu", "__graft_entry__"}
+
+
+def _imported_names(path: pathlib.Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)):
+            names.append(node.args[0].value)
+    return names
+
+
+def test_no_jax_imports():
+    files = sorted((REPO / "semantic_slam_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = {str(f.relative_to(REPO)): n for f in files for n in _imported_names(f) if n.split(".")[0] in FORBIDDEN}
+    assert not bad, bad
+    # the scan sees what it looks for
+    assert {"semantic_slam_tpu", "semantic_slam_tpu.io"} <= set(_imported_names(pathlib.Path(__file__)))
+
+
+def test_config_copy_equal():
+    assert tcfg.SEMANTIC_CLASSES == jcfg.SEMANTIC_CLASSES and tcfg.CLASS_TO_ID == jcfg.CLASS_TO_ID
+    assert (tcfg.PLANE_VERTICAL, tcfg.PLANE_HORIZONTAL) == (jcfg.PLANE_VERTICAL, jcfg.PLANE_HORIZONTAL)
+    assert sorted(tcfg.PROFILES) == sorted(jcfg.PROFILES)
+    for name, cfg in jcfg.PROFILES.items():
+        assert dataclasses.asdict(tcfg.PROFILES[name]) == dataclasses.asdict(cfg), name
+    assert dataclasses.asdict(tcfg.SlamConfig()) == dataclasses.asdict(jcfg.SlamConfig())
+
+
+def _assert_logs_equal(a, b):
+    for field in ("odom", "clouds", "depths", "detections", "gt"):
+        ea, eb = getattr(a, field), getattr(b, field)
+        assert len(ea) == len(eb), field
+        for x, y in zip(ea, eb):
+            for f in dataclasses.fields(y):
+                va, vb = getattr(x, f.name), getattr(y, f.name)
+                if isinstance(vb, np.ndarray):
+                    assert va.dtype == vb.dtype, (field, f.name)
+                    np.testing.assert_array_equal(va, vb, err_msg=f"{field}.{f.name}")
+                else:
+                    assert va == vb, (field, f.name)
+
+
+def test_synthetic_log_and_replay_io_equal(tmp_path):
+    kw = dict(seed=0, n_steps=60, sensor_every=6, H=48, W=64, loops=1)
+    tlog, jlog = tsyn.make_synthetic_log(**kw), jsyn.make_synthetic_log(**kw)
+    _assert_logs_equal(tlog, jlog)
+    assert tlog.clouds and tlog.detections and tlog.gt
+    _assert_logs_equal(tsyn.clouds_to_depth(tlog), jsyn.clouds_to_depth(jlog))
+    # each package reads the other's .npz
+    treplay.save_log(str(tmp_path / "t.npz"), tlog)
+    jreplay.save_log(str(tmp_path / "j.npz"), jlog)
+    _assert_logs_equal(jreplay.load_log(str(tmp_path / "t.npz")), treplay.load_log(str(tmp_path / "j.npz")))
+
+
+def test_ate_tum_and_geometry_equal(tmp_path):
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0, 20, 200))
+    gt = np.cumsum(rng.normal(size=(200, 3)) * 0.1, axis=0)
+    est = gt + rng.normal(size=gt.shape) * 0.05
+    for fn in ("ate_rmse", "rpe_rmse"):
+        assert getattr(tate, fn)(t, est, t + 0.01, gt) == getattr(jate, fn)(t, est, t + 0.01, gt)
+    q = rng.normal(size=(200, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    poses = np.concatenate([est, q], axis=-1)
+    ttum.write_tum(str(tmp_path / "t.txt"), t, poses)
+    jtum.write_tum(str(tmp_path / "j.txt"), t, poses)
+    assert (tmp_path / "t.txt").read_text() == (tmp_path / "j.txt").read_text()
+    for a, b in zip(ttum.read_tum(str(tmp_path / "j.txt")), jtum.read_tum(str(tmp_path / "j.txt"))):
+        np.testing.assert_array_equal(a, b)
+
+    p, xi = poses[:20], rng.normal(size=(20, 6)) * 0.3
+    for fn, args in (("pose_mul", (p, p[::-1])), ("pose_inv", (p,)), ("pose_retract", (p, xi)),
+                     ("pose_ned_to_enu", (p[0],)), ("pose_cam_to_robot_odom", (p[0],)), ("rot_pose_z", (p[0], 0.3)),
+                     ("pose_to_xyzrpy", (p[0],)), ("t_cam_world", (np.r_[est[0], 0.1, -0.2, 0.3], 0.2))):
+        np.testing.assert_array_equal(getattr(tnpg, fn)(*args), getattr(jnpg, fn)(*args), err_msg=fn)
+
+    tg, jg = TGate(), JGate()
+    for k in range(200):
+        assert tg.update(poses[k], float(t[k])) == jg.update(poses[k], float(t[k])), k

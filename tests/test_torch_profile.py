@@ -1,6 +1,7 @@
 """The port's profiling replay on the CPU, at a tiny size: every layer of the
 slice is timed once per call and unwrapped afterwards, and the timed run
-makes the same ticks as the plain one."""
+makes the same ticks as the plain one; with ``--solver pcg`` the solver's
+layers are called as often as the LM's iterations imply."""
 
 import dataclasses
 import importlib
@@ -9,14 +10,24 @@ from semantic_slam_tpu_torch import cli
 from semantic_slam_tpu_torch import profile_slice as ps
 
 
-def test_profile_session_times_every_layer_and_unwraps():
-    originals = {(m, a): getattr(importlib.import_module(m), a) for m, a, _ in ps.LAYERS}
+# the layers only the SoA Schur-PCG solver runs
+PCG_LAYERS = ("lm_optimize_soa", "build_soa_edges", "chain_linearize", "obs_linearize", "resident_solve",
+              "resident_chi2", "landmark_marginals_mf")
+
+
+def _small(solver: str, max_iterations: int, **solver_kw):
     log = cli.make_synthetic_log(seed=0, n_steps=42, sensor_every=6, loops=1, H=60, W=80)
     cfg = cli.make_config(cli.build_parser().parse_args(
-        ["run", "--log", "in-process", "--device", "cpu", "--max-keyframes", "8", "--crop-size", "32"]
+        ["run", "--log", "in-process", "--device", "cpu", "--max-keyframes", "8", "--crop-size", "32",
+         "--solver", solver]
     ))
+    return log, cfg.replace(solver=dataclasses.replace(cfg.solver, max_iterations=max_iterations, **solver_kw))
+
+
+def test_profile_session_times_every_layer_and_unwraps():
+    originals = {(m, a): getattr(importlib.import_module(m), a) for m, a, _ in ps.LAYERS}
     # two LM iterations a tick keep the trace, and parsing it, small
-    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, max_iterations=2))
+    log, cfg = _small("dense", 2)
     report = ps.profile_session(log, cfg, "cpu")
 
     for (m, a), fn in originals.items():
@@ -24,6 +35,7 @@ def test_profile_session_times_every_layer_and_unwraps():
     plain, traced = report["plain"], report["traced"]
     assert plain["lm_iterations"] == traced["lm_iterations"]
     rows = {r["layer"]: r for r in report["layers"]}
+    assert all(rows.pop(label)["calls"] == 0 for label in PCG_LAYERS)
     assert all(r["calls"] > 0 and r["host_ms_total"] > 0 and r["device_ms_total"] is None for r in rows.values())
     assert rows["_optimize_tick"]["calls"] == len(traced["tick_ms"])
     assert rows["score_hypotheses"]["calls"] == cfg.segmentation.max_planes_per_detection * rows["extract_planes"]["calls"]
@@ -31,3 +43,21 @@ def test_profile_session_times_every_layer_and_unwraps():
     # one linearization per LM iteration, plus the first of each optimizing tick
     assert rows["linearize_arrays"]["calls"] == sum(traced["lm_iterations"]) + n_opt
     assert traced["busy_share"] is None
+
+
+def test_profile_session_pcg_counts_the_solver_layers():
+    """The pcg session: per optimizing tick, K2 and K1 once per LM iteration
+    plus twice (the first and the final linearization), K4 once per
+    iteration, K3 once per iteration and once per solve skipped below the
+    edge gate; the dense LM's layers never run."""
+    log, cfg = _small("pcg", 1, pcg_iters=2)
+    report = ps.profile_session(log, cfg, "cpu")
+    traced = report["traced"]
+    rows = {r["layer"]: r["calls"] for r in report["layers"]}
+    ran = [it for it in traced["lm_iterations"] if it > 0]
+    assert ran and rows["lm_optimize_soa"] == rows["_optimize_tick"] == len(traced["tick_ms"])
+    assert rows["chain_linearize"] == rows["obs_linearize"] == sum(it + 2 for it in ran)
+    assert rows["resident_solve"] == sum(ran)
+    assert rows["resident_chi2"] == sum(ran) + rows["lm_optimize_soa"] - len(ran)
+    assert rows["landmark_marginals_mf"] == len(ran)
+    assert rows["lm_optimize"] == rows["linearize_arrays"] == rows["schur_solve"] == 0

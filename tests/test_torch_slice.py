@@ -10,7 +10,11 @@ keyframe per tick, at ``--max-keyframes 8``
 capacities, which forces capacity growth, runs the marginal recovery every
 optimizing tick, seeds the first pose and landmark (``add_first_lan``) and
 makes a keyframe of every detection frame (``update_key_using_det``).
-Each session ends with ``finalize()``. Counts, landmark ids and per-tick LM
+The Mahalanobis session runs twice: with the dense Schur LM and with
+``linear_solver="pcg"``, where the port runs its SoA Schur-PCG solver (the
+plain versions of kernels K1-K4 on the CPU) and the JAX engine on the CPU
+its ELL PCG solver (``pcg.lm_optimize_pcg``): the same math up to summation
+order. Each session ends with ``finalize()``. Counts, landmark ids and per-tick LM
 iterations must be equal; keyframe poses agree to 1e-6.
 """
 
@@ -44,7 +48,12 @@ def maha_grow_config():
     )
 
 
-CONFIGS = {"e2e-euclid-depth": e2e_config, "maha-grow": maha_grow_config}
+def maha_grow_pcg_config():
+    cfg = maha_grow_config()
+    return cfg.replace(solver=dataclasses.replace(cfg.solver, linear_solver="pcg"))
+
+
+CONFIGS = {"e2e-euclid-depth": e2e_config, "maha-grow": maha_grow_config, "maha-grow-pcg": maha_grow_pcg_config}
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
@@ -75,7 +84,7 @@ def test_same_map(engines):
     np.testing.assert_array_equal(te.table.class_id[:n].numpy(), np.asarray(je.table.class_id[:n]))
     if name.endswith("depth"):
         assert len(te.stats_history) < len(te.keyframes) // 2  # multi-keyframe ticks
-    if name == "maha-grow":
+    if name.startswith("maha-grow"):
         assert te.graph.max_poses == je.graph.max_poses > 8  # grew
         np.testing.assert_allclose(te.table.cov[:n].numpy(), np.asarray(je.table.cov[:n]), atol=1e-6)
 
@@ -107,7 +116,7 @@ def _with(section: str, **kw):
 
 
 UNPORTED = {
-    "pcg": lambda cfg: cfg.replace(solver=SolverConfig(linear_solver="pcg")),
+    "pcg": lambda cfg: cfg.replace(solver=SolverConfig(linear_solver="pcg", pcg_precond="tridiag")),
     "mesh.num_devices": _with("mesh", num_devices=4),
     "fixed_lag_window": _with("solver", fixed_lag_window=24),
     "use_plane_landmarks": lambda cfg: cfg.replace(use_plane_landmarks=True),
