@@ -12,22 +12,35 @@ before the result line:
 3. kernels against plain -- each kernel against its plain PyTorch version on
              the card, at the shapes the main paths give it and at ragged /
              empty edge cases, timed with CUDA events after warm-up:
-             K5 (RANSAC scoring) at [D=8, N=65,536, S=128]; K1-K4 (the SoA
-             Schur-PCG solver) at the bench shape K=4096/L=1024/E2=16384
-             (R=4), at the engine's ``--max-keyframes 4096`` shape (R=32) and
-             at a ragged K=1000, under robust none/huber/dcs;
-4. fixed-work LM -- 8 LM iterations of 128 CG steps at the bench shape,
-             through the kernels and through the plain versions;
-5. dense slice -- a 640x480 synthetic session through the port's ``cli run``
+             K5 (RANSAC scoring) at [D=8, N=65,536, S=128]; K1-K4 (the
+             resident SoA Schur-PCG solver) at the bench shape
+             K=4096/L=1024/E2=16384 (R=4), at the engine's
+             ``--max-keyframes 4096`` shape (R=32) and at a ragged K=1000,
+             under robust none/huber/dcs; K6-K10 (the row-range solver) at
+             the bench shape K=8192/L=2048/E2=32768 (R=4), at the engine's
+             ``--max-keyframes 8192`` shape (R=32) and at K=16384/L=4096, each
+             on the whole row range and on rows [K/2, K);
+4. two halves -- K6+K7 and K8 -> K9 on rows [0, K/2) and [K/2, K), summed,
+             embedded and shifted, against the whole range (the row-range
+             contract of a multi-device loop);
+5. fixed-work LMs -- 8 LM iterations of 128 CG steps: the resident loop at
+             K=4096 and the row-range loop at K=8192, each through the kernels
+             and through the plain versions; and the two loops on the K=4096
+             graph against each other;
+6. dense slice -- a 640x480 synthetic session through the port's ``cli run``
              path (profile ``yolo_detector``, its own capacities
              K=512/L=128/E2=2048, dense Schur LM), counters reset just before;
-6. pcg slice -- the same session with ``--solver pcg --max-keyframes 4096``
+7. pcg slice -- the same session with ``--solver pcg --max-keyframes 4096``
              (K=4096/L=1024/E2=16384, R=32): every LM iteration runs K1-K4;
-             the counters are reset just before it and checked against the
-             LM's iteration counts just after.
+8. tiled slice -- the same session with ``--solver pcg --max-keyframes 8192``
+             (K=8192/L=2048/E2=32768, R=32): every LM iteration runs K6-K10,
+             and the marginals' linearization K1+K2.
+The counters are reset just before each session and checked against the LM's
+iteration counts just after.
 
 The line before the last is a JSON object with one entry per kernel (launches
-from the pcg slice, times and errors at its shapes, and each kernel's bound);
+from the session whose path runs it, K1-K5 from the pcg slice, K6-K10 from
+the tiled slice; times and errors at the engine shapes; each kernel's bound);
 the last line is ``{"ok": true, "device": {...}}``. Artifacts of the sessions
 go to ``chiprun_out/chip_smoke/`` under the checkout.
 """
@@ -65,6 +78,10 @@ FP32_FLOP_PER_S = 67e12
 BENCH = dict(K=4096, L=1024, E2=16384)  # bench.py's mid cell, R = 4
 ENGINE_R = 32  # yolo_detector: 8 detections x 4 planes per keyframe
 RAGGED = dict(K=1000, L=250, E2=7992)  # K not a multiple of any block size, R = 8
+TILED_BENCH = dict(K=8192, L=2048, E2=32768)  # bench.py's large cell, R = 4
+TILED_LARGE = dict(K=16384, L=4096, E2=65536)  # the largest cell of the JAX package's tiled path, R = 4
+LM_STEPS = 128  # CG steps per LM iteration in the fixed-work LMs
+DEVICE = "cuda"  # every tensor of the phases lives here
 
 
 class SmokeFailure(Exception):
@@ -128,7 +145,7 @@ def card_info(torch) -> dict:
 def _planar_inputs(torch, D: int, N: int, S: int, gen):
     """Points on three noisy planes per detection, hypotheses seeded from
     evenly spread points as the plane extractor seeds them."""
-    dev = "cuda"
+    dev = DEVICE
     normals = torch.nn.functional.normalize(torch.randn(D, 3, 3, generator=gen, device=dev), dim=-1)
     offsets = torch.rand(D, 3, generator=gen, device=dev) * 2.0 + 0.5
     which = torch.randint(0, 3, (D, N), generator=gen, device=dev)
@@ -159,7 +176,7 @@ def check_score_hypotheses(torch) -> dict:
     from semantic_slam_tpu_torch.frontend import kernels
 
     dist_thres, cos_thres = 0.02, math.cos(math.radians(2.0))
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     result = {}
     for label, D, N, S, empty in (
         ("path shape", 8, 65536, 128, False),
@@ -211,7 +228,7 @@ def _soa_case(torch, K: int, L: int, E2: int, R: int | None = None, perturb: boo
     from semantic_slam_tpu_torch.solver.lm import _free_masks
     from semantic_slam_tpu_torch.solver.pcg import _edge_args
 
-    g = syn.build_graph(K, L, E2, torch.float32, seed=0, noise=0.05, device="cuda")
+    g = syn.build_graph(K, L, E2, torch.float32, seed=0, noise=0.05, device=DEVICE)
     R = R or syn.ell_rows_for(K, E2)[2]
     if perturb:
         # an LM iterate rather than the start: there every chain residual is
@@ -366,30 +383,227 @@ def check_soa_kernels(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 3c. K6-K10 against their plain versions; 4. the two halves
+# ---------------------------------------------------------------------------
+
+
+class RowRange:
+    """Rows [off, off + Kl) of a graph: the pose channels of the rows and of
+    their chain successors, and the rows' edge store."""
+
+    def __init__(self, torch, g, R: int, off: int, Kl: int):
+        from semantic_slam_tpu_torch.solver import chain_soa as chs
+        from semantic_slam_tpu_torch.solver import soa_dist as sd
+        from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+        K, L = g.poses.shape[0], g.landmarks.shape[0]
+        self.off, self.Kl, self.K = off, Kl, K
+        pc = g.poses.T
+        self.pc, self.pj = pc[:, off:off + Kl].contiguous(), chs.roll_up_pose_ch(pc)[:, off:off + Kl].contiguous()
+        self.de = sd.build_dist_edges(_edge_args(g), K, R, L, off, Kl)
+
+    def rows(self, x):
+        return x[..., self.off:self.off + self.Kl].contiguous()
+
+
+def _tiled_bytes_flops(K: int, R: int, L: int, E_real: int) -> dict:
+    """Bytes and fp32 operations of each row-range kernel over K rows (4-byte
+    words; each input read once, each output written once; the landmark
+    passes' scratch is not counted). Operations as for K1-K3, and per real
+    slot about 42 for the matvec's first half and 48 for its second, plus
+    264 per row for the chain's four 6x6 products."""
+    E = K * R
+    return {
+        "tiled_chain_linearize": (4 * (57 * K + 120 * K + 1), 3000 * K),
+        "tiled_obs_linearize": (4 * (7 * K + 3 * L + 14 * E + L + 1 + 42 * K + 1 + 12 * E + 51 * K + 12 * L + 1),
+                                230 * E_real + 80 * K),
+        "tiled_mv_fwd": (4 * (13 * E + 15 * K + L + 1 + 3 * E + 3 * L), 42 * E_real),
+        "tiled_mv_bwd": (4 * (16 * E + 3 * L + 129 * K + 12 * K), 48 * E_real + 264 * K),
+        "tiled_chi2": (4 * (7 * K + 3 * L + 13 * E + 50 * K + 1), 50 * E_real + 520 * K),
+    }
+
+
+def check_tiled_kernels(torch) -> dict:
+    """K6-K10 against their plain versions at the bench, engine and K=16384
+    shapes, on the whole row range and on rows [K/2, K); returns the engine
+    shape's whole-range numbers per kernel."""
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    out = {}
+    cases = (
+        ("bench R=4", TILED_BENCH, None),
+        (f"engine R={ENGINE_R}", TILED_BENCH, ENGINE_R),
+        ("K=16384", TILED_LARGE, None),
+    )
+    for label, shape, R_arg in cases:
+        g, _, _, _, R = _soa_case(torch, **shape, R=R_arg, perturb=True)
+        K, L = shape["K"], shape["L"]
+        record = label.startswith("engine")
+        x_full = torch.randn(6, K, generator=torch.Generator(device=DEVICE).manual_seed(2), device=DEVICE)
+        xj_full = torch.cat([x_full[:, 1:], x_full[:, :1]], dim=1)
+        for where, off, Kl in (("rows [0, K)", 0, K), ("rows [K/2, K)", K // 2, K // 2)):
+            rr = RowRange(torch, g, R, off, Kl)
+            E_real = int(rr.de.lm_start[L])
+            print(f"-- row-range kernels [{label}, {where}]: K={K} L={L} R={R}, {E_real} real slots of {Kl * R}")
+            errs = {}
+            # K7
+            ck, cp = tk.tiled_chain_linearize(rr.pc, rr.pj, rr.de), sd.chain_plain(rr.pc, rr.pj, rr.de)
+            errs["tiled_chain_linearize"] = {n: _rel_err(torch, a, b) for n, a, b in zip(cp._fields, ck, cp)}
+            for kind in ("none", "huber", "dcs"):
+                # K6 on the plain chain blocks, so that its own error shows; K10
+                lk = tk.tiled_obs_linearize(rr.pc, g.landmarks, rr.de, cp, kind, 1.0)
+                lp = sd.obs_plain(rr.pc, g.landmarks, rr.de, cp, kind, 1.0)
+                e6 = {n: _rel_err(torch, a, b) for n, a, b in zip(lp._fields, lk, lp)}
+                xk = tk.tiled_chi2(rr.pc, rr.pj, g.landmarks, rr.de, kind, 1.0)
+                e10 = {"chi2": _rel_err(torch, xk, sd.chi2_plain(rr.pc, rr.pj, g.landmarks, rr.de, kind, 1.0))}
+                print(f"  [{kind}] tiled_obs_linearize (K6) max rel err "
+                      f"{max(e[1] for e in e6.values()):.3g}: " + ", ".join(f"{n} {e[1]:.2g}" for n, e in e6.items())
+                      + f"; tiled_chi2 (K10) {e10['chi2'][1]:.3g} (bound {LIN_RTOL:g})")
+                if kind == "none":
+                    errs["tiled_obs_linearize"], errs["tiled_chi2"] = e6, e10
+                for name, e in (("K6", e6), ("K10", e10)):
+                    require(max(v[1] for v in e.values()) <= LIN_RTOL,
+                            f"{label} {where} {kind}: {name} disagrees with its plain version: {e}")
+            # K8 and K9 on the same inputs: the plain linearization, a seeded
+            # direction, z = (Hll + I)^-1 T and the plain Oa
+            lp = sd.obs_plain(rr.pc, g.landmarks, rr.de, cp)
+            x, xj = rr.rows(x_full), rr.rows(xj_full)
+            Ok, Tk = tk.tiled_mv_fwd(lp, rr.de, x)
+            Op, Tp = sd.mv_fwd_plain(lp, rr.de, x)
+            errs["tiled_mv_fwd"] = {"Oa": _rel_err(torch, Ok, Op), "T": _rel_err(torch, Tk, Tp)}
+            z = torch.linalg.solve(lp.Hll + torch.eye(3, device=DEVICE), Tp[..., None])[..., 0]
+            uk, vk = tk.tiled_mv_bwd(lp, rr.de, Op, z, x, xj)
+            up, vp = sd.mv_bwd_plain(lp, rr.de, Op, z, x, xj)
+            errs["tiled_mv_bwd"] = {"u": _rel_err(torch, uk, up), "vj": _rel_err(torch, vk, vp)}
+            for name in ("tiled_chain_linearize", "tiled_mv_fwd", "tiled_mv_bwd"):
+                e = errs[name]
+                print(f"  {name}: max rel err {max(v[1] for v in e.values()):.3g} (bound {LIN_RTOL:g}) "
+                      + ", ".join(f"{n} {v[1]:.2g}" for n, v in e.items()))
+                require(max(v[1] for v in e.values()) <= LIN_RTOL,
+                        f"{label} {where}: {name} disagrees with its plain version: {e}")
+            if not (record and off == 0):
+                continue
+            # times at the session's shape, whole range: CUDA events after warm-up
+            bf = _tiled_bytes_flops(K, R, L, E_real)
+            fns = {
+                "tiled_chain_linearize": (lambda: tk.tiled_chain_linearize(rr.pc, rr.pj, rr.de),
+                                          lambda: sd.chain_plain(rr.pc, rr.pj, rr.de)),
+                "tiled_obs_linearize": (lambda: tk.tiled_obs_linearize(rr.pc, g.landmarks, rr.de, cp),
+                                        lambda: sd.obs_plain(rr.pc, g.landmarks, rr.de, cp)),
+                "tiled_mv_fwd": (lambda: tk.tiled_mv_fwd(lp, rr.de, x), lambda: sd.mv_fwd_plain(lp, rr.de, x)),
+                "tiled_mv_bwd": (lambda: tk.tiled_mv_bwd(lp, rr.de, Op, z, x, xj),
+                                 lambda: sd.mv_bwd_plain(lp, rr.de, Op, z, x, xj)),
+                "tiled_chi2": (lambda: tk.tiled_chi2(rr.pc, rr.pj, g.landmarks, rr.de),
+                               lambda: sd.chi2_plain(rr.pc, rr.pj, g.landmarks, rr.de)),
+            }
+            for name, (kern, plain) in fns.items():
+                ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+                b = bound(*bf[name])
+                print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of 20); "
+                      f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
+                      f"{b['flops'] / 1e6:.1f} Mflop)")
+                out[name] = {"max_abs_err": max(v[0] for v in errs[name].values()), "ms": ms, "plain_ms": plain_ms,
+                             **b}
+    return out
+
+
+def check_two_halves(torch) -> None:
+    """Rows [0, K/2) and [K/2, K) through the kernels at the bench shape:
+    the landmark tables and chi2 summed, the per-row arrays embedded at
+    their offsets and summed, the chain's j-side shifted after the sum, and
+    K8 -> K9 with T summed between them, against the whole range."""
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    g, _, _, _, R = _soa_case(torch, **TILED_BENCH, perturb=True)
+    K = TILED_BENCH["K"]
+    rrs = [RowRange(torch, g, R, off, Kl) for off, Kl in ((0, K), (0, K // 2), (K // 2, K // 2))]
+    lins = [tk.tiled_linearize(r.pc, r.pj, g.landmarks, r.de, "huber", 1.0) for r in rrs]
+
+    def emb(t, r):
+        return sd._dus(t, r.off, K)
+
+    w, a, b = lins
+    errs = {n: _rel_err(torch, getattr(a, n) + getattr(b, n), getattr(w, n)) for n in ("gl", "Hll", "chi2")}
+    for n in ("gp", "gj", "diag", "Hjj"):
+        errs[n] = _rel_err(torch, emb(getattr(a, n), rrs[1]) + emb(getattr(b, n), rrs[2]), getattr(w, n))
+    errs["gp folded"] = _rel_err(
+        torch, emb(a.gp, rrs[1]) + emb(b.gp, rrs[2]) + sd._shift_down_soa(emb(a.gj, rrs[1]) + emb(b.gj, rrs[2])),
+        w.gp + sd._shift_down_soa(w.gj))
+    x = torch.randn(6, K, generator=torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE)
+    xj = torch.cat([x[:, 1:], x[:, :1]], dim=1)
+    fwd = [tk.tiled_mv_fwd(lin, r.de, r.rows(x)) for r, lin in zip(rrs, lins)]
+    errs["T"] = _rel_err(torch, fwd[1][1] + fwd[2][1], fwd[0][1])
+    z = torch.linalg.solve(w.Hll + torch.eye(3, device=DEVICE), fwd[0][1][..., None])[..., 0]
+    u, vj = [], []
+    for r, lin, (Oa, _) in zip(rrs, lins, fwd):
+        ur, vr = tk.tiled_mv_bwd(lin, r.de, Oa, z, r.rows(x), r.rows(xj))
+        u.append(emb(ur, r))
+        vj.append(emb(vr, r))
+    errs["u folded"] = _rel_err(torch, u[1] + u[2] + sd._shift_down_soa(vj[1] + vj[2]),
+                                u[0] + sd._shift_down_soa(vj[0]))
+    worst = max(e[1] for e in errs.values())
+    print(f"two halves against the whole range (K={K}, R={R}): max rel err {worst:.3g} (bound {LIN_RTOL:g}) "
+          + ", ".join(f"{n} {e[1]:.2g}" for n, e in errs.items()))
+    require(worst <= LIN_RTOL, f"two halves disagree with the whole range: {errs}")
+
+
+# ---------------------------------------------------------------------------
 # 4. fixed-work LM
 # ---------------------------------------------------------------------------
 
 
-def check_fixed_lm(torch) -> dict:
+def _run_lm(torch, loop: str, g, R: int, ops) -> tuple:
+    """8 LM iterations of LM_STEPS CG steps on ``g``, through the resident
+    loop or the row-range one; returns (iterations, chi2 initial, chi2 final,
+    ms per LM iteration on the host clock, synced)."""
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
 
-    g, se, pf, lf, R = _soa_case(torch, **BENCH)
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    pf, lf = _free_masks(g)
+    build, run = ((soa.build_soa_edges, soa.run_lm_loop_soa) if loop == "resident" else
+                  (sd.build_dist_edges, sd.run_lm_loop_soa_dist))
+    edges = build(_edge_args(g), K, R, L)
+    args = (edges, pf, lf) if loop == "resident" else (pf, lf, edges)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = run(g.poses, g.landmarks, *args, 8, 0.0, LM_STEPS, cg_tol=0.0, ops=ops)[2]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return stats.iterations, float(stats.chi2_initial), float(stats.chi2_final), 1e3 * wall / max(stats.iterations, 1)
+
+
+def check_fixed_lm(torch) -> None:
+    """The resident LM at K=4096 and the row-range LM at K=8192, each through
+    the kernels and through the plain versions; then both loops through the
+    kernels on the K=4096 graph."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+
     res = {}
-    for name, ops in (("kernels", soa.kernel_ops()), ("plain", soa.PLAIN_OPS)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, stats, _ = soa.run_lm_loop_soa(g.poses, g.landmarks, se, pf, lf, 8, 0.0, 128, cg_tol=0.0, ops=ops)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        c0, c1 = float(stats.chi2_initial), float(stats.chi2_final)
-        res[name] = (stats.iterations, c0, c1, 1e3 * wall / max(stats.iterations, 1))
-        print(f"fixed-work LM [{name}] K={BENCH['K']} L={BENCH['L']} R={R}: {stats.iterations} iterations x 128 CG "
-              f"steps, chi2 {c0:.7g} -> {c1:.7g}, {res[name][3]:.3f} ms per LM iteration (host clock, synced)")
-        require(stats.iterations == 8 and math.isfinite(c1) and c1 < c0, f"fixed-work LM [{name}] failed: {stats}")
-    rel = abs(res["kernels"][2] - res["plain"][2]) / abs(res["plain"][2])
-    print(f"fixed-work LM: final chi2 rel diff {rel:.3g} (bound {LM_RTOL:g})")
-    require(rel <= LM_RTOL, "fixed-work LM: kernels and plain disagree on the final chi2")
-    return {"ms_per_iter_kernels": res["kernels"][3], "ms_per_iter_plain": res["plain"][3]}
+    for loop, shape, ops_of in (("resident", BENCH, {"kernels": soa.kernel_ops(), "plain": soa.PLAIN_OPS}),
+                                ("tiled", TILED_BENCH, {"kernels": sd.kernel_ops(), "plain": sd.PLAIN_OPS})):
+        g, _, _, _, R = _soa_case(torch, **shape)
+        for name, ops in ops_of.items():
+            it, c0, c1, ms = res[(loop, shape["K"], name)] = _run_lm(torch, loop, g, R, ops)
+            print(f"fixed-work LM [{loop} loop, {name}] K={shape['K']} L={shape['L']} R={R}: {it} iterations x "
+                  f"{LM_STEPS} CG steps, chi2 {c0:.7g} -> {c1:.7g}, {ms:.3f} ms per LM iteration (host clock, synced)")
+            require(it == 8 and math.isfinite(c1) and c1 < c0, f"fixed-work LM [{loop} {name}] failed")
+        kern, plain = res[(loop, shape["K"], "kernels")], res[(loop, shape["K"], "plain")]
+        rel = abs(kern[2] - plain[2]) / abs(plain[2])
+        print(f"fixed-work LM [{loop} loop]: final chi2 rel diff kernels/plain {rel:.3g} (bound {LM_RTOL:g})")
+        require(rel <= LM_RTOL, f"fixed-work LM [{loop}]: kernels and plain disagree on the final chi2")
+    g, _, _, _, R = _soa_case(torch, **BENCH)
+    it, c0, c1, ms = _run_lm(torch, "tiled", g, R, sd.kernel_ops())
+    resident = res[("resident", BENCH["K"], "kernels")]
+    rel = abs(c1 - resident[2]) / abs(resident[2])
+    print(f"fixed-work LM [tiled loop, kernels] K={BENCH['K']}: chi2 {c0:.7g} -> {c1:.7g}, {ms:.3f} ms per LM "
+          f"iteration against the resident loop's {resident[3]:.3f}; final chi2 rel diff {rel:.3g} (bound {LM_RTOL:g})")
+    require(it == 8 and rel <= LM_RTOL, "fixed-work LM: the row-range and resident loops disagree at K=4096")
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +616,14 @@ WRAPPERS = (
     ("resident_chi2", "semantic_slam_tpu_torch.solver.kernels"),
     ("resident_solve", "semantic_slam_tpu_torch.solver.kernels"),
     ("score_hypotheses", "semantic_slam_tpu_torch.frontend.kernels"),
+    ("tiled_chain_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_obs_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_mv_fwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_mv_bwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_chi2", "semantic_slam_tpu_torch.solver.tiled_kernels"),
 )
+RESIDENT = ("chain_linearize", "obs_linearize", "resident_chi2", "resident_solve")
+TILED = ("tiled_chain_linearize", "tiled_obs_linearize", "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
 
 
 def _wrappers():
@@ -417,7 +638,7 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
     from semantic_slam_tpu_torch.solver import ellk_soa
 
     args = cli.build_parser().parse_args(
-        ["run", "--log", "in-process", "--profile", "yolo_detector", "--device", "cuda",
+        ["run", "--log", "in-process", "--profile", "yolo_detector", "--device", DEVICE,
          "--compute-ate", "--out", os.path.join(OUT_DIR, label), *extra]
     )
     cfg = cli.make_config(args)
@@ -426,17 +647,24 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
           f"D={cap.max_detections_per_frame}; crop {cfg.segmentation.crop_height}x{cfg.segmentation.crop_width}, "
           f"S={cfg.segmentation.num_hypotheses}; solver {cfg.solver.linear_solver}")
 
-    # the SoA LM's iterations per call, to check the launch counts against
-    calls = []
-    orig = ellk_soa.lm_optimize_soa
+    # each PCG loop's iterations per call, to check the launch counts against
+    from semantic_slam_tpu_torch.solver import soa_dist
 
-    def recording(*a, **kw):
-        res = orig(*a, **kw)
-        calls.append(res[1].iterations)
-        return res
+    calls = {"resident": [], "tiled": []}
+    entries = {"resident": (ellk_soa, "lm_optimize_soa"), "tiled": (soa_dist, "lm_optimize_soa_tiled")}
+    origs = {loop: getattr(mod, fn) for loop, (mod, fn) in entries.items()}
+
+    def recording(loop):
+        def call(*a, **kw):
+            res = origs[loop](*a, **kw)
+            calls[loop].append(res[1].iterations)
+            return res
+
+        return call
 
     wrappers = _wrappers()
-    ellk_soa.lm_optimize_soa = recording
+    for loop, (mod, fn) in entries.items():
+        setattr(mod, fn, recording(loop))
     try:
         for w in wrappers.values():
             w.launches = 0
@@ -446,13 +674,14 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
     finally:
-        ellk_soa.lm_optimize_soa = orig
+        for loop, (mod, fn) in entries.items():
+            setattr(mod, fn, origs[loop])
     summary = cli.write_outputs(args.out, args.profile, cfg, engine, log)
     print(f"[{label}] summary:", json.dumps(summary))
 
     g, t = engine.graph, engine.table
     tensors = [getattr(g, f) for f in ("poses", "landmarks", "lme_k", "num_lme")] + [t.world, t.cov, engine.marginals]
-    require(all(x.device.type == "cuda" for x in tensors), f"[{label}] graph/table state is not on the card")
+    require(all(x.device.type == DEVICE for x in tensors), f"[{label}] graph/table state is not on the card")
     require(g.poses.shape[0] == cap.max_keyframes, f"[{label}] graph capacity {g.poses.shape[0]} != K")
     require(summary["keyframes"] > 0, f"[{label}] no keyframes")
     require(summary["landmarks"] > 0, f"[{label}] no landmarks mapped")
@@ -472,21 +701,46 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
     require(launches["score_hypotheses"] > 0 and launches["score_hypotheses"] == n_det_kf * rounds,
             f"[{label}] K5 launches do not match the extraction rounds")
     iters = [s["iterations"] for s in engine.stats_history]
+    loop = None
     if cfg.solver.linear_solver == "pcg":
-        ran = [it for it in calls if it > 0]
-        require(ran == [it for it in iters if it > 0], f"[{label}] LM calls {calls} do not match the ticks {iters}")
-        expect = {
-            "chain_linearize": sum(it + 2 for it in ran),
-            "obs_linearize": sum(it + 2 for it in ran),
-            "resident_solve": sum(ran),
-            "resident_chi2": sum(ran) + sum(1 for it in calls if it == 0),
-        }
-        print(f"[{label}] SoA LM calls (iterations): {calls}; expected launches: K1/K2 = sum(it + 2) over "
-              f"solves, K4 = sum(it), K3 = sum(it) + skipped solves = {expect}")
+        loop = "tiled" if cap.max_keyframes > soa_dist.TILED_FROM_K else "resident"
+        other = "resident" if loop == "tiled" else "tiled"
+        ran = [it for it in calls[loop] if it > 0]
+        skipped = sum(1 for it in calls[loop] if it == 0)
+        require(not calls[other] and ran == [it for it in iters if it > 0],
+                f"[{label}] LM calls {calls} do not match the ticks {iters} on the {loop} loop")
+        if loop == "resident":
+            expect = {
+                "chain_linearize": sum(it + 2 for it in ran),
+                "obs_linearize": sum(it + 2 for it in ran),
+                "resident_solve": sum(ran),
+                "resident_chi2": sum(ran) + skipped,
+                **{name: 0 for name in TILED},
+            }
+            formula = "K1/K2 = sum(it + 2) over solves, K4 = sum(it), K3 = sum(it) + skipped solves, K6-K10 = 0"
+        else:
+            steps = cfg.solver.pcg_iters
+            expect = {
+                "tiled_chain_linearize": sum(ran),
+                "tiled_obs_linearize": sum(ran),
+                "tiled_mv_fwd": sum(it * (steps + 1) for it in ran),
+                "tiled_mv_bwd": sum(it * (steps + 1) for it in ran),
+                "tiled_chi2": sum(ran) + skipped,
+                "chain_linearize": len(ran),
+                "obs_linearize": len(ran),
+                "resident_solve": 0,
+                "resident_chi2": 0,
+            }
+            formula = (f"K6/K7 = sum(it) over solves, K8/K9 = sum(it x ({steps} CG steps + 1)), "
+                       "K10 = sum(it) + skipped solves, K1/K2 = one marginals linearization per solve, K3/K4 = 0")
+        print(f"[{label}] {loop} LM calls (iterations): {calls[loop]}; expected launches: {formula} = {expect}")
         for name, n in expect.items():
-            require(n > 0 and launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
+            require(launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
+        for name in (RESIDENT if loop == "resident" else TILED + ("chain_linearize", "obs_linearize")):
+            require(launches[name] > 0, f"[{label}] {name} was launched no time on its path")
     else:
-        require(not calls and all(launches[n] == 0 for n, _ in WRAPPERS[:4]),
+        require(not calls["resident"] and not calls["tiled"]
+                and all(launches[n] == 0 for n in RESIDENT + TILED),
                 f"[{label}] the dense path ran SoA kernels: {launches}")
 
     tick_ms = [1e3 * s["solve_seconds"] for s in engine.stats_history]
@@ -504,7 +758,7 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
           f"{steady_median([x for x, it in zip(tick_ms, iters) if it == 0])}, optimizing {steady_median(opt_ms)}")
     print(f"[{label}] LM iterations per tick: {iters}; session wall {wall:.2f} s; "
           f"optimizing-tick ms per LM iteration {sum(opt_ms) / max(sum(iters), 1):.3f}")
-    return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes)}
+    return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop}
 
 
 def check_isolation() -> None:
@@ -521,6 +775,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
 
+    t_start = time.perf_counter()
     try:
         phase("card")
         card = card_info(torch)
@@ -537,9 +792,13 @@ def main() -> int:
         phase("kernels against plain")
         k5 = check_score_hypotheses(torch)
         soa_k = check_soa_kernels(torch)
+        tiled_k = check_tiled_kernels(torch)
 
-        phase("fixed-work LM")
-        lm = check_fixed_lm(torch)
+        phase("two halves")
+        check_two_halves(torch)
+
+        phase("fixed-work LMs")
+        check_fixed_lm(torch)
 
         os.makedirs(OUT_DIR, exist_ok=True)
         from semantic_slam_tpu_torch import cli
@@ -552,33 +811,42 @@ def main() -> int:
         dense = run_slice(torch, log, [], "dense")
         phase("pcg slice on the card")
         pcg = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "4096"], "pcg")
-        require(pcg["keyframes"] == dense["keyframes"],
+        require(pcg["keyframes"] == dense["keyframes"] and pcg["loop"] == "resident",
                 f"keyframes: pcg {pcg['keyframes']} != dense {dense['keyframes']}")
+        phase("tiled slice on the card")
+        tiled = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "8192"], "tiled")
+        require(tiled["keyframes"] == dense["keyframes"] and tiled["loop"] == "tiled",
+                f"keyframes: tiled {tiled['keyframes']} != dense {dense['keyframes']}")
 
         check_isolation()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    meta = {
-        "obs_linearize": ("semantic_slam_tpu_torch/csrc/soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:603"),
-        "chain_linearize": ("semantic_slam_tpu_torch/csrc/soa_linearize.cu",
-                            "semantic_slam_tpu/solver/pallas_cg.py:747"),
-        "resident_chi2": ("semantic_slam_tpu_torch/csrc/soa_chi2.cu", "semantic_slam_tpu/solver/pallas_cg.py:920"),
-        "resident_solve": ("semantic_slam_tpu_torch/csrc/soa_solve.cu", "semantic_slam_tpu/solver/pallas_cg.py:230"),
-        "score_hypotheses": ("semantic_slam_tpu_torch/csrc/score_hypotheses.cu",
-                             "semantic_slam_tpu/frontend/pallas_kernels.py:35"),
+    tiled_py = "semantic_slam_tpu/solver/pallas_tiled.py"
+    meta = {  # name: (source, TPU kernel replaced, the session whose path runs it)
+        "obs_linearize": ("soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:603", pcg),
+        "chain_linearize": ("soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:747", pcg),
+        "resident_chi2": ("soa_chi2.cu", "semantic_slam_tpu/solver/pallas_cg.py:920", pcg),
+        "resident_solve": ("soa_solve.cu", "semantic_slam_tpu/solver/pallas_cg.py:230", pcg),
+        "score_hypotheses": ("score_hypotheses.cu", "semantic_slam_tpu/frontend/pallas_kernels.py:35", pcg),
+        "tiled_obs_linearize": ("tiled_linearize.cu", f"{tiled_py}:154", tiled),
+        "tiled_chain_linearize": ("tiled_linearize.cu", f"{tiled_py}:285", tiled),
+        "tiled_mv_fwd": ("tiled_matvec.cu", f"{tiled_py}:323", tiled),
+        "tiled_mv_bwd": ("tiled_matvec.cu", f"{tiled_py}:373", tiled),
+        "tiled_chi2": ("tiled_chi2.cu", f"{tiled_py}:430", tiled),
     }
-    numbers = {**soa_k, "score_hypotheses": k5}
+    numbers = {**soa_k, **tiled_k, "score_hypotheses": k5}
     kernels_line = {"kernels": [
         {
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": pcg["launches"][name],
+            "name": name, "route": "cuda", "source": f"semantic_slam_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": session["launches"][name],
             **{k: numbers[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
         }
-        for name, (src, rep) in meta.items()
+        for name, (src, rep, session) in meta.items()
     ]}
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

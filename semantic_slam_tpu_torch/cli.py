@@ -3,12 +3,15 @@
   python -m semantic_slam_tpu_torch.cli synth --out lab.npz --steps 240 --height 480 --width 640
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --profile yolo_detector --out results/ --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 4096 --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 8192 --device cuda
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
 ``stats.jsonl``, the TUM trajectories (with ``--compute-ate`` or a profile
 that asks for them) and the ``export_session`` files. ``--solver pcg`` runs
-the SoA Schur-PCG solver (kernels K1-K4 on the card). ``synth`` writes the
+the SoA Schur-PCG solver: up to 4096 keyframes of capacity its resident loop
+(kernels K1-K4 on the card), above it the row-range loop (K6-K10, and K1+K2
+for the marginals). ``synth`` writes the
 same ``.npz`` log as the JAX package's command.
 """
 

@@ -31,21 +31,12 @@ chi2_kernel(const float* __restrict__ pose, const float* __restrict__ lm, const 
             float* __restrict__ part_chain) {
   __shared__ float smem[64];
   const int k = blockIdx.x * BLOCK + threadIdx.x;
-  const int E = R * K;
   float chi[2] = {0.f, 0.f};
   if (k < K) {
-    V3 ti, tj, mt;
-    Q4 qi, qj, mq;
-    load_pose(pose, K, k, ti, qi);
+    V3 tj;
+    Q4 qj;
     load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
-    load_pose(o_meas, K, k, mt, mq);
-    chi[1] = chain_chi(chain_residual(ti, qi, tj, qj, mt, mq), load_info6(o_info, K, k));
-    const M3 Rt = rotmat(qconj(qi));
-    for (int r = 0; r < R; ++r) {
-      float rho, w;
-      robust_rho_w(obs_slot(Rt, ti, lm, ll_rk, meas, info, E, r * K + k).chi, kind, delta, rho, w);
-      chi[0] += rho;
-    }
+    pose_chi2(pose, tj, qj, lm, meas, info, ll_rk, o_meas, o_info, K, R, k, kind, delta, chi);
   }
   block_sum<2>(chi, smem);
   if (threadIdx.x == 0) {

@@ -1,5 +1,7 @@
-// Device math shared by the SoA Schur-PCG kernels (soa_linearize.cu,
-// soa_chi2.cu, soa_solve.cu), written for Hopper (sm_90a).
+// Device math shared by the SoA Schur-PCG kernels, written for Hopper
+// (sm_90a): the whole-graph kernels K1-K4 (soa_linearize.cu, soa_chi2.cu,
+// soa_solve.cu) and the row-range kernels K6-K10 (tiled_linearize.cu,
+// tiled_matvec.cu, tiled_chi2.cu).
 //
 // Layouts are those of semantic_slam_tpu_torch/solver/ellk_soa.py: channel
 // tensors with the big axes last, [C, R, K] per landmark slot (slot (r, k) at
@@ -8,9 +10,9 @@
 //
 // The chain math mirrors solver/chain_soa.py (same Taylor cutoffs and guards,
 // atan2f for the quaternion log). The two halves of the Schur matvec,
-// mv_fwd_* and mv_bwd_pose, are the math of the TPU kernels
-// _mv_fwd_kernel / _mv_bwd_kernel (solver/pallas_tiled.py) and are kept as
-// device functions so a tiled solver can reuse them.
+// mv_fwd_* and mv_bwd_slots, are the math of the TPU kernels
+// _mv_fwd_kernel / _mv_bwd_kernel (solver/pallas_tiled.py): K4 runs them
+// inside its one launch, K8 and K9 as launches of their own.
 
 #pragma once
 
@@ -419,14 +421,10 @@ __device__ __forceinline__ void m66T_vec_acc(const float* M, int K, int k, const
   }
 }
 
-// K9, per pose: u = sum_r Jp^T (Oa - O' Rt z_l) + Hii x_k + Hij x_{k+1}
-//                 + Hij_{k-1}^T x_{k-1} + Hjj_{k-1} x_k
-// xm/xn/xp: the masked x at poses k, k+1 (0 past the end), k-1 (0 before 0).
+// K9, the slot part of pose k: u = sum over its R slots of Jp^T (Oa - O' Rt z_l).
 // Oa and zl may have been written by other blocks of the same launch.
-__device__ __forceinline__ void mv_bwd_pose(const float* v, const float* Ow, const float* Rt, const float* Oa,
-                                            const float* zl, const int* ll_rk, const float* Hii, const float* Hij,
-                                            const float* Hjj, int K, int R, int k, const float* xm,
-                                            const float* xn, const float* xp, float* u) {
+__device__ __forceinline__ void mv_bwd_slots(const float* v, const float* Ow, const float* Rt, const float* Oa,
+                                             const float* zl, const int* ll_rk, int K, int R, int k, float* u) {
   const int E = R * K;
   const M3 Rtk = load_m3(Rt, K, k);
 #pragma unroll
@@ -438,11 +436,169 @@ __device__ __forceinline__ void mv_bwd_pose(const float* v, const float* Ow, con
 #pragma unroll
     for (int i = 0; i < 3; ++i) { u[i] -= m.v[i]; u[i + 3] -= vm.v[i]; }
   }
+}
+
+// K4's pose half: the slot part plus the whole chain,
+//   u += Hii x_k + Hij x_{k+1} + Hij_{k-1}^T x_{k-1} + Hjj_{k-1} x_k
+// xm/xn/xp: the masked x at poses k, k+1 (0 past the end), k-1 (0 before 0).
+__device__ __forceinline__ void mv_bwd_pose(const float* v, const float* Ow, const float* Rt, const float* Oa,
+                                            const float* zl, const int* ll_rk, const float* Hii, const float* Hij,
+                                            const float* Hjj, int K, int R, int k, const float* xm,
+                                            const float* xn, const float* xp, float* u) {
+  mv_bwd_slots(v, Ow, Rt, Oa, zl, ll_rk, K, R, k, u);
   m66_vec_acc(Hii, K, k, xm, u);
   m66_vec_acc(Hij, K, k, xn, u);
   if (k > 0) {
     m66T_vec_acc(Hij, K, k - 1, xp, u);
     m66_vec_acc(Hjj, K, k - 1, xm, u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// per-row bodies of the linearization and the objective, shared by the
+// whole-graph kernels (K1-K3) and the row-range kernels (K6, K7, K10)
+// ---------------------------------------------------------------------------
+
+// Chain edge of row k from pose (ti, qi) to its successor (tj, qj), with the
+// row's measurement and information: J_j = Jr^-1(r), J_i = -J_j Ad(rel^-1),
+// both [[X, Y], [0, X]]. Writes Hii/Hij/Hjj [6,6,K] and g_i/g_j [6,K] of row
+// k; returns the row's chi2.
+__device__ __forceinline__ float chain_linearize_row(const V3& ti, const Q4& qi, const V3& tj, const Q4& qj,
+                                                     const float* o_meas, const float* o_info, int K, int k,
+                                                     float* Hii, float* Hij, float* Hjj, float* gi, float* gj) {
+  V3 mt;
+  Q4 mq;
+  load_pose(o_meas, K, k, mt, mq);
+  const Info6 O = load_info6(o_info, K, k);
+  const ChainRes c = chain_residual(ti, qi, tj, qj, mt, mq);
+  const M3 Xj = so3_ljac_inv(neg(c.rw));
+  const M3 Yj = mneg(mul(Xj, mul(se3_Q(neg(c.rv), neg(c.rw)), Xj)));
+  const Q4 q_ir = qconj(c.rel_q);
+  const V3 t_ir = neg(qrotate(q_ir, c.rel_t));
+  const M3 R_ir = rotmat(q_ir);
+  const M3 Xi = mneg(mul(Xj, R_ir));
+  const M3 Yi = mneg(madd(mul(Xj, hat_mul(t_ir, R_ir)), mul(Yj, R_ir)));
+  // T = J^T O quadrants
+  const M3 Ti11 = mulT(Xi, O.O11), Ti12 = mulT(Xi, O.O12);
+  const M3 Ti21 = madd(mulT(Yi, O.O11), mulT(Xi, O.O21)), Ti22 = madd(mulT(Yi, O.O12), mulT(Xi, O.O22));
+  const M3 Tj11 = mulT(Xj, O.O11), Tj12 = mulT(Xj, O.O12);
+  const M3 Tj21 = madd(mulT(Yj, O.O11), mulT(Xj, O.O21)), Tj22 = madd(mulT(Yj, O.O12), mulT(Xj, O.O22));
+  store_TJ(Hii, K, k, Ti11, Ti12, Ti21, Ti22, Xi, Yi);
+  store_TJ(Hij, K, k, Ti11, Ti12, Ti21, Ti22, Xj, Yj);
+  store_TJ(Hjj, K, k, Tj11, Tj12, Tj21, Tj22, Xj, Yj);
+  store_v3(gi, K, k, add(mv(Ti11, c.rv), mv(Ti12, c.rw)));
+  store_v3(gi + 3 * K, K, k, add(mv(Ti21, c.rv), mv(Ti22, c.rw)));
+  store_v3(gj, K, k, add(mv(Tj11, c.rv), mv(Tj12, c.rw)));
+  store_v3(gj + 3 * K, K, k, add(mv(Tj21, c.rv), mv(Tj22, c.rw)));
+  return chain_chi(c, O);
+}
+
+// The observation half of pose k's linearization: per slot the residual,
+// robust rho and IRLS weight, v and O' out, and the slot's landmark terms
+// Rt^T O'r and Rt^T O' Rt to slot_gl [3,E] / slot_hll [9,E]; Rt out; the
+// pose's gradient and 6x6 diagonal quadrants summed in registers.
+struct ObsPose { V3 g_top, g_bot; M3 TL, TR, BR; float chi; };
+__device__ __forceinline__ ObsPose obs_pose_linearize(const float* pose, const float* lm, const float* meas,
+                                                      const float* info, const int* ll_rk, int K, int R, int k,
+                                                      int kind, float delta, float* v_out, float* Ow_out,
+                                                      float* Rt_out, float* slot_gl, float* slot_hll) {
+  const int E = R * K;
+  V3 t;
+  Q4 q;
+  load_pose(pose, K, k, t, q);
+  const M3 Rt = rotmat(qconj(q));
+  store_m3(Rt_out, K, k, Rt);
+  ObsPose o;
+  o.g_top = o.g_bot = v3(0.f, 0.f, 0.f);
+  o.TL = o.TR = o.BR = mzero();
+  o.chi = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const int e = r * K + k;
+    const ObsSlot s = obs_slot(Rt, t, lm, ll_rk, meas, info, E, e);
+    float rho, w;
+    robust_rho_w(s.chi, kind, delta, rho, w);
+    o.chi += rho;
+    const M3 Ow = kind == ROBUST_NONE ? s.O : mscale(s.O, w);
+    const V3 Orw = kind == ROBUST_NONE ? s.Or : scale(s.Or, w);
+    store_v3(v_out, E, e, s.v);
+    store_m3(Ow_out, E, e, Ow);
+    o.g_top = sub(o.g_top, Orw);
+    o.g_bot = sub(o.g_bot, cross(s.v, Orw));
+    store_v3(slot_gl, E, e, mTv(Rt, Orw));
+    store_m3(slot_hll, E, e, mulT(Rt, mul(Ow, Rt)));
+    const M3 OB = ob_product(Ow, s.v);
+    o.TL = madd(o.TL, Ow);
+    o.TR = msub(o.TR, OB);
+    o.BR = msub(o.BR, hat_mul(s.v, OB));
+  }
+  return o;
+}
+
+// gp [6,K] and diag [6,6,K] of pose k: the observation parts plus the chain's
+// i-side of row k (gi, Hii) and, where gj/Hjj are given, its j-side of row
+// k-1 (K1 folds the whole chain; K6 leaves the j-side to the host).
+__device__ __forceinline__ void store_pose_gp_diag(const ObsPose& o, const float* gi, const float* Hii,
+                                                   const float* gj, const float* Hjj, int K, int k, float* gp,
+                                                   float* diag) {
+  const bool prev = gj != nullptr && k > 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float top = o.g_top.v[i] + gi[i * K + k], bot = o.g_bot.v[i] + gi[(i + 3) * K + k];
+    if (prev) { top += gj[i * K + k - 1]; bot += gj[(i + 3) * K + k - 1]; }
+    gp[i * K + k] = top;
+    gp[(i + 3) * K + k] = bot;
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      float d;
+      if (i < 3) d = j < 3 ? o.TL.m[i][j] : o.TR.m[i][j - 3];
+      else d = j < 3 ? o.TR.m[j][i - 3] : o.BR.m[i - 3][j - 3];
+      const int c = i * 6 + j;
+      d += Hii[c * K + k];
+      if (prev) d += Hjj[c * K + k - 1];
+      diag[c * K + k] = d;
+    }
+}
+
+// One warp per landmark: the sums of the slot terms slot_gl [3,E] and
+// slot_hll [9,E] over the landmark's CSR segment [j0, j1), lanes striding it,
+// then a fixed shuffle tree (deterministic); acc[12] is valid in lane 0.
+__device__ __forceinline__ void landmark_sum12(const float* slot_gl, const float* slot_hll, const int* lm_slots,
+                                               int j0, int j1, int E, int lane, float* acc) {
+#pragma unroll
+  for (int c = 0; c < 12; ++c) acc[c] = 0.f;
+  for (int j = j0 + lane; j < j1; j += 32) {
+    const int e = lm_slots[j];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[c] += slot_gl[c * E + e];
+#pragma unroll
+    for (int c = 0; c < 9; ++c) acc[3 + c] += slot_hll[c * E + e];
+  }
+#pragma unroll
+  for (int c = 0; c < 12; ++c)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
+}
+
+// The objective of pose k (K3, K10): the robust chi2 of its R slots added to
+// chi[0], the chain chi2 of row k against the successor (tj, qj) to chi[1].
+__device__ __forceinline__ void pose_chi2(const float* pose, const V3& tj, const Q4& qj, const float* lm,
+                                          const float* meas, const float* info, const int* ll_rk,
+                                          const float* o_meas, const float* o_info, int K, int R, int k, int kind,
+                                          float delta, float* chi) {
+  V3 ti, mt;
+  Q4 qi, mq;
+  load_pose(pose, K, k, ti, qi);
+  load_pose(o_meas, K, k, mt, mq);
+  chi[1] += chain_chi(chain_residual(ti, qi, tj, qj, mt, mq), load_info6(o_info, K, k));
+  const M3 Rt = rotmat(qconj(qi));
+  const int E = R * K;
+  for (int r = 0; r < R; ++r) {
+    float rho, w;
+    robust_rho_w(obs_slot(Rt, ti, lm, ll_rk, meas, info, E, r * K + k).chi, kind, delta, rho, w);
+    chi[0] += rho;
   }
 }
 

@@ -48,34 +48,11 @@ chain_kernel(const float* __restrict__ pose, const float* __restrict__ o_meas, c
   const int k = blockIdx.x * BLOCK + threadIdx.x;
   float chi[1] = {0.f};
   if (k < K) {
-    V3 ti, tj, mt;
-    Q4 qi, qj, mq;
+    V3 ti, tj;
+    Q4 qi, qj;
     load_pose(pose, K, k, ti, qi);
     load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
-    load_pose(o_meas, K, k, mt, mq);
-    const Info6 O = load_info6(o_info, K, k);
-    const ChainRes c = chain_residual(ti, qi, tj, qj, mt, mq);
-    // J_j = Jr^-1(r), J_i = -J_j Ad(rel^-1), both [[X, Y], [0, X]]
-    const M3 Xj = so3_ljac_inv(neg(c.rw));
-    const M3 Yj = mneg(mul(Xj, mul(se3_Q(neg(c.rv), neg(c.rw)), Xj)));
-    const Q4 q_ir = qconj(c.rel_q);
-    const V3 t_ir = neg(qrotate(q_ir, c.rel_t));
-    const M3 R_ir = rotmat(q_ir);
-    const M3 Xi = mneg(mul(Xj, R_ir));
-    const M3 Yi = mneg(madd(mul(Xj, hat_mul(t_ir, R_ir)), mul(Yj, R_ir)));
-    // T = J^T O quadrants
-    const M3 Ti11 = mulT(Xi, O.O11), Ti12 = mulT(Xi, O.O12);
-    const M3 Ti21 = madd(mulT(Yi, O.O11), mulT(Xi, O.O21)), Ti22 = madd(mulT(Yi, O.O12), mulT(Xi, O.O22));
-    const M3 Tj11 = mulT(Xj, O.O11), Tj12 = mulT(Xj, O.O12);
-    const M3 Tj21 = madd(mulT(Yj, O.O11), mulT(Xj, O.O21)), Tj22 = madd(mulT(Yj, O.O12), mulT(Xj, O.O22));
-    store_TJ(Hii, K, k, Ti11, Ti12, Ti21, Ti22, Xi, Yi);
-    store_TJ(Hij, K, k, Ti11, Ti12, Ti21, Ti22, Xj, Yj);
-    store_TJ(Hjj, K, k, Tj11, Tj12, Tj21, Tj22, Xj, Yj);
-    store_v3(gi, K, k, add(mv(Ti11, c.rv), mv(Ti12, c.rw)));
-    store_v3(gi + 3 * K, K, k, add(mv(Ti21, c.rv), mv(Ti22, c.rw)));
-    store_v3(gj, K, k, add(mv(Tj11, c.rv), mv(Tj12, c.rw)));
-    store_v3(gj + 3 * K, K, k, add(mv(Tj21, c.rv), mv(Tj22, c.rw)));
-    chi[0] = chain_chi(c, O);
+    chi[0] = chain_linearize_row(ti, qi, tj, qj, o_meas, o_info, K, k, Hii, Hij, Hjj, gi, gj);
   }
   block_sum<1>(chi, smem);
   if (threadIdx.x == 0) partial[blockIdx.x] = chi[0];
@@ -90,55 +67,13 @@ pose_kernel(const float* __restrict__ pose, const float* __restrict__ lm, const 
             float* __restrict__ slot_gl, float* __restrict__ slot_hll, float* __restrict__ partial) {
   __shared__ float smem[32];
   const int k = blockIdx.x * BLOCK + threadIdx.x;
-  const int E = R * K;
   float chi[1] = {0.f};
   if (k < K) {
-    V3 t;
-    Q4 q;
-    load_pose(pose, K, k, t, q);
-    const M3 Rt = rotmat(qconj(q));
-    store_m3(Rt_out, K, k, Rt);
-    V3 g_top = v3(0.f, 0.f, 0.f), g_bot = v3(0.f, 0.f, 0.f);
-    M3 TL = mzero(), TR = mzero(), BR = mzero();
-    for (int r = 0; r < R; ++r) {
-      const int e = r * K + k;
-      const ObsSlot s = obs_slot(Rt, t, lm, ll_rk, meas, info, E, e);
-      float rho, w;
-      robust_rho_w(s.chi, kind, delta, rho, w);
-      chi[0] += rho;
-      const M3 Ow = kind == ROBUST_NONE ? s.O : mscale(s.O, w);
-      const V3 Orw = kind == ROBUST_NONE ? s.Or : scale(s.Or, w);
-      store_v3(v_out, E, e, s.v);
-      store_m3(Ow_out, E, e, Ow);
-      g_top = sub(g_top, Orw);
-      g_bot = sub(g_bot, cross(s.v, Orw));
-      store_v3(slot_gl, E, e, mTv(Rt, Orw));
-      store_m3(slot_hll, E, e, mulT(Rt, mul(Ow, Rt)));
-      const M3 OB = ob_product(Ow, s.v);
-      TL = madd(TL, Ow);
-      TR = msub(TR, OB);
-      BR = msub(BR, hat_mul(s.v, OB));
-    }
+    const ObsPose o = obs_pose_linearize(pose, lm, meas, info, ll_rk, K, R, k, kind, delta, v_out, Ow_out, Rt_out,
+                                         slot_gl, slot_hll);
+    chi[0] = o.chi;
     // gp = gp_obs + gi[k] + gj[k-1];  diag = diag_obs + Hii[k] + Hjj[k-1]
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float top = g_top.v[i] + gi[i * K + k], bot = g_bot.v[i] + gi[(i + 3) * K + k];
-      if (k > 0) { top += gj[i * K + k - 1]; bot += gj[(i + 3) * K + k - 1]; }
-      gp[i * K + k] = top;
-      gp[(i + 3) * K + k] = bot;
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        float d;
-        if (i < 3) d = j < 3 ? TL.m[i][j] : TR.m[i][j - 3];
-        else d = j < 3 ? TR.m[j][i - 3] : BR.m[i - 3][j - 3];
-        const int c = i * 6 + j;
-        d += Hii[c * K + k];
-        if (k > 0) d += Hjj[c * K + k - 1];
-        diag[c * K + k] = d;
-      }
+    store_pose_gp_diag(o, gi, Hii, gj, Hjj, K, k, gp, diag);
   }
   block_sum<1>(chi, smem);
   if (threadIdx.x == 0) partial[blockIdx.x] = chi[0];
@@ -153,19 +88,7 @@ landmark_kernel(const float* __restrict__ slot_gl, const float* __restrict__ slo
   const int lane = threadIdx.x & 31;
   if (l >= L) return;  // whole warps leave together
   float acc[12];
-#pragma unroll
-  for (int c = 0; c < 12; ++c) acc[c] = 0.f;
-  for (int j = lm_start[l] + lane; j < lm_start[l + 1]; j += 32) {
-    const int e = lm_slots[j];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[c] += slot_gl[c * E + e];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) acc[3 + c] += slot_hll[c * E + e];
-  }
-#pragma unroll
-  for (int c = 0; c < 12; ++c)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
+  landmark_sum12(slot_gl, slot_hll, lm_slots, lm_start[l], lm_start[l + 1], E, lane, acc);
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) gl[3 * l + c] = acc[c];

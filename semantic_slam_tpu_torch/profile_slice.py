@@ -3,11 +3,14 @@
     python -m semantic_slam_tpu_torch.profile_slice --out chiprun_out/profile_slice
     python -m semantic_slam_tpu_torch.profile_slice --solver pcg --max-keyframes 4096 \
         --out <directory>
+    python -m semantic_slam_tpu_torch.profile_slice --solver pcg --max-keyframes 8192 \
+        --out <directory>
 
 Replays one of the ``chip_smoke.py`` sessions (the 640x480 synthetic log,
-profile ``yolo_detector``: the dense session at its own capacities, or with
-``--solver pcg --max-keyframes 4096`` the pcg one) three times in one
-process:
+profile ``yolo_detector``: the dense session at its own capacities, with
+``--solver pcg --max-keyframes 4096`` the pcg one on the resident loop, or
+with ``--max-keyframes 8192`` the tiled one on the row-range loop) three
+times in one process:
 
 1. warm-up, which carries the lazy CUDA / cuBLAS / cuSOLVER set-up;
 2. plain: no profiler and no extra syncs; gives the session wall and the
@@ -18,7 +21,7 @@ process:
    this one run.
 
 A layer's device ms is the kernel time that the profiler attributes to the
-ops inside its range. The hand-written kernels (K1-K5) are launched through
+ops inside its range. The hand-written kernels (K1-K10) are launched through
 ``ctypes``, so no op owns their launches: a wrapper's device ms comes from
 the kernel events of its kernels' names (``CTYPES_KERNELS``). The busy
 share is the union of all kernel intervals over the traced run's wall; the
@@ -42,6 +45,7 @@ import torch
 
 # (module, function, label), outermost first; each is looked up through its
 # module at call time, so replacing the module attribute wraps every call
+# (the two PCG loops import the marginal recovery under one label)
 LAYERS = (
     ("semantic_slam_tpu_torch.runtime.engine", "_optimize_tick", "_optimize_tick"),
     ("semantic_slam_tpu_torch.runtime.engine", "_process_keyframe", "_process_keyframe"),
@@ -57,6 +61,14 @@ LAYERS = (
     ("semantic_slam_tpu_torch.solver.kernels", "resident_solve", "resident_solve"),
     ("semantic_slam_tpu_torch.solver.kernels", "resident_chi2", "resident_chi2"),
     ("semantic_slam_tpu_torch.solver.ellk_soa", "landmark_marginals_mf_ellk", "landmark_marginals_mf"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "lm_optimize_soa_tiled", "lm_optimize_soa_tiled"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "build_dist_edges", "build_dist_edges"),
+    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_chain_linearize", "tiled_chain_linearize"),
+    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_obs_linearize", "tiled_obs_linearize"),
+    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_mv_fwd", "tiled_mv_fwd"),
+    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_mv_bwd", "tiled_mv_bwd"),
+    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_chi2", "tiled_chi2"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "landmark_marginals_mf_ellk", "landmark_marginals_mf"),
     ("semantic_slam_tpu_torch.frontend.planes", "extract_planes", "extract_planes"),
     ("semantic_slam_tpu_torch.frontend.planes", "score_hypotheses", "score_hypotheses"),
     ("semantic_slam_tpu_torch.frontend.normals", "compute_normals", "compute_normals"),
@@ -69,6 +81,11 @@ CTYPES_KERNELS = {
     "obs_linearize": ("pose_kernel", "landmark_kernel"),
     "resident_chi2": ("chi2_kernel",),
     "resident_solve": ("solve_kernel",),
+    "tiled_chain_linearize": ("rows_chain",),
+    "tiled_obs_linearize": ("rows_obs_pose", "rows_obs_lm"),
+    "tiled_mv_fwd": ("rows_mvf_slot", "rows_mvf_lm"),
+    "tiled_mv_bwd": ("rows_mvb_pose",),
+    "tiled_chi2": ("rows_chi2",),
 }
 
 
@@ -177,7 +194,7 @@ def profile_session(log, cfg, device: str, out_dir: str | None = None) -> dict:
     busy_us = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
 
     rows = []
-    for _, _, label in LAYERS:
+    for label in dict.fromkeys(label for _, _, label in LAYERS):  # once each, outermost first
         calls, host_s = totals[label]
         rows.append({
             "layer": label,

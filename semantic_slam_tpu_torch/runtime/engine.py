@@ -10,9 +10,11 @@ work runs eagerly on ``device``:
     (normals, batched plane extraction), association, landmark ingest;
   * ``_ingest_keyframes_batch`` -- a run of detection-less keyframes;
   * ``_optimize_tick``     -- the LM (dense Schur, or with
-    ``linear_solver="pcg"`` the SoA Schur-PCG solver of ``solver/ellk_soa.py``
-    and its kernels K1-K4, at every capacity), landmark marginals, table
-    sync, and the packed ``info`` vector that the host fetches once.
+    ``linear_solver="pcg"`` the SoA Schur-PCG solver: up to K=4096 poses the
+    resident loop of ``solver/ellk_soa.py`` with kernels K1-K4, above it the
+    row-range loop of ``solver/soa_dist.py`` with kernels K6-K10, see
+    ``_soa_dispatch``), landmark marginals, table sync, and the packed
+    ``info`` vector that the host fetches once.
 
 Host traffic per tick: two flags per LM iteration and the ``info`` vector.
 The reference's optimize gate (at least ``min_edges`` edges) is decided on
@@ -44,6 +46,7 @@ from semantic_slam_tpu_torch.graph.state import set_rows
 from semantic_slam_tpu_torch.runtime.keyframe_gate import KeyframeGate
 from semantic_slam_tpu_torch.solver import ellk_soa as soa_mod
 from semantic_slam_tpu_torch.solver import lm as lm_mod
+from semantic_slam_tpu_torch.solver import soa_dist as soa_dist_mod
 from semantic_slam_tpu_torch.utils.profiling import log_optimize
 
 Tensor = torch.Tensor
@@ -76,9 +79,10 @@ def _unported(cfg: SlamConfig) -> list[str]:
     if cfg.mesh.num_devices > 1:
         missing.append("mesh.num_devices > 1 (sharded solver)")
     if s.fixed_lag_window > 0:
-        missing.append("fixed_lag_window > 0 (fixed-lag marginalization)")
+        missing.append("fixed_lag_window > 0 (fixed-lag marginalization, and the prior in the resident and tiled "
+                       "PCG loops)")
     if cfg.use_plane_landmarks:
-        missing.append("use_plane_landmarks (plane landmarks)")
+        missing.append("use_plane_landmarks (plane landmarks, and the plane half of the tiled PCG loop)")
     if s.ingest_window > 1:
         missing.append("ingest_window > 1 (windowed ingest)")
     if not cfg.information.use_const_inf_matrix:
@@ -90,6 +94,14 @@ def _unported(cfg: SlamConfig) -> list[str]:
     if cfg.save_graph:
         missing.append("save_graph (g2o export)")
     return missing
+
+
+def _soa_dispatch(K: int) -> str:
+    """The single-device PCG loop for a graph of capacity K (the JAX
+    engine's ``_soa_dispatch`` without its TPU-only cuts): ``"soa"``, the
+    resident loop (kernels K1-K4), up to ``soa_dist.TILED_FROM_K`` poses;
+    ``"tiled"``, the row-range loop (K6-K10), above."""
+    return "soa" if K <= soa_dist_mod.TILED_FROM_K else "tiled"
 
 
 def _ingest_keyframes_batch(graph: gs.GraphState, odoms: Tensor, prev_odom7: Tensor, has_prev: bool, info6: Tensor):
@@ -178,7 +190,9 @@ def _optimize_tick(
             robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda,
             with_marginals=need_marginals,
         )
-        if linear_solver == "pcg":
+        if linear_solver == "pcg" and _soa_dispatch(graph.poses.shape[0]) == "tiled":
+            out = soa_dist_mod.lm_optimize_soa_tiled(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, **kw)
+        elif linear_solver == "pcg":
             out = soa_mod.lm_optimize_soa(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, **kw)
         else:
             out = lm_mod.lm_optimize(graph, **kw)

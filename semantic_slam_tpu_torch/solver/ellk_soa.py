@@ -37,6 +37,7 @@ from semantic_slam_tpu_torch.solver import chain_soa as chs
 from semantic_slam_tpu_torch.solver.lm import LMStats, _free_masks, inv33, inv66
 from semantic_slam_tpu_torch.solver.pcg import (
     EllBlocks,
+    EllEdges,
     _edge_args,
     build_ell_edges,
     build_slots,
@@ -158,10 +159,16 @@ class SoALin(NamedTuple):
 def build_soa_edges(edge_args: tuple, K: int, R: int, L: int) -> SoAEdges:
     """Graph edge arrays -> SoA layout plus the landmark CSR, once per solve
     (indices do not change inside the LM loop). No host sync."""
-    ee = build_ell_edges(edge_args, K, R)
-    dev = ee.meas.device
     valid = build_slots(edge_args[5], edge_args[9], K, R) >= 0  # [K, R]
-    ll_rk = ee.ll.T.contiguous()  # [R, K]
+    return soa_edges_from_ell(build_ell_edges(edge_args, K, R), valid, L)
+
+
+def soa_edges_from_ell(ee: EllEdges, valid: Tensor, L: int) -> SoAEdges:
+    """Per-pose edge rows ``ee`` ([Kr, R], any run of pose rows) and their
+    real-slot mask ``valid`` [Kr, R] -> SoA layout with a landmark CSR over
+    these rows' slots only (slot ids r*Kr + k)."""
+    dev = ee.meas.device
+    ll_rk = ee.ll.T.contiguous()  # [R, Kr]
     key = torch.where(valid.T, ll_rk, L).reshape(-1)  # empty slots sort last
     key_sorted, order = torch.sort(key, stable=True)
     lm_start = torch.searchsorted(key_sorted, torch.arange(L + 1, device=dev))
@@ -227,6 +234,19 @@ def soa_obs_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, chain: Cha
                       robust_delta: float = 1.0) -> SoALin:
     """Plain version of the K1 kernel: the observation linearization, folded
     with the chain's blocks into the per-pose gradient and diagonal."""
+    v, Ow, Rt, gp_obs, diag_obs, gl, Hll, chi_l = obs_parts(poses, landmarks, se, robust_kind, robust_delta)
+    return SoALin(
+        v=v, Ow=Ow, Rt=Rt, Hii=chain.Hii, Hij=chain.Hij, Hjj=chain.Hjj, Hll=Hll,
+        gp=gp_obs + chain.gi + _shift_down_soa(chain.gj), gl=gl,
+        diag=diag_obs + chain.Hii + _shift_down_soa(chain.Hjj),
+        chi2=chain.chi2 + chi_l,
+    )
+
+
+def obs_parts(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str = "none", robust_delta: float = 1.0):
+    """The observation half of the linearization over the poses of ``se``:
+    (v, O', Rt, gp_obs [6,K], diag_obs [6,6,K], gl [L,3], Hll [L,3,3],
+    robust chi2), the landmark sums over these poses' slots only."""
     L = landmarks.shape[0]
     Rt, v, r, Or, chi_e = _obs_residual(poses, landmarks, se)
     chi_l = torch.sum(robust_rho(chi_e, robust_kind, robust_delta))
@@ -245,12 +265,7 @@ def soa_obs_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, chain: Cha
     # pose diagonal: [[O', -O'B],[(-O'B)^T, -hat(v) O'B]], B = hat(v)
     OB = _ob_product(Ow, v)
     diag_obs = torch.sum(_assemble_h66(Ow, -OB, -chs.hat_mul(v, OB)), dim=2)
-    return SoALin(
-        v=v, Ow=Ow, Rt=Rt, Hii=chain.Hii, Hij=chain.Hij, Hjj=chain.Hjj, Hll=Hll,
-        gp=gp_obs + chain.gi + _shift_down_soa(chain.gj), gl=gl,
-        diag=diag_obs + chain.Hii + _shift_down_soa(chain.Hjj),
-        chi2=chain.chi2 + chi_l,
-    )
+    return v, Ow, Rt, gp_obs, diag_obs, gl, Hll, chi_l
 
 
 def soa_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str = "none",
@@ -285,21 +300,31 @@ def _obs_apply_jpT(v, y):
     return torch.cat([-torch.sum(y, dim=1), -torch.sum(_cross(v, y), dim=1)])
 
 
+def soa_mv_fwd(v: Tensor, Ow: Tensor, Rt: Tensor, ll: Tensor, x: Tensor, L: int) -> tuple[Tensor, Tensor]:
+    """First half of the Schur matvec (the K8 kernel's math): per slot
+    Oa = O' (Jp x) [3, R, K], and per landmark T = sum Rt^T Oa [L, 3] over
+    the slots of ``ll`` [K, R]. ``x`` [6, K] is already masked."""
+    Oa = _m33_vec(Ow, _obs_apply_jp(v, x))
+    return Oa, _seg_sum(ll, _m33T_vec(Rt[:, :, None, :], Oa), L)
+
+
+def soa_mv_bwd(v: Tensor, Ow: Tensor, Rt: Tensor, ll: Tensor, Oa: Tensor, z: Tensor, x: Tensor, xj: Tensor,
+               Hii: Tensor, Hij: Tensor, Hjj: Tensor) -> tuple[Tensor, Tensor]:
+    """Second half (the K9 kernel's math), given z = A^-1 T [L, 3]:
+    u = Jp^T (Oa - O' Rt z) + Hii x + Hij xj and the chain's j-column
+    vj = Hij^T x + Hjj xj, unshifted (row k belongs to pose k+1)."""
+    m = Oa - _m33_vec(Ow, _m33_vec(Rt[:, :, None, :], _gather(ll, z)))
+    u = _obs_apply_jpT(v, m) + (_m66_vec(Hii, x) + _m66_vec(Hij, xj))
+    return u, _m66T_vec(Hij, x) + _m66_vec(Hjj, xj)
+
+
 def _soa_matvec_inner(lin: SoALin, ll: Tensor, Ainv: Tensor, lam, pf_soa: Tensor, x: Tensor) -> Tensor:
     """The damped reduced operator (Hpp - W A^-1 W^T + lam I) x on [6, K]."""
-    L = Ainv.shape[0]
-    Rt4 = lin.Rt[:, :, None, :]
     x = x * pf_soa
-    Oa = _m33_vec(lin.Ow, _obs_apply_jp(lin.v, x))
-    t = _seg_sum(ll, _m33T_vec(Rt4, Oa), L)
+    Oa, t = soa_mv_fwd(lin.v, lin.Ow, lin.Rt, ll, x, Ainv.shape[0])
     z = torch.einsum("lij,lj->li", Ainv, t)
-    m = Oa - _m33_vec(lin.Ow, _m33_vec(Rt4, _gather(ll, z)))
-    u_obs = _obs_apply_jpT(lin.v, m)
-    xj = _roll_up_soa(x)
-    vi = _m66_vec(lin.Hii, x) + _m66_vec(lin.Hij, xj)
-    vj = _m66T_vec(lin.Hij, x) + _m66_vec(lin.Hjj, xj)
-    u = u_obs + vi + _shift_down_soa(vj)
-    return (u + lam * x) * pf_soa
+    u, vj = soa_mv_bwd(lin.v, lin.Ow, lin.Rt, ll, Oa, z, x, _roll_up_soa(x), lin.Hii, lin.Hij, lin.Hjj)
+    return (u + _shift_down_soa(vj) + lam * x) * pf_soa
 
 
 def _masked_eye(M: Tensor, lam, free: Tensor, n: int) -> Tensor:

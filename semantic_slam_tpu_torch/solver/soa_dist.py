@@ -1,0 +1,380 @@
+"""Large-K SoA LM loop over a row range of poses (port of the single-device
+subset of ``semantic_slam_tpu.solver.soa_dist``: no planes, no fixed-lag
+prior, no mesh).
+
+The loop is the JAX package's distributed one with identity reductions:
+poses, landmarks and the CG vectors are replicated ``[*, K]``/``[L, *]``,
+and the edge primitives cover one contiguous run of pose rows
+``[off, off + Kl)`` (on one device the whole graph, ``off = 0``). Every
+per-range step hands partial results to the host, which inserts
+``allreduce`` (the identity here; an all-reduce across devices later):
+
+  * the linearization (kernels K7 then K6, ``tiled_linearize``): the
+    per-pose gradient and diagonal with the chain's i-side folded in and its
+    j-side ``gj``/``Hjj`` left unshifted, and the landmark tables gl/Hll and
+    chi2 summed over the range's slots only;
+  * the matvec's first half (K8, ``tiled_mv_fwd``): Oa per slot and the
+    landmark table T = sum Rt^T Oa over the range;
+  * its second half (K9, ``tiled_mv_bwd``): u and the chain's j-column vj,
+    unshifted; the host embeds both at ``off`` (``_dus``), reduces, and
+    applies the pose-axis shift on the reduced array, so the last row of one
+    range lands on the first row of the next;
+  * the trial objective (K10, ``tiled_chi2``).
+
+The chain's successor pose comes from the host (``roll_up_pose_ch`` of the
+replicated poses, sliced to the range), which lets a range's last row see
+the next range's first pose. The plain versions of K6-K10 are the
+``*_plain`` functions here (the JAX loop's XLA channel-math branch); the
+kernels' wrappers in ``solver/tiled_kernels.py`` run them on CPU tensors.
+
+The CG is a fixed count of ``max_cg_iters`` steps under an ``active`` mask
+(an inactive step leaves x, r, p and rz unchanged), which gives the JAX
+early-exit loop's result with no host fetch; the LM fetches its
+(accepted, done) pair once per iteration. The vector work between the
+kernels (z = A^-1 T, the shift, the preconditioner, the dots and updates)
+is plain PyTorch, as the JAX package leaves it to XLA.
+
+Reference: graph_slam.cpp:182-219 (the lm_var loop).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from semantic_slam_tpu_torch.core import geometry as geo
+from semantic_slam_tpu_torch.graph.state import GraphState
+from semantic_slam_tpu_torch.solver import chain_soa as chs
+from semantic_slam_tpu_torch.solver import ellk_soa as soa
+from semantic_slam_tpu_torch.solver.ellk_soa import ChainLin, SoAEdges, _m66_vec, _masked_eye, _shift_down_soa
+from semantic_slam_tpu_torch.solver.lm import LMStats, _free_masks, inv33, inv66
+from semantic_slam_tpu_torch.solver.pcg import (
+    EllEdges,
+    _edge_args,
+    build_ell_edges,
+    build_slots,
+    landmark_marginals_mf_ellk,
+)
+from semantic_slam_tpu_torch.solver.robust import robust_rho
+
+Tensor = torch.Tensor
+
+# The engine's crossover: pcg solves with more poses than this take the
+# row-range loop, the rest the resident loop (``ellk_soa.lm_optimize_soa``).
+TILED_FROM_K = 4096
+
+
+def build_dist_edges(edge_args: tuple, K: int, R: int, L: int, off: int = 0, Kl: int | None = None) -> SoAEdges:
+    """The edge store of pose rows ``[off, off + Kl)`` (default: all K) in
+    the SoA layout ``[C, R, Kl]``, with a landmark CSR over these rows'
+    slots only, built once per solve. Row ``off + Kl - 1``'s chain edge
+    points at pose ``off + Kl``, which the host supplies."""
+    Kl = K - off if Kl is None else Kl
+    if off < 0 or Kl <= 0 or off + Kl > K:
+        raise ValueError(f"build_dist_edges: rows [{off}, {off + Kl}) are not inside [0, {K})")
+    ee = build_ell_edges(edge_args, K, R)
+    valid = build_slots(edge_args[5], edge_args[9], K, R) >= 0
+    rows = slice(off, off + Kl)
+    return soa.soa_edges_from_ell(EllEdges(*(a[rows] for a in ee)), valid[rows], L)
+
+
+def _dus(vec_loc: Tensor, off: int, Kg: int) -> Tensor:
+    """Embed a [..., Kl] row-range block at pose row ``off`` of a [..., Kg]
+    zero array (the pre-reduction embedding)."""
+    if vec_loc.shape[-1] == Kg:
+        return vec_loc
+    out = vec_loc.new_zeros(vec_loc.shape[:-1] + (Kg,))
+    out[..., off:off + vec_loc.shape[-1]] = vec_loc
+    return out
+
+
+def _slice_k(x: Tensor, off: int, Kl: int) -> Tensor:
+    """[..., Kg] -> the row range [..., Kl] at ``off``."""
+    return x[..., off:off + Kl]
+
+
+# ---------------------------------------------------------------------------
+# the plain versions of K6-K10 (pose channels pc/pj [7, Kl]: t rows 0-2,
+# q rows 3-6; pj is each row's chain successor)
+# ---------------------------------------------------------------------------
+
+
+class TiledLin(NamedTuple):
+    """One linearization of a row range (``pallas_tiled.tiled_linearize``'s
+    contract, channel layouts of ``ellk_soa.SoALin``)."""
+
+    v: Tensor  # [3, R, Kl]
+    Ow: Tensor  # [3, 3, R, Kl]
+    Rt: Tensor  # [3, 3, Kl]
+    Hii: Tensor  # [6, 6, Kl] chain blocks of edge k -> k+1
+    Hij: Tensor
+    Hjj: Tensor  # unshifted: the host adds it to pose k+1 after the reduction
+    gp: Tensor  # [6, Kl] observation gradient + gi
+    gj: Tensor  # [6, Kl] unshifted, like Hjj
+    diag: Tensor  # [6, 6, Kl] observation diagonal + Hii
+    gl: Tensor  # [L, 3] over the range's slots only
+    Hll: Tensor  # [L, 3, 3] over the range's slots only
+    chi2: Tensor  # 0-d, the range's observation and chain terms
+
+
+def chain_plain(pc: Tensor, pj: Tensor, de: SoAEdges) -> ChainLin:
+    """Plain version of K7: the chain linearization of each row against its
+    supplied successor."""
+    Hii, Hij, Hjj, gi, gj, chi_k = chs.chain_linearize_ch(
+        pc[:3], pc[3:], pj[:3], pj[3:], de.o_meas_ch[:3], de.o_meas_ch[3:], de.o_info_ch
+    )
+    return ChainLin(Hii, Hij, Hjj, gi, gj, torch.sum(chi_k))
+
+
+def obs_plain(pc: Tensor, landmarks: Tensor, de: SoAEdges, chain: ChainLin, robust_kind: str = "none",
+              robust_delta: float = 1.0) -> TiledLin:
+    """Plain version of K6: the observation linearization of the range, with
+    the chain's i-side (gi, Hii) folded in and its j-side left out."""
+    v, Ow, Rt, gp_obs, diag_obs, gl, Hll, chi_l = soa.obs_parts(pc.T, landmarks, de, robust_kind, robust_delta)
+    return TiledLin(
+        v=v, Ow=Ow, Rt=Rt, Hii=chain.Hii, Hij=chain.Hij, Hjj=chain.Hjj, gp=gp_obs + chain.gi, gj=chain.gj,
+        diag=diag_obs + chain.Hii, gl=gl, Hll=Hll, chi2=chi_l + chain.chi2,
+    )
+
+
+def mv_fwd_plain(lin: TiledLin, de: SoAEdges, x: Tensor) -> tuple[Tensor, Tensor]:
+    """Plain version of K8: (Oa [3, R, Kl], T [L, 3] over the range) for the
+    masked x [6, Kl]."""
+    return soa.soa_mv_fwd(lin.v, lin.Ow, lin.Rt, de.ll, x, lin.gl.shape[0])
+
+
+def mv_bwd_plain(lin: TiledLin, de: SoAEdges, Oa: Tensor, z: Tensor, x: Tensor, xj: Tensor) -> tuple[Tensor, Tensor]:
+    """Plain version of K9: (u, vj) [6, Kl], vj unshifted."""
+    return soa.soa_mv_bwd(lin.v, lin.Ow, lin.Rt, de.ll, Oa, z, x, xj, lin.Hii, lin.Hij, lin.Hjj)
+
+
+def chi2_plain(pc: Tensor, pj: Tensor, landmarks: Tensor, de: SoAEdges, robust_kind: str = "none",
+               robust_delta: float = 1.0) -> Tensor:
+    """Plain version of K10: the range's robust observation and chain chi2."""
+    chi_o = torch.sum(chs.chain_chi2_ch(
+        pc[:3], pc[3:], pj[:3], pj[3:], de.o_meas_ch[:3], de.o_meas_ch[3:], de.o_info_ch
+    ))
+    chi_e = soa._obs_residual(pc.T, landmarks, de)[4]
+    return chi_o + torch.sum(robust_rho(chi_e, robust_kind, robust_delta))
+
+
+class TiledOps(NamedTuple):
+    """The row-range steps, with the signatures of ``chain_plain`` +
+    ``obs_plain`` (``linearize(pc, pj, landmarks, de, kind, delta)``),
+    ``mv_fwd_plain``, ``mv_bwd_plain`` and ``chi2_plain``."""
+
+    linearize: Callable
+    mv_fwd: Callable
+    mv_bwd: Callable
+    chi2: Callable
+
+
+def _linearize_plain(pc, pj, landmarks, de, robust_kind="none", robust_delta=1.0) -> TiledLin:
+    return obs_plain(pc, landmarks, de, chain_plain(pc, pj, de), robust_kind, robust_delta)
+
+
+PLAIN_OPS = TiledOps(_linearize_plain, mv_fwd_plain, mv_bwd_plain, chi2_plain)
+
+
+def kernel_ops() -> TiledOps:
+    """The kernels' wrappers (``solver/tiled_kernels.py``): the plain
+    versions on CPU tensors, the CUDA kernels K6-K10 on CUDA tensors."""
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    return TiledOps(tk.tiled_linearize, tk.tiled_mv_fwd, tk.tiled_mv_bwd, tk.tiled_chi2)
+
+
+# ---------------------------------------------------------------------------
+# the LM loop
+# ---------------------------------------------------------------------------
+
+
+def _identity(a):
+    return a
+
+
+class _LinG(NamedTuple):
+    """One linearization after the reduction: the range's primitives for the
+    matvec and the replicated, j-side-folded gradient and diagonal."""
+
+    lin: TiledLin
+    gp: Tensor  # [6, Kg]
+    diag: Tensor  # [6, 6, Kg]
+    gl: Tensor  # [L, 3]
+    Hll: Tensor  # [L, 3, 3]
+    chi2: Tensor
+
+
+def run_lm_loop_soa_dist(
+    poses: Tensor, landmarks: Tensor, pose_free: Tensor, lm_free: Tensor, de: SoAEdges,
+    max_iterations: int, rel_tol: float, max_cg_iters: int = 32, init_lambda_tau: float = 1e-5,
+    robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0, prior=None,
+    cg_tol: float = 1e-8, allreduce: Callable = _identity, off: int = 0, ops: TiledOps | None = None,
+    pe=None, planes=None, plane_free=None,
+):
+    """The Nielsen LM over the replicated state with the edge primitives of
+    rows ``[off, off + Kl)`` (``de``). ``allreduce`` takes a tensor or a
+    tuple of tensors and returns the sums over all ranges (the identity on
+    one device). ``ops`` defaults to the kernels' wrappers; ``PLAIN_OPS``
+    runs the plain versions on any device.
+
+    Per LM iteration: one linearization (K7+K6; the first iteration reuses
+    the damping seed's, built at the same state), the right-hand side (K9),
+    ``max_cg_iters`` CG steps (K8 and K9 each), the back-substitution (K8)
+    and the trial objective (K10). Returns (poses, landmarks, LMStats)."""
+    if prior is not None:
+        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: the fixed-lag prior of the tiled "
+                                  "PCG loop (soa_dist.run_lm_loop_soa_dist with prior)")
+    if pe is not None or planes is not None or plane_free is not None:
+        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: the plane half of the tiled PCG "
+                                  "loop (soa_dist.run_lm_loop_soa_dist with planes)")
+    ops = ops or kernel_ops()
+    dtype = poses.dtype
+    Kg, L = poses.shape[0], landmarks.shape[0]
+    Kl = de.ll.shape[0]
+    pf = pose_free.to(dtype)[None, :]  # [1, Kg]
+    lmf = lm_free.to(dtype)
+
+    def pose_channels(p):
+        pc = p.T
+        return _slice_k(pc, off, Kl), _slice_k(chs.roll_up_pose_ch(pc), off, Kl)
+
+    def build(p, l):
+        pc, pj = pose_channels(p)
+        lin = ops.linearize(pc, pj, l, de, robust_kind, robust_delta)
+        gp_e, gj_e, dg_e, hj_e, gl, Hll, chi = allreduce((
+            _dus(lin.gp, off, Kg), _dus(lin.gj, off, Kg), _dus(lin.diag, off, Kg), _dus(lin.Hjj, off, Kg),
+            lin.gl, lin.Hll, lin.chi2,
+        ))
+        return _LinG(lin, gp_e + _shift_down_soa(gj_e), dg_e + _shift_down_soa(hj_e), gl, Hll, chi)
+
+    def chi2_at(p, l):
+        pc, pj = pose_channels(p)
+        return allreduce(ops.chi2(pc, pj, l, de, robust_kind, robust_delta))
+
+    def solve(lg: _LinG, lam):
+        lin, gp, diag, gl, Hll, _ = lg
+        Ainv = inv33(_masked_eye(Hll, lam, lmf, 3))  # [L, 3, 3]
+        Minv = inv66(_masked_eye(diag.permute(2, 0, 1), lam, pf[0], 6)).permute(1, 2, 0)
+
+        def full_matvec(x):
+            xm = x * pf
+            xm_loc = _slice_k(xm, off, Kl)
+            xj_loc = _slice_k(chs.roll_up_pose_ch(xm), off, Kl)  # the wrap row's information is 0
+            Oa, T_loc = ops.mv_fwd(lin, de, xm_loc)
+            z = torch.einsum("lij,lj->li", Ainv, allreduce(T_loc))
+            u_loc, vj_loc = ops.mv_bwd(lin, de, Oa, z, xm_loc, xj_loc)
+            u_e, vj_e = allreduce((_dus(u_loc, off, Kg), _dus(vj_loc, off, Kg)))
+            return (u_e + _shift_down_soa(vj_e) + lam * xm) * pf
+
+        def precond(r):
+            return _m66_vec(Minv, r) * pf
+
+        # b = -(gp - c), c = Jp^T O' Rt (A^-1 gl) summed over each pose's
+        # slots: K9 with Oa = 0 and x = 0 gives -c
+        glm = gl * lmf[:, None]
+        y = torch.einsum("lij,lj->li", Ainv, glm)
+        zero_loc = gp.new_zeros((6, Kl))
+        cu_loc, _ = ops.mv_bwd(lin, de, torch.zeros_like(lin.v), y, zero_loc, zero_loc)
+        b = -(gp + allreduce(_dus(cu_loc, off, Kg))) * pf
+
+        x = torch.zeros_like(b)
+        r = b
+        p_ = precond(r)
+        rz = torch.sum(r * p_)
+        b2 = torch.clamp(torch.sum(b * b), min=1e-30)
+        zero = b.new_zeros(())
+        for _ in range(max_cg_iters):
+            active = torch.sum(r * r) > cg_tol * b2
+            Ap = full_matvec(p_)
+            alpha = torch.where(active, rz / torch.clamp(torch.sum(p_ * Ap), min=1e-30), zero)
+            x = x + alpha * p_
+            r = r - alpha * Ap
+            zc = precond(r)
+            rz_new = torch.sum(r * zc)
+            beta = torch.where(active, rz_new / torch.clamp(rz, min=1e-30), zero)
+            p_ = torch.where(active, zc + beta * p_, p_)
+            rz = torch.where(active, rz_new, rz)
+
+        dpk = x * pf
+        _, t_loc = ops.mv_fwd(lin, de, _slice_k(dpk, off, Kl))
+        db = torch.einsum("lij,lj->li", Ainv, -glm - allreduce(t_loc)) * lmf[:, None]
+        return dpk.T, db
+
+    lg = build(poses, landmarks)
+    chi2_0 = lg.chi2
+    if init_lambda > 0:
+        lam = torch.tensor(init_lambda, dtype=dtype, device=poses.device)
+    else:
+        diag_max = torch.maximum(lg.diag.diagonal(dim1=0, dim2=1).abs().max(),
+                                 lg.Hll.diagonal(dim1=-2, dim2=-1).abs().max())
+        lam = (init_lambda_tau * torch.clamp(diag_max, min=1.0)).to(dtype)
+
+    p, l, chi2_cur, nu, it = poses, landmarks, chi2_0, 2.0, 0
+    while it < max_iterations:
+        if it > 0:
+            lg = build(p, l)
+        dp, dl = solve(lg, lam)
+        p_new = geo.pose_retract(p, dp.to(dtype))
+        l_new = l + dl.to(dtype)
+        chi2_new = chi2_at(p_new, l_new)
+
+        delta = torch.cat([dp.reshape(-1), dl.reshape(-1)])
+        gvec = torch.cat([lg.gp.T.reshape(-1), lg.gl.reshape(-1)])
+        pred = lam * torch.dot(delta, delta) - torch.dot(delta, gvec)
+        rho = (chi2_cur - chi2_new) / torch.clamp(pred, min=1e-12)
+        finite = torch.isfinite(chi2_new) & torch.all(torch.isfinite(delta))
+        accept = (rho > 0) & finite
+        lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        lam = torch.where(accept, lam_acc, lam * nu)
+        converged = accept & ((chi2_cur - chi2_new) <= rel_tol * torch.clamp(chi2_cur, min=1e-12))
+        done = converged | (lam > 1e12)
+        accepted, stop = torch.stack([accept, done]).tolist()  # the iteration's one host fetch
+        if accepted:
+            p, l, chi2_cur, nu = p_new, l_new, chi2_new, 2.0
+        else:
+            nu *= 2.0
+        it += 1
+        if stop:
+            break
+    return p, l, LMStats(it, chi2_0, chi2_cur, lam)
+
+
+def lm_optimize_soa_tiled(
+    g: GraphState, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
+    max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
+    prior=None, with_marginals: bool = False, ell_rows: tuple = (1, 1, 8), cg_tol: float = 1e-8,
+    ops: TiledOps | None = None,
+):
+    """Single-device large-K entry (drop-in for ``ellk_soa.lm_optimize_soa``):
+    the row-range loop over all K rows with identity reductions.
+
+    Below ``min_edges`` edges the graph comes back unchanged with
+    ``iterations == 0`` (the count is fetched unless ``min_edges`` is 0).
+    ``with_marginals=True`` also returns the landmark marginals, recovered
+    matrix-free from a fresh linearization at the final state (K2 + K1)."""
+    if prior is not None:
+        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: the fixed-lag prior of the tiled "
+                                  "PCG loop (soa_dist.lm_optimize_soa_tiled with prior)")
+    ops = ops or kernel_ops()
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    pose_free, lm_free = _free_masks(g)
+    de = build_dist_edges(_edge_args(g), K, ell_rows[2], L)
+    if min_edges > 0 and int(g.num_edges()) < min_edges:  # fetches the count
+        pc = g.poses.T
+        chi2 = ops.chi2(pc, chs.roll_up_pose_ch(pc), g.landmarks, de, robust_kind, robust_delta)
+        stats = LMStats(0, chi2, chi2, torch.zeros_like(chi2))
+        return (g, stats, None) if with_marginals else (g, stats)
+
+    poses, landmarks, stats = run_lm_loop_soa_dist(
+        g.poses, g.landmarks, pose_free, lm_free, de, max_iterations, rel_tol, max_cg_iters,
+        robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, cg_tol=cg_tol, ops=ops,
+    )
+    g = g.replace(poses=poses, landmarks=landmarks)
+    if with_marginals:
+        # over all K rows the range's edge store is the whole graph's
+        lin_ops = soa.PLAIN_OPS if ops is PLAIN_OPS else soa.kernel_ops()
+        lin = lin_ops.linearize(g.poses, g.landmarks, de, robust_kind, robust_delta)
+        return g, stats, landmark_marginals_mf_ellk(soa.soa_to_ell_blocks(lin, de), pose_free, lm_free)
+    return g, stats

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions (K5,
-the RANSAC scoring kernel; K1-K4, the SoA Schur-PCG solver's kernels), and
-small sessions on the card (dense and ``--solver pcg``) against the same
-sessions on the CPU.
+the RANSAC scoring kernel; K1-K4, the resident SoA Schur-PCG solver's
+kernels; K6-K10, the row-range solver's), and small sessions on the card
+(dense, ``--solver pcg`` and ``--solver pcg`` on the row-range loop) against
+the same sessions on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, carries the ``cuda`` marker
 and skips without a GPU. The file imports no JAX, because the machine with
@@ -170,6 +171,60 @@ def test_soa_wrappers_reject_bad_inputs(cuda):
         sk.resident_solve(lin, se, torch.tensor(1.0, device=cuda), pf[:-1], lf, 8)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
+@pytest.mark.parametrize("rows", ["whole", "upper-half"])
+def test_tiled_kernels_match_plain(cuda, robust, rows):
+    """K7, K6, K8, K9 and K10 against their plain versions on the card, on
+    all rows and on rows [K/2, K): each output within 1e-4 of its own scale;
+    one launch each."""
+    from semantic_slam_tpu_torch.solver import chain_soa as chs
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    g, se, _ = soa_case(cuda, R=16)
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    off = 0 if rows == "whole" else K // 2
+    de = sd.build_dist_edges(_edge_args(g), K, 16, L, off)
+    pc_all = g.poses.T
+    pc, pj = pc_all[:, off:].contiguous(), chs.roll_up_pose_ch(pc_all)[:, off:].contiguous()
+    wrappers = (tk.tiled_chain_linearize, tk.tiled_obs_linearize, tk.tiled_mv_fwd, tk.tiled_mv_bwd, tk.tiled_chi2)
+    counts = [w.launches for w in wrappers]
+    cp = sd.chain_plain(pc, pj, de)
+    for a, b in zip(tk.tiled_chain_linearize(pc, pj, de), cp):
+        assert rel_err(a, b) <= 1e-4
+    lk, lp = tk.tiled_obs_linearize(pc, g.landmarks, de, cp, robust), sd.obs_plain(pc, g.landmarks, de, cp, robust)
+    for name in lp._fields:
+        assert rel_err(getattr(lk, name), getattr(lp, name)) <= 1e-4, name
+    rng = np.random.default_rng(4)
+    x, xj = (torch.as_tensor(rng.normal(size=(6, K - off)), dtype=torch.float32, device=cuda) for _ in range(2))
+    (Ok, Tk), (Op, Tp) = tk.tiled_mv_fwd(lp, de, x), sd.mv_fwd_plain(lp, de, x)
+    assert rel_err(Ok, Op) <= 1e-4 and rel_err(Tk, Tp) <= 1e-4
+    for a, b in zip(tk.tiled_mv_bwd(lp, de, Op, Tp, x, xj), sd.mv_bwd_plain(lp, de, Op, Tp, x, xj)):
+        assert rel_err(a, b) <= 1e-4
+    xk, xp = tk.tiled_chi2(pc, pj, g.landmarks, de, robust), sd.chi2_plain(pc, pj, g.landmarks, de, robust)
+    assert rel_err(xk, xp) <= 1e-4
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [c + 1 for c in counts]
+
+
+@pytest.mark.cuda
+def test_tiled_wrappers_reject_bad_inputs(cuda):
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    g, _, _ = soa_case(cuda, K=40, L=8, E2=200)
+    de = sd.build_dist_edges(_edge_args(g), 40, 8, 8)
+    pc = g.poses.T.contiguous()
+    with pytest.raises(ValueError, match="is on"):
+        tk.tiled_chi2(pc, pc.cpu(), g.landmarks, de)
+    lin = sd.obs_plain(pc, g.landmarks, de, sd.chain_plain(pc, pc, de))
+    with pytest.raises(ValueError, match="is on"):
+        tk.tiled_mv_fwd(lin._replace(Rt=lin.Rt.cpu()), de, torch.zeros((6, 40), device=cuda))
+
+
 SMALL_SESSIONS = {
     # gating, capacities: (max_keyframes, max_landmark_edges), LM iteration cap, linear solver
     "euclid": (dict(use_maha_dist=False, use_eq_dist=True, eq_dist_thres=1.0, land_noise_low=0.1), (8, 32), 64,
@@ -178,22 +233,29 @@ SMALL_SESSIONS = {
              "dense"),
     "maha-pcg": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4), (16, 64),
                  32, "pcg"),
+    "maha-pcg-tiled": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4),
+                       (16, 64), 32, "pcg"),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gating", sorted(SMALL_SESSIONS))
-def test_small_session_card_matches_cpu(cuda, gating):
+def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
     """Same log, same config (f32) on the card and on the CPU: the same map,
     and trajectories within the f32 tolerance 1e-3 (index_add_, cuBLAS and
     the kernels sum in other orders than the CPU). With ``pcg`` every LM
-    iteration on the card runs K1-K4."""
+    iteration on the card runs K1-K4, or K6-K10 where the crossover is
+    lowered below the session's capacity (``-tiled``)."""
     from semantic_slam_tpu_torch import cli
     from semantic_slam_tpu_torch.config import (
         AssociationConfig, CapacityConfig, KeyframeConfig, SegmentationConfig, SlamConfig, SolverConfig,
     )
     from semantic_slam_tpu_torch.solver import kernels as sk
+    from semantic_slam_tpu_torch.solver import soa_dist
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
 
+    if gating.endswith("tiled"):
+        monkeypatch.setattr(soa_dist, "TILED_FROM_K", 0)
     assoc, (kf_cap, lme_cap), max_iterations, solver = SMALL_SESSIONS[gating]
     cfg = SlamConfig(
         keyframe=KeyframeConfig(delta_trans=0.4, delta_angle=0.4, delta_time=2.0),
@@ -207,9 +269,10 @@ def test_small_session_card_matches_cpu(cuda, gating):
                                 max_landmark_edges=lme_cap, max_detections_per_frame=4),
     )
     log = cli.make_synthetic_log(seed=3, n_steps=120, sensor_every=5, drift_noise=0.008, H=120, W=160)
-    before = sk.resident_solve.launches
+    before = sk.resident_solve.launches, tk.tiled_mv_bwd.launches
     gpu, cpu = cli.run_session(log, cfg, "cuda"), cli.run_session(log, cfg, "cpu")
-    assert (sk.resident_solve.launches > before) == (solver == "pcg")
+    assert (sk.resident_solve.launches > before[0]) == (gating == "maha-pcg")
+    assert (tk.tiled_mv_bwd.launches > before[1]) == gating.endswith("tiled")
     assert gpu.graph.poses.device.type == "cuda" and gpu.graph.max_poses > kf_cap  # grew on the card
     for e in (gpu, cpu):
         assert int(e.table.count) > 0

@@ -1,7 +1,8 @@
 """The port's profiling replay on the CPU, at a tiny size: every layer of the
 slice is timed once per call and unwrapped afterwards, and the timed run
 makes the same ticks as the plain one; with ``--solver pcg`` the solver's
-layers are called as often as the LM's iterations imply."""
+layers (the resident loop's, or the row-range loop's above the crossover)
+are called as often as the LM's iterations imply."""
 
 import dataclasses
 import importlib
@@ -10,9 +11,12 @@ from semantic_slam_tpu_torch import cli
 from semantic_slam_tpu_torch import profile_slice as ps
 
 
-# the layers only the SoA Schur-PCG solver runs
+# the layers only the SoA Schur-PCG solver runs: the resident loop's, then
+# the row-range loop's
 PCG_LAYERS = ("lm_optimize_soa", "build_soa_edges", "chain_linearize", "obs_linearize", "resident_solve",
               "resident_chi2", "landmark_marginals_mf")
+TILED_LAYERS = ("lm_optimize_soa_tiled", "build_dist_edges", "tiled_chain_linearize", "tiled_obs_linearize",
+                "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
 
 
 def _small(solver: str, max_iterations: int, **solver_kw):
@@ -35,7 +39,7 @@ def test_profile_session_times_every_layer_and_unwraps():
     plain, traced = report["plain"], report["traced"]
     assert plain["lm_iterations"] == traced["lm_iterations"]
     rows = {r["layer"]: r for r in report["layers"]}
-    assert all(rows.pop(label)["calls"] == 0 for label in PCG_LAYERS)
+    assert all(rows.pop(label)["calls"] == 0 for label in PCG_LAYERS + TILED_LAYERS)
     assert all(r["calls"] > 0 and r["host_ms_total"] > 0 and r["device_ms_total"] is None for r in rows.values())
     assert rows["_optimize_tick"]["calls"] == len(traced["tick_ms"])
     assert rows["score_hypotheses"]["calls"] == cfg.segmentation.max_planes_per_detection * rows["extract_planes"]["calls"]
@@ -61,3 +65,26 @@ def test_profile_session_pcg_counts_the_solver_layers():
     assert rows["resident_chi2"] == sum(ran) + rows["lm_optimize_soa"] - len(ran)
     assert rows["landmark_marginals_mf"] == len(ran)
     assert rows["lm_optimize"] == rows["linearize_arrays"] == rows["schur_solve"] == 0
+    assert all(rows[label] == 0 for label in TILED_LAYERS)
+
+
+def test_profile_session_tiled_counts_the_solver_layers(monkeypatch):
+    """The pcg session above the crossover (lowered here so that the tiny
+    graph crosses it): per solve, K7 and K6 once per LM iteration, K8 and K9
+    (CG steps + 1) times per iteration, K10 once per iteration and once per
+    solve skipped below the edge gate, and one K2 + K1 linearization for the
+    marginals; the resident loop's solve kernels never run."""
+    from semantic_slam_tpu_torch.solver import soa_dist
+
+    monkeypatch.setattr(soa_dist, "TILED_FROM_K", 4)
+    log, cfg = _small("pcg", 1, pcg_iters=2)
+    report = ps.profile_session(log, cfg, "cpu")
+    traced = report["traced"]
+    rows = {r["layer"]: r["calls"] for r in report["layers"]}
+    ran = [it for it in traced["lm_iterations"] if it > 0]
+    assert ran and rows["lm_optimize_soa_tiled"] == rows["_optimize_tick"] == rows["build_dist_edges"]
+    assert rows["tiled_chain_linearize"] == rows["tiled_obs_linearize"] == sum(ran)
+    assert rows["tiled_mv_fwd"] == rows["tiled_mv_bwd"] == sum(it * (2 + 1) for it in ran)
+    assert rows["tiled_chi2"] == sum(ran) + rows["lm_optimize_soa_tiled"] - len(ran)
+    assert rows["chain_linearize"] == rows["obs_linearize"] == rows["landmark_marginals_mf"] == len(ran)
+    assert rows["lm_optimize_soa"] == rows["resident_solve"] == rows["resident_chi2"] == 0

@@ -125,6 +125,13 @@ UNPORTED = {
     "adaptive_normals": _with("segmentation", adaptive_normals=True),
     "autosave_every_n_ticks": lambda cfg: cfg.replace(autosave_every_n_ticks=10),
     "save_graph": lambda cfg: cfg.replace(save_graph=True),
+    # the row-range (tiled) PCG loop that --max-keyframes above 4096 takes
+    "prior in the resident and tiled PCG loops": lambda cfg: cfg.replace(
+        solver=SolverConfig(linear_solver="pcg", fixed_lag_window=24),
+        capacity=dataclasses.replace(cfg.capacity, max_keyframes=8192)),
+    "plane half of the tiled PCG loop": lambda cfg: cfg.replace(
+        use_plane_landmarks=True, solver=SolverConfig(linear_solver="pcg"),
+        capacity=dataclasses.replace(cfg.capacity, max_keyframes=8192)),
 }
 
 
