@@ -27,6 +27,15 @@ before the result line:
              K=4096 and the row-range loop at K=8192, each through the kernels
              and through the plain versions; and the two loops on the K=4096
              graph against each other;
+5b. the fixed-lag prior -- a prior from ``fixed_lag.marginalize`` (drop 16,
+             PB=8) on the bench graph at a perturbed state: K4 with it against
+             its plain version at the pcg session's shape (K=4096/L=1024, R=32)
+             and at the fixed-lag session's (K=512/L=128, R=32), also with the
+             prior's block moved onto free poses (the marginalized block sits
+             on the gauge-fixed pose 0), timed with and without the prior; the
+             resident LM with the prior through the kernels against the plain
+             versions, and the row-range LM with the prior against the
+             resident one, at K=4096;
 6. dense slice -- a 640x480 synthetic session through the port's ``cli run``
              path (profile ``yolo_detector``, its own capacities
              K=512/L=128/E2=2048, dense Schur LM), counters reset just before;
@@ -34,15 +43,23 @@ before the result line:
              (K=4096/L=1024/E2=16384, R=32): every LM iteration runs K1-K4;
 8. tiled slice -- the same session with ``--solver pcg --max-keyframes 8192``
              (K=8192/L=2048/E2=32768, R=32): every LM iteration runs K6-K10,
-             and the marginals' linearization K1+K2.
+             and the marginals' linearization K1+K2;
+9. fixed-lag slices -- a longer 640x480 session (seed 1, 1920 steps, ~120
+             keyframes) with ``--fixed-lag 64``, dense and ``--solver pcg``
+             (resident loop at K=512): at least 3 marginalizations, fewer than
+             80 active poses, every keyframe exported, chi2 never rising, ATE
+             no worse than raw VIO's, and every K4 launch carrying the prior.
 The counters are reset just before each session and checked against the LM's
 iteration counts just after.
 
 The line before the last is a JSON object with one entry per kernel (launches
-from the session whose path runs it, K1-K5 from the pcg slice, K6-K10 from
-the tiled slice; times and errors at the engine shapes; each kernel's bound);
-the last line is ``{"ok": true, "device": {...}}``. Artifacts of the sessions
-go to ``chiprun_out/chip_smoke/`` under the checkout.
+from the session whose path runs it, K1-K3 and K5 from the pcg slice, K4 from
+the fixed-lag pcg slice, K6-K10 from the tiled slice; times and errors at the
+engine shapes, K4's with the prior at the fixed-lag session's shape; each
+kernel's bound); the last line is ``{"ok": true, "device": {...}}``.
+Artifacts of the sessions go to ``OUT_DIR`` under the checkout. Run
+without the package beside it, the script exits 4, a code of its own
+(1 is a failed phase).
 """
 
 from __future__ import annotations
@@ -81,6 +98,16 @@ RAGGED = dict(K=1000, L=250, E2=7992)  # K not a multiple of any block size, R =
 TILED_BENCH = dict(K=8192, L=2048, E2=32768)  # bench.py's large cell, R = 4
 TILED_LARGE = dict(K=16384, L=4096, E2=65536)  # the largest cell of the JAX package's tiled path, R = 4
 LM_STEPS = 128  # CG steps per LM iteration in the fixed-work LMs
+FL_ENGINE = dict(K=512, L=128, E2=2048)  # yolo_detector's own capacities: the fixed-lag session's graph
+PRIOR_DROP = 16  # keyframes marginalized into the prior of the K4 and LM checks
+# K4 with a prior block moved onto free poses: at those poses its error against
+# the plain version, as a share of the block's own effect on the step there
+# (~5e-7 on an H100 80GB HBM3; a product 10% off gives ~3e-2)
+PRIOR_ROW_RTOL = 1e-3
+FL_WINDOW = 64  # --fixed-lag of the fixed-lag sessions (chunk max(8, 64 // 4) = 16)
+# the fixed-lag sessions' log: benchmarks/pipeline_bench.py's deployment (seed 1, loops = steps / 240), cut from
+# 1800 steps with sensor_every=3 to 1920 with 6: ~120 keyframes, so that the window of 64 marginalizes 3 times
+FL_LOG = dict(seed=1, n_steps=1920, sensor_every=6, loops=8.0, H=480, W=640)
 DEVICE = "cuda"  # every tensor of the phases lives here
 
 
@@ -276,15 +303,17 @@ def _lin_bytes_flops(K: int, R: int, L: int, E_real: int) -> dict:
     }
 
 
-def _solve_bytes_flops(K: int, R: int, L: int, E_real: int, steps: int) -> tuple[float, float]:
+def _solve_bytes_flops(K: int, R: int, L: int, E_real: int, steps: int, PB: int = 0) -> tuple[float, float]:
     """K4: inputs v, O', the slot and CSR indices, Rt, the chain blocks and
     diagonal, gp, gl, Hll, both masks; outputs dp, db. Per CG step about 93
     operations per observation, 15 per landmark and 420 per pose (the two
     matvec halves, the chain's four 6x6 products, the update and the
-    preconditioner), plus the set-up and back-substitution."""
+    preconditioner), plus the set-up and back-substitution. A fixed-lag
+    prior over PB slots adds Hp [6PB, 6PB] and its indices to the bytes and
+    its product, 2 (6PB)^2 operations, to every CG step."""
     E = K * R
-    n_bytes = 4 * (14 * E + 160 * K + 14 * L + 2 + 6 * K + 3 * L)
-    n_flops = steps * (93 * E_real + 15 * L + 420 * K) + 450 * K + 100 * L + 100 * E_real
+    n_bytes = 4 * (14 * E + 160 * K + 14 * L + 2 + 6 * K + 3 * L + 36 * PB * PB + PB)
+    n_flops = steps * (93 * E_real + 15 * L + 420 * K + 72 * PB * PB) + 450 * K + 100 * L + 100 * E_real
     return n_bytes, n_flops
 
 
@@ -554,10 +583,11 @@ def check_two_halves(torch) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _run_lm(torch, loop: str, g, R: int, ops) -> tuple:
-    """8 LM iterations of LM_STEPS CG steps on ``g``, through the resident
-    loop or the row-range one; returns (iterations, chi2 initial, chi2 final,
-    ms per LM iteration on the host clock, synced)."""
+def _run_lm(torch, loop: str, g, R: int, ops, prior=None) -> tuple:
+    """8 LM iterations of LM_STEPS CG steps on ``g`` (with a fixed-lag
+    ``prior``, if given), through the resident loop or the row-range one;
+    returns (iterations, chi2 initial, chi2 final, ms per LM iteration on the
+    host clock, synced)."""
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
     from semantic_slam_tpu_torch.solver import soa_dist as sd
     from semantic_slam_tpu_torch.solver.lm import _free_masks
@@ -571,7 +601,7 @@ def _run_lm(torch, loop: str, g, R: int, ops) -> tuple:
     args = (edges, pf, lf) if loop == "resident" else (pf, lf, edges)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stats = run(g.poses, g.landmarks, *args, 8, 0.0, LM_STEPS, cg_tol=0.0, ops=ops)[2]
+    stats = run(g.poses, g.landmarks, *args, 8, 0.0, LM_STEPS, cg_tol=0.0, ops=ops, prior=prior)[2]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return stats.iterations, float(stats.chi2_initial), float(stats.chi2_final), 1e3 * wall / max(stats.iterations, 1)
@@ -604,6 +634,134 @@ def check_fixed_lm(torch) -> None:
     print(f"fixed-work LM [tiled loop, kernels] K={BENCH['K']}: chi2 {c0:.7g} -> {c1:.7g}, {ms:.3f} ms per LM "
           f"iteration against the resident loop's {resident[3]:.3f}; final chi2 rel diff {rel:.3g} (bound {LM_RTOL:g})")
     require(it == 8 and rel <= LM_RTOL, "fixed-work LM: the row-range and resident loops disagree at K=4096")
+
+
+# ---------------------------------------------------------------------------
+# 5b. the fixed-lag prior: K4 with it, and the fixed-work LMs
+# ---------------------------------------------------------------------------
+
+
+def _prior_case(torch, K: int, L: int, E2: int, R: int | None = None):
+    """The perturbed ``_soa_case`` graph with its first PRIOR_DROP keyframes
+    marginalized (``fixed_lag.marginalize``, PB=8): (graph, edges, masks,
+    prior, boundary poses)."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import fixed_lag as fl
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    g, _, _, _, R = _soa_case(torch, K, L, E2, R=R, perturb=True)
+    g, prior, num_b = fl.marginalize(g, fl.empty_prior(L, device=DEVICE), PRIOR_DROP)
+    pf, lf = _free_masks(g)
+    return g, soa.build_soa_edges(_edge_args(g), K, R, L), pf, lf, prior, int(num_b), R
+
+
+def _moved_prior(torch, prior, poses, num_live: int, seed: int = 5):
+    """``prior`` with its boundary block replaced by a dense seeded SPD block
+    over the free poses (3, num_live // 2, num_live - 2), slots 0-2, at the
+    scale of the marginalized boundary block (the mean of its slot-0
+    diagonal); ``p_ref`` there is ``poses``. The marginalized block sits on
+    the window's first pose, which the gauge fixes, so it meets only masked
+    directions in the matvec; this one moves the step at its poses by about
+    its own size. The same construction as the tests' ``moved_prior``."""
+    import numpy as np
+
+    idx = (3, num_live // 2, num_live - 2)
+    n, dt, dev = len(idx), prior.Hp.dtype, prior.Hp.device
+    scale = prior.Hp[:6, :6].diagonal().mean()
+    A = torch.as_tensor(np.random.default_rng(seed).normal(size=(6 * n, 6 * n)), dtype=dt, device=dev)
+    Hp = torch.zeros_like(prior.Hp)
+    Hp[: 6 * n, : 6 * n] = scale * (A @ A.T / (6 * n) + torch.eye(6 * n, dtype=dt, device=dev))
+    p_idx = torch.zeros_like(prior.p_idx)
+    p_idx[:n] = torch.tensor(idx, dtype=p_idx.dtype, device=dev)
+    p_ref = prior.p_ref.clone()
+    p_ref[:n] = poses[p_idx[:n].long()]
+    return prior._replace(Hp=Hp, p_idx=p_idx, p_ref=p_ref, num_p=torch.tensor(n, dtype=prior.num_p.dtype, device=dev))
+
+
+def check_soa_prior(torch) -> dict:
+    """K4 with a fixed-lag prior against its plain version at the pcg and
+    the fixed-lag sessions' shapes; returns the fixed-lag shape's numbers."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels
+    from semantic_slam_tpu_torch.solver.pcg import apply_prior_blocks
+
+    out = {}
+    for label, shape in ((f"pcg session K={BENCH['K']} R={ENGINE_R}", BENCH),
+                         (f"fixed-lag session K={FL_ENGINE['K']} R={ENGINE_R}", FL_ENGINE)):
+        g, se, pf, lf, prior, num_b, R = _prior_case(torch, **shape, R=ENGINE_R)
+        K, L = shape["K"], shape["L"]
+        E_real = int(se.lm_start[L])
+        print(f"-- K4 with a fixed-lag prior [{label}]: drop {PRIOR_DROP}, {num_b} boundary pose(s), PB="
+              f"{prior.max_poses}, p_idx {prior.p_idx.tolist()}, {int(g.num_poses)} live poses, {E_real} real slots")
+        require(num_b >= 1 and float(prior.Hl.abs().sum()) > 0, f"{label}: the marginalized prior is empty")
+        moved = _moved_prior(torch, prior, g.poses, int(g.num_poses))
+        for which, pr in (("marginalized", prior), ("moved onto free poses", moved)):
+            lin = apply_prior_blocks(soa.soa_linearize(g.poses, g.landmarks, se), pr, g.poses, g.landmarks)
+            lam = _init_lambda(torch, lin)
+            args = (lin, se, lam, pf, lf, 128)
+            for tol in (1e-8, 0.0):
+                dk, bk = kernels.resident_solve(*args, tol, pr.Hp, pr.p_idx)
+                dpl, bpl = soa.soa_schur_step(*args, tol, pr.Hp, pr.p_idx)
+                d0, _ = soa.soa_schur_step(*args, tol)
+                ed, eb = _norm_err(torch, dk, dpl), _norm_err(torch, bk, bpl)
+                # at the prior's poses: the kernel's error beside the block's own effect on the step
+                rows = pr.p_idx[: int(pr.num_p)].long()
+                row_err = float(torch.linalg.norm((dk[rows] - dpl[rows]).double()))
+                row_effect = float(torch.linalg.norm((d0[rows] - dpl[rows]).double()))
+                effect = row_effect / max(float(torch.linalg.norm(dpl[rows].double())), 1e-30)
+                finite = bool(torch.isfinite(dk).all() and torch.isfinite(bk).all())
+                print(f"  resident_solve (K4) + prior [{which}, cg_tol={tol:g}]: dp rel norm err {ed:.3g}, db {eb:.3g} "
+                      f"(bound {SOLVE_RTOL:g}); at the prior's poses the block moves dp by {effect:.3g} of its norm "
+                      f"there and the kernel's error is {row_err / max(row_effect, 1e-30):.3g} of that move "
+                      f"(bound {PRIOR_ROW_RTOL:g})")
+                require(finite and ed <= SOLVE_RTOL and eb <= SOLVE_RTOL,
+                        f"{label} {which} cg_tol={tol}: K4 with a prior disagrees with its plain version")
+                if which.startswith("moved"):
+                    require(effect > 1e-2, f"{label}: the moved prior block does not change the step at its poses")
+                    require(row_err <= PRIOR_ROW_RTOL * row_effect,
+                            f"{label} cg_tol={tol}: K4 misses the moved prior block's effect at its poses")
+                    if shape is FL_ENGINE and tol == 0.0:
+                        out["max_abs_err"] = max(_rel_err(torch, dk, dpl)[0], _rel_err(torch, bk, bpl)[0])
+            if which != "marginalized":
+                continue
+            # times at fixed work (cg_tol=0, 128 steps): with the prior, without it, and the plain version
+            ms = _time_ms(torch, lambda: kernels.resident_solve(*args, 0.0, pr.Hp, pr.p_idx), 5)
+            ms0 = _time_ms(torch, lambda: kernels.resident_solve(*args, 0.0), 5)
+            plain_ms = _time_ms(torch, lambda: soa.soa_schur_step(*args, 0.0, pr.Hp, pr.p_idx), 5)
+            b = bound(*_solve_bytes_flops(K, R, L, E_real, 128, pr.max_poses))
+            print(f"  resident_solve [{label}]: kernel with the prior {ms:.4f} ms, without {ms0:.4f} ms, plain with "
+                  f"the prior {plain_ms:.4f} ms (CUDA events, mean of 5); bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
+            if shape is FL_ENGINE:
+                out.update(ms=ms, plain_ms=plain_ms, ms_without_prior=ms0, **b)
+    return out
+
+
+def check_fixed_lm_prior(torch) -> None:
+    """The resident LM with the marginalized prior at K=4096 through the
+    kernels and through the plain versions, and the row-range LM with the
+    prior through its kernels against the resident one."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+
+    g, _, _, _, prior, _, R = _prior_case(torch, **BENCH)
+    res = {}
+    for loop, name, ops in (("resident", "kernels", soa.kernel_ops()), ("resident", "plain", soa.PLAIN_OPS),
+                            ("tiled", "kernels", sd.kernel_ops())):
+        before = _wrappers()["resident_solve"].prior_launches
+        it, c0, c1, ms = res[(loop, name)] = _run_lm(torch, loop, g, R, ops, prior)
+        print(f"fixed-work LM with the prior [{loop} loop, {name}] K={BENCH['K']} R={R}: {it} iterations x "
+              f"{LM_STEPS} CG steps, chi2 {c0:.7g} -> {c1:.7g}, {ms:.3f} ms per LM iteration (host clock, synced)")
+        require(it == 8 and math.isfinite(c1) and c1 < c0, f"fixed-work LM with the prior [{loop} {name}] failed")
+        if loop == "resident" and name == "kernels":
+            require(_wrappers()["resident_solve"].prior_launches - before == it,
+                    "fixed-work LM with the prior: K4 did not take the prior on every iteration")
+    for other in (("resident", "plain"), ("tiled", "kernels")):
+        rel = abs(res[other][2] - res[("resident", "kernels")][2]) / abs(res[other][2])
+        print(f"fixed-work LM with the prior: final chi2 rel diff resident kernels / {' '.join(other)} {rel:.3g} "
+              f"(bound {LM_RTOL:g})")
+        require(rel <= LM_RTOL, f"fixed-work LM with the prior: resident kernels and {other} disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -662,20 +820,38 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
 
         return call
 
+    # each marginalization's host time, synced on both sides (the engine
+    # fetches its counts right after it anyway)
+    from semantic_slam_tpu_torch.solver import fixed_lag
+
+    marg_ms, orig_marginalize = [], fixed_lag.marginalize
+
+    def timed_marginalize(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_marginalize(*a, **kw)
+        torch.cuda.synchronize()
+        marg_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
     wrappers = _wrappers()
     for loop, (mod, fn) in entries.items():
         setattr(mod, fn, recording(loop))
+    fixed_lag.marginalize = timed_marginalize
     try:
         for w in wrappers.values():
             w.launches = 0
+        wrappers["resident_solve"].prior_launches = 0
         t0 = time.perf_counter()
         engine = cli.run_session(log, cfg, args.device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
+        prior_launches = wrappers["resident_solve"].prior_launches
     finally:
         for loop, (mod, fn) in entries.items():
             setattr(mod, fn, origs[loop])
+        fixed_lag.marginalize = orig_marginalize
     summary = cli.write_outputs(args.out, args.profile, cfg, engine, log)
     print(f"[{label}] summary:", json.dumps(summary))
 
@@ -693,6 +869,18 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
     require(math.isfinite(summary["ate_rmse_optimized"]), f"[{label}] ATE is not finite")
     poses = engine.get_keyframe_poses()
     require(poses.shape == (summary["keyframes"], 7) and bool((abs(poses) < 1e3).all()), f"[{label}] bad poses")
+    window = cfg.solver.fixed_lag_window
+    if window:
+        print(f"[{label}] fixed-lag window {window}: {len(marg_ms)} marginalizations, _kf_base {engine._kf_base}, "
+              f"{engine._n_poses} active + {len(engine.archived_poses)} archived poses = {len(poses)} keyframes; "
+              f"ATE optimized {summary['ate_rmse_optimized']:.6g} m, raw VIO {summary['ate_rmse_vio']:.6g} m")
+        require(len(marg_ms) >= 3 and engine._kf_base >= 48, f"[{label}] fewer than 3 marginalizations")
+        require(engine._n_poses < 80, f"[{label}] {engine._n_poses} active poses: the window is not bounded")
+        require(engine._n_poses + len(engine.archived_poses) == len(engine.keyframes) == len(poses),
+                f"[{label}] archived + active poses do not cover the keyframes")
+        require(summary["ate_rmse_optimized"] <= summary["ate_rmse_vio"], f"[{label}] ATE worse than raw VIO's")
+    else:
+        require(not marg_ms, f"[{label}] marginalized without a fixed-lag window")
 
     n_det_kf = sum(1 for kf in engine.keyframes if _is_det(kf))
     rounds = cfg.segmentation.max_planes_per_detection
@@ -736,6 +924,10 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         print(f"[{label}] {loop} LM calls (iterations): {calls[loop]}; expected launches: {formula} = {expect}")
         for name, n in expect.items():
             require(launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
+        want_prior = launches["resident_solve"] if window else 0
+        print(f"[{label}] K4 launches with the fixed-lag prior: {prior_launches} (expected {want_prior})")
+        require(prior_launches == want_prior, f"[{label}] K4 took the prior on {prior_launches} launches, "
+                                              f"expected {want_prior}")
         for name in (RESIDENT if loop == "resident" else TILED + ("chain_linearize", "obs_linearize")):
             require(launches[name] > 0, f"[{label}] {name} was launched no time on its path")
     else:
@@ -758,6 +950,10 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
           f"{steady_median([x for x, it in zip(tick_ms, iters) if it == 0])}, optimizing {steady_median(opt_ms)}")
     print(f"[{label}] LM iterations per tick: {iters}; session wall {wall:.2f} s; "
           f"optimizing-tick ms per LM iteration {sum(opt_ms) / max(sum(iters), 1):.3f}")
+    if window:
+        print(f"[{label}] median optimizing tick ms over the first 30 {statistics.median(opt_ms[:30]):.2f} and the "
+              f"last 30 {statistics.median(opt_ms[-30:]):.2f} (of {len(opt_ms)}); ms per marginalization "
+              f"{[round(x, 2) for x in marg_ms]}, median {statistics.median(marg_ms):.2f}")
     return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop}
 
 
@@ -771,7 +967,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "semantic_slam_tpu_torch")):
         print("chip_smoke: semantic_slam_tpu_torch/ not found beside this script; run it from a checkout",
               file=sys.stderr)
-        return 2
+        return 4
     sys.path.insert(0, ROOT)
     import torch
 
@@ -800,6 +996,10 @@ def main() -> int:
         phase("fixed-work LMs")
         check_fixed_lm(torch)
 
+        phase("the fixed-lag prior")
+        k4_prior = check_soa_prior(torch)
+        check_fixed_lm_prior(torch)
+
         os.makedirs(OUT_DIR, exist_ok=True)
         from semantic_slam_tpu_torch import cli
 
@@ -817,6 +1017,19 @@ def main() -> int:
         tiled = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "8192"], "tiled")
         require(tiled["keyframes"] == dense["keyframes"] and tiled["loop"] == "tiled",
                 f"keyframes: tiled {tiled['keyframes']} != dense {dense['keyframes']}")
+        del log
+
+        t0 = time.perf_counter()
+        fl_log = cli.make_synthetic_log(**FL_LOG)
+        print(f"fixed-lag log {FL_LOG}: {len(fl_log.clouds)} clouds, {len(fl_log.detections)} detection frames "
+              f"({time.perf_counter() - t0:.1f} s on the host)")
+        phase("fixed-lag dense slice on the card")
+        fl_dense = run_slice(torch, fl_log, ["--fixed-lag", str(FL_WINDOW)], "fixed_lag_dense")
+        phase("fixed-lag pcg slice on the card")
+        fl_pcg = run_slice(torch, fl_log, ["--fixed-lag", str(FL_WINDOW), "--solver", "pcg"], "fixed_lag_pcg")
+        require(fl_pcg["keyframes"] == fl_dense["keyframes"] and fl_pcg["loop"] == "resident",
+                f"keyframes: fixed-lag pcg {fl_pcg['keyframes']} != dense {fl_dense['keyframes']}")
+        del fl_log
 
         check_isolation()
     except SmokeFailure as e:
@@ -828,7 +1041,8 @@ def main() -> int:
         "obs_linearize": ("soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:603", pcg),
         "chain_linearize": ("soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:747", pcg),
         "resident_chi2": ("soa_chi2.cu", "semantic_slam_tpu/solver/pallas_cg.py:920", pcg),
-        "resident_solve": ("soa_solve.cu", "semantic_slam_tpu/solver/pallas_cg.py:230", pcg),
+        # with its prior branch (pallas_cg.py:319-329, :420-442), on this slice's path
+        "resident_solve": ("soa_solve.cu", "semantic_slam_tpu/solver/pallas_cg.py:230", fl_pcg),
         "score_hypotheses": ("score_hypotheses.cu", "semantic_slam_tpu/frontend/pallas_kernels.py:35", pcg),
         "tiled_obs_linearize": ("tiled_linearize.cu", f"{tiled_py}:154", tiled),
         "tiled_chain_linearize": ("tiled_linearize.cu", f"{tiled_py}:285", tiled),
@@ -836,7 +1050,7 @@ def main() -> int:
         "tiled_mv_bwd": ("tiled_matvec.cu", f"{tiled_py}:373", tiled),
         "tiled_chi2": ("tiled_chi2.cu", f"{tiled_py}:430", tiled),
     }
-    numbers = {**soa_k, **tiled_k, "score_hypotheses": k5}
+    numbers = {**soa_k, **tiled_k, "score_hypotheses": k5, "resident_solve": k4_prior}
     kernels_line = {"kernels": [
         {
             "name": name, "route": "cuda", "source": f"semantic_slam_tpu_torch/csrc/{src}", "replaces": rep,

@@ -44,8 +44,8 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
         "soa_chi2_launch": ([_P] * 7 + [_I, _I, _I, _F, _P, _P, _P], ctypes.c_int),
     },
     "soa_solve": {
-        "soa_solve_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
-        "soa_solve_launch": ([_P] * 16 + [_F, _I, _I, _I, _I, _P, _P, _P, _I, _P], ctypes.c_int),
+        "soa_solve_scratch": ([_I] * 5, ctypes.c_longlong),
+        "soa_solve_launch": ([_P] * 18 + [_I, _F, _I, _I, _I, _I, _P, _P, _P, _I, _P], ctypes.c_int),
     },
     "tiled_linearize": {
         "tiled_chain_lin_scratch": ([_I], ctypes.c_longlong),

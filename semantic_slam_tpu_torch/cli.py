@@ -4,6 +4,7 @@
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --profile yolo_detector --out results/ --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 4096 --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 8192 --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --fixed-lag 64 [--solver pcg] --device cuda
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
@@ -11,8 +12,11 @@ writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
 that asks for them) and the ``export_session`` files. ``--solver pcg`` runs
 the SoA Schur-PCG solver: up to 4096 keyframes of capacity its resident loop
 (kernels K1-K4 on the card), above it the row-range loop (K6-K10, and K1+K2
-for the marginals). ``synth`` writes the
-same ``.npz`` log as the JAX package's command.
+for the marginals). ``--fixed-lag N`` marginalizes keyframes beyond the
+last N into a prior (on the dense LM and both PCG loops; the pcg resident
+loop applies the prior's boundary block inside K4); the trajectory files and
+the summary still cover every keyframe. ``synth`` writes the same ``.npz``
+log as the JAX package's command.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ def make_config(args):
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, linear_solver=args.solver))
     if args.precond:
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, pcg_precond=args.precond))
+    if args.fixed_lag > 0:
+        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, fixed_lag_window=args.fixed_lag))
     return cfg
 
 
@@ -196,6 +202,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="linear solver (default: the profile's, dense)")
     r.add_argument("--precond", default="", choices=["", "jacobi"],
                    help="PCG preconditioner (default: the profile's, jacobi)")
+    r.add_argument("--fixed-lag", type=int, default=0,
+                   help="fixed-lag smoothing window: marginalize keyframes beyond the last N into a prior "
+                        "(0 = the reference's full-history behavior)")
     return ap
 
 

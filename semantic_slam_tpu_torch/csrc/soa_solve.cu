@@ -2,15 +2,29 @@
 // persistent launch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel semantic_slam_tpu/solver/pallas_cg.py
-// `_solve_kernel` (wrapper `resident_solve`), jacobi preconditioner, without
-// its fixed-lag prior branch. Plain version: solver/ellk_soa.py
-// `soa_schur_step`.
+// `_solve_kernel` (wrapper `resident_solve`), jacobi preconditioner, with its
+// fixed-lag prior branch. Plain version: solver/ellk_soa.py `soa_schur_step`.
 //
 //   A^-1 = inv33((Hll + lam I) lmf + I (1 - lmf))   per landmark
 //   M^-1 = inv66((diag + lam I) pf + I (1 - pf))    per pose
 //   b    = -(gp - W A^-1 (gl lmf)) pf
-//   n_steps of PCG on (Hpp - W A^-1 W^T + lam I) under the `active` mask
+//   n_steps of PCG on (Hpp - W A^-1 W^T [+ Sel Hp Sel^T] + lam I) under the
+//   `active` mask
 //   db   = A^-1 (-gl lmf - W^T dp) lmf
+//
+// The fixed-lag prior (PB > 0): Hp [6PB, 6PB] is the dense information over
+// the PB boundary poses pidx[b]; its gradient, diagonal blocks and landmark
+// part are already inside gp, diag, gl and Hll, so only the matvec changes:
+// u[:, pidx[b]] += row block b of Hp times the masked direction gathered at
+// every slot's pose. The product y = Hp xg (6PB rows of 6PB FMAs) is formed
+// in phase b, after the barrier that completes p, one row per thread of the
+// grid's last 6PB threads, beside the landmark work; in phase c the thread that
+// owns pose k adds y's rows of the slots with pidx[b] == k, before lam x and
+// the mask. No extra barrier, no atomics, and a repeated index (the padded
+// slots' 0) adds in the owner's loop. A first version formed the product in
+// phase c on the owner's thread: with the padded slots all on pose 0 that
+// thread ran PB * 6 * 6PB dependent FMAs a step alone, which doubled the
+// launch at K=4096. Hp (9 KB at PB = 8) stays in L1/L2.
 //
 // What bounds it: latency, then bytes. Each CG step streams v, O' (12 floats
 // per slot), Rt and the chain blocks (9 + 108 floats per pose) once and the
@@ -49,6 +63,10 @@ constexpr int NP = 4;  // dot-product partial slots per block: pAp, rz, rr, bb
 struct SolveArgs {
   const float *v, *Ow, *Rt, *Hii, *Hij, *Hjj, *diag, *gp, *gl, *Hll, *lmf, *pf, *lam;
   const int *ll_rk, *lm_slots, *lm_start;
+  const float* Hp;  // [6PB, 6PB] row-major, the fixed-lag prior (PB = 0: none)
+  const int* pidx;  // [PB]
+  int PB;
+  float* yp;  // [6PB] scratch: Hp times the gathered direction, per step
   float tol;
   int n_steps, K, R, L;
   float *dp, *db;
@@ -73,6 +91,32 @@ __device__ __forceinline__ float grid_total(const float* partials, int slot, flo
 __device__ __forceinline__ void load6_cg(const float* a, int K, int k, float* out) {
 #pragma unroll
   for (int i = 0; i < 6; ++i) out[i] = __ldcg(a + i * K + k);
+}
+
+// row r of the prior's product y = Hp xg, xg the masked p gathered at every
+// slot's pose (p is complete: the caller runs after the barrier that ends
+// phase a)
+__device__ __forceinline__ void prior_product(const SolveArgs& A, const float* pc, int K, int r) {
+  const int n = 6 * A.PB;
+  const float* row = A.Hp + static_cast<long long>(r) * n;
+  float s = 0.f;
+  for (int c = 0; c < A.PB; ++c) {
+    const int kc = __ldg(A.pidx + c);
+    const float fc = __ldg(A.pf + kc);
+#pragma unroll
+    for (int d = 0; d < 6; ++d) s += __ldg(row + 6 * c + d) * (__ldcg(pc + d * K + kc) * fc);
+  }
+  A.yp[r] = s;
+}
+
+// u (pose k's matvec row) += y's rows of the slots b with pidx[b] == k (y is
+// complete: the caller runs after the barrier that ends phase b)
+__device__ __forceinline__ void prior_add(const SolveArgs& A, int k, float* u) {
+  for (int b = 0; b < A.PB; ++b) {
+    if (__ldg(A.pidx + b) != k) continue;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) u[i] += __ldcg(A.yp + 6 * b + i);
+  }
 }
 
 __global__ void __launch_bounds__(BLOCK) solve_kernel(SolveArgs A) {
@@ -198,6 +242,9 @@ __global__ void __launch_bounds__(BLOCK) solve_kernel(SolveArgs A) {
         for (int c = 0; c < 3; ++c) A.zl[3 * l + c] = zz.v[c];
       }
     }
+    // the prior's product on the grid's last threads, whose warps come last
+    // in the landmark loop
+    if (nthr - 1 - tid < 6 * A.PB) prior_product(A, pc, K, nthr - 1 - tid);
     grid.sync();
 
     // c. per pose (K9): Ap and p.Ap
@@ -223,6 +270,7 @@ __global__ void __launch_bounds__(BLOCK) solve_kernel(SolveArgs A) {
         }
         float u[6];
         mv_bwd_pose(A.v, A.Ow, A.Rt, A.Oa, A.zl, A.ll_rk, A.Hii, A.Hij, A.Hjj, K, R, k, xm, xn, xp, u);
+        if (A.PB > 0) prior_add(A, k, u);
 #pragma unroll
         for (int i = 0; i < 6; ++i) {
           const float ap = (u[i] + lam * xm[i]) * f;
@@ -318,19 +366,23 @@ int max_coresident_blocks() {
 }  // namespace
 
 // Scratch floats the wrapper must provide for up to `max_blocks` blocks.
-extern "C" long long soa_solve_scratch(int K, int R, int L, int max_blocks) {
-  return 18LL * L + 72LL * K + 3LL * K * R + static_cast<long long>(NP) * max_blocks;
+extern "C" long long soa_solve_scratch(int K, int R, int L, int PB, int max_blocks) {
+  return 18LL * L + 72LL * K + 3LL * K * R + 6LL * PB + static_cast<long long>(NP) * max_blocks;
 }
 
 // Launches on `stream`; returns the CUDA error of the launch (0 = ok).
-// `lam` is a device scalar; dp is [6, K], db is [L, 3].
+// `lam` is a device scalar; dp is [6, K], db is [L, 3]. PB = 0 runs without a
+// prior (Hp and pidx are then not read).
 extern "C" int soa_solve_launch(const float* v, const float* Ow, const float* Rt, const float* Hii, const float* Hij,
                                 const float* Hjj, const float* diag, const float* gp, const float* gl,
                                 const float* Hll, const float* lmf, const float* pf, const int* ll_rk,
-                                const int* lm_slots, const int* lm_start, const float* lam, float tol, int n_steps,
-                                int K, int R, int L, float* dp, float* db, float* scratch, int max_blocks,
-                                void* stream_ptr) {
-  if (K <= 0 || R <= 0 || L <= 0 || max_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                const int* lm_slots, const int* lm_start, const float* lam, const float* Hp,
+                                const int* pidx, int PB, float tol, int n_steps, int K, int R, int L, float* dp,
+                                float* db, float* scratch, int max_blocks, void* stream_ptr) {
+  // the prior's product takes 6PB threads of the grid, which has at least one block
+  if (K <= 0 || R <= 0 || L <= 0 || PB < 0 || 6 * PB > BLOCK || max_blocks <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int coresident = max_coresident_blocks();
   if (coresident <= 0) {
     const cudaError_t e = cudaGetLastError();
@@ -345,6 +397,7 @@ extern "C" int soa_solve_launch(const float* v, const float* Ow, const float* Rt
   SolveArgs A;
   A.v = v; A.Ow = Ow; A.Rt = Rt; A.Hii = Hii; A.Hij = Hij; A.Hjj = Hjj; A.diag = diag; A.gp = gp; A.gl = gl;
   A.Hll = Hll; A.lmf = lmf; A.pf = pf; A.lam = lam; A.ll_rk = ll_rk; A.lm_slots = lm_slots; A.lm_start = lm_start;
+  A.Hp = Hp; A.pidx = pidx; A.PB = PB;
   A.tol = tol; A.n_steps = n_steps; A.K = K; A.R = R; A.L = L; A.dp = dp; A.db = db;
   float* s = scratch;
   A.Ainv = s; s += 9LL * L;
@@ -359,6 +412,7 @@ extern "C" int soa_solve_launch(const float* v, const float* Ow, const float* Rt
   A.p1 = s; s += 6LL * K;
   A.Ap = s; s += 6LL * K;
   A.Oa = s; s += 3 * E;
+  A.yp = s; s += 6LL * PB;
   A.partials = s;
   void* params[] = {&A};
   const cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(solve_kernel),

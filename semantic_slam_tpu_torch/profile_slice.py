@@ -5,11 +5,15 @@
         --out <directory>
     python -m semantic_slam_tpu_torch.profile_slice --solver pcg --max-keyframes 8192 \
         --out <directory>
+    python -m semantic_slam_tpu_torch.profile_slice --fixed-lag 64 [--solver pcg] --steps 1920 \
+        --out <directory>
 
 Replays one of the ``chip_smoke.py`` sessions (the 640x480 synthetic log,
 profile ``yolo_detector``: the dense session at its own capacities, with
 ``--solver pcg --max-keyframes 4096`` the pcg one on the resident loop, or
-with ``--max-keyframes 8192`` the tiled one on the row-range loop) three
+with ``--max-keyframes 8192`` the tiled one on the row-range loop; with
+``--fixed-lag N`` the fixed-lag session of that solver, whose marginalization,
+prior folds and prior part of the marginals are layers of their own) three
 times in one process:
 
 1. warm-up, which carries the lazy CUDA / cuBLAS / cuSOLVER set-up;
@@ -69,6 +73,14 @@ LAYERS = (
     ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_mv_bwd", "tiled_mv_bwd"),
     ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_chi2", "tiled_chi2"),
     ("semantic_slam_tpu_torch.solver.soa_dist", "landmark_marginals_mf_ellk", "landmark_marginals_mf"),
+    ("semantic_slam_tpu_torch.solver.fixed_lag", "marginalize", "marginalize"),
+    ("semantic_slam_tpu_torch.solver.fixed_lag", "lm_optimize_prior", "lm_optimize_prior"),
+    ("semantic_slam_tpu_torch.solver.fixed_lag", "apply_prior", "prior_fold"),
+    ("semantic_slam_tpu_torch.solver.ellk_soa", "apply_prior_blocks", "prior_fold"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "apply_prior_blocks", "prior_fold"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "prior_matvec", "prior_matvec"),
+    ("semantic_slam_tpu_torch.solver.pcg", "prior_woodbury", "prior_marginals"),
+    ("semantic_slam_tpu_torch.solver.fixed_lag", "landmark_marginals_prior", "prior_marginals"),
     ("semantic_slam_tpu_torch.frontend.planes", "extract_planes", "extract_planes"),
     ("semantic_slam_tpu_torch.frontend.planes", "score_hypotheses", "score_hypotheses"),
     ("semantic_slam_tpu_torch.frontend.normals", "compute_normals", "compute_normals"),
@@ -256,16 +268,19 @@ def main(argv=None) -> None:
     ap.add_argument("--max-keyframes", type=int, default=0)
     ap.add_argument("--crop-size", type=int, default=0)
     ap.add_argument("--solver", default="", choices=["", "dense", "pcg"])
+    ap.add_argument("--fixed-lag", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     if args.device == "cuda":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=60)
         print(smi.stdout.strip() or smi.stderr.strip())
-    log = cli.make_synthetic_log(seed=0, n_steps=args.steps, sensor_every=6, loops=1, H=args.height, W=args.width)
+    log = cli.make_synthetic_log(seed=args.seed, n_steps=args.steps, sensor_every=6,
+                                 loops=max(args.steps / 240, 1.0), H=args.height, W=args.width)
     run_args = ["run", "--log", "in-process", "--profile", "yolo_detector", "--device", args.device,
                 "--max-keyframes", str(args.max_keyframes), "--crop-size", str(args.crop_size),
-                "--solver", args.solver]
+                "--solver", args.solver, "--fixed-lag", str(args.fixed_lag)]
     cfg = cli.make_config(cli.build_parser().parse_args(run_args))
     report = profile_session(log, cfg, args.device, args.out)
     _print_report(report)

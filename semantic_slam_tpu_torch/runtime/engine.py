@@ -14,9 +14,17 @@ work runs eagerly on ``device``:
     resident loop of ``solver/ellk_soa.py`` with kernels K1-K4, above it the
     row-range loop of ``solver/soa_dist.py`` with kernels K6-K10, see
     ``_soa_dispatch``), landmark marginals, table sync, and the packed
-    ``info`` vector that the host fetches once.
+    ``info`` vector that the host fetches once;
+  * ``_maybe_marginalize`` -- fixed-lag smoothing (``fixed_lag_window > 0``,
+    ``solver/fixed_lag.py``): once the active window holds window + chunk
+    keyframes, the oldest chunk is marginalized into ``self.prior`` and the
+    graph compacts; their optimized poses go to ``archived_poses`` and
+    ``_kf_base`` counts them, so ``KeyframeMeta.node_idx`` stays the
+    keyframe's number in the session. The prior goes to every optimize while
+    the window is set, even while it is still empty.
 
-Host traffic per tick: two flags per LM iteration and the ``info`` vector.
+Host traffic per tick: two flags per LM iteration and the ``info`` vector,
+and one small fetch per marginalization.
 The reference's optimize gate (at least ``min_edges`` edges) is decided on
 the host from the count mirrors; only while they are below the gate does
 the solver fetch the edge count.
@@ -45,6 +53,7 @@ from semantic_slam_tpu_torch.graph import state as gs
 from semantic_slam_tpu_torch.graph.state import set_rows
 from semantic_slam_tpu_torch.runtime.keyframe_gate import KeyframeGate
 from semantic_slam_tpu_torch.solver import ellk_soa as soa_mod
+from semantic_slam_tpu_torch.solver import fixed_lag as fl
 from semantic_slam_tpu_torch.solver import lm as lm_mod
 from semantic_slam_tpu_torch.solver import soa_dist as soa_dist_mod
 from semantic_slam_tpu_torch.utils.profiling import log_optimize
@@ -78,9 +87,8 @@ def _unported(cfg: SlamConfig) -> list[str]:
         missing.append(f"pcg_precond={s.pcg_precond!r} (block-tridiagonal PCG preconditioner)")
     if cfg.mesh.num_devices > 1:
         missing.append("mesh.num_devices > 1 (sharded solver)")
-    if s.fixed_lag_window > 0:
-        missing.append("fixed_lag_window > 0 (fixed-lag marginalization, and the prior in the resident and tiled "
-                       "PCG loops)")
+    if s.fixed_lag_window > 0 and cfg.use_plane_landmarks:
+        missing.append("fixed_lag_window with use_plane_landmarks (the plane part of the fixed-lag prior)")
     if cfg.use_plane_landmarks:
         missing.append("use_plane_landmarks (plane landmarks, and the plane half of the tiled PCG loop)")
     if s.ingest_window > 1:
@@ -178,10 +186,11 @@ def _optimize_tick(
     graph, table, marginals, last_idx: int, *, do_opt: bool, init_lambda: float,
     max_iterations: int, min_edges: int, rel_tol: float, robust_kind: str,
     robust_delta: float, need_marginals: bool, linear_solver: str, pcg_iters: int,
-    ell_rows: tuple,
+    ell_rows: tuple, prior: fl.MarginalPrior | None = None,
 ):
-    """LM optimize, marginal recovery, table sync, packed stats. Returns
-    (graph, table, marginals, info [8+7] on the device, iterations)."""
+    """LM optimize (with the fixed-lag ``prior`` folded in, if any), marginal
+    recovery, table sync, packed stats. Returns (graph, table, marginals,
+    info [8+7] on the device, iterations)."""
     zero = graph.poses.new_zeros(())
     stats = lm_mod.LMStats(0, zero, zero, zero)
     if do_opt:
@@ -191,9 +200,12 @@ def _optimize_tick(
             with_marginals=need_marginals,
         )
         if linear_solver == "pcg" and _soa_dispatch(graph.poses.shape[0]) == "tiled":
-            out = soa_dist_mod.lm_optimize_soa_tiled(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, **kw)
+            out = soa_dist_mod.lm_optimize_soa_tiled(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, prior=prior,
+                                                     **kw)
         elif linear_solver == "pcg":
-            out = soa_mod.lm_optimize_soa(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, **kw)
+            out = soa_mod.lm_optimize_soa(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, prior=prior, **kw)
+        elif prior is not None:
+            out = fl.lm_optimize_prior(graph, prior, **kw)
         else:
             out = lm_mod.lm_optimize(graph, **kw)
         if out[1].iterations > 0:  # the solve ran (enough edges)
@@ -280,6 +292,11 @@ class SlamEngine:
 
         self.keyframe_queue: list[KeyframeMeta] = []
         self.keyframes: list[KeyframeMeta] = []
+
+        # fixed-lag smoothing state (used when fixed_lag_window > 0)
+        self.prior = fl.empty_prior(l0, dtype=dt, device=dev)
+        self._kf_base = 0  # keyframes marginalized out of the graph so far
+        self.archived_poses: list[np.ndarray] = []  # their poses at drop time
 
         self._export_marg = None
         self._export_marg_tick = -1
@@ -421,7 +438,12 @@ class SlamEngine:
             linear_solver=s.linear_solver,
             pcg_iters=s.pcg_iters,
             ell_rows=self._ell_rows(),
+            prior=self._prior_arg(),
         )
+
+    def _prior_arg(self) -> fl.MarginalPrior | None:
+        """The prior for the optimize calls: None when fixed-lag is off."""
+        return self.prior if self.cfg.solver.fixed_lag_window > 0 else None
 
     def run(self) -> bool:
         if not self.keyframe_queue:
@@ -459,7 +481,7 @@ class SlamEngine:
                     self._info6,
                 )
             for b, r in enumerate(run):
-                r.node_idx = self._n_poses
+                r.node_idx = self._n_poses + self._kf_base
                 self._n_poses += 1
                 if has_prev or b > 0:
                     self._n_odom += 1
@@ -467,7 +489,7 @@ class SlamEngine:
             i += len(run)
 
         self.graph, self.table, self.marginals, info, iters = _optimize_tick(
-            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx,
+            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx - self._kf_base,
             do_opt=do_opt, init_lambda=init_lam, **self._opt_statics(),
         )
         info = info.cpu().numpy().astype(np.float64)  # the tick's device->host fetch
@@ -490,6 +512,7 @@ class SlamEngine:
         )
         self._record_stats(iters, info, solve_s)
         self.first_key_added = True
+        self._maybe_marginalize()
         return True
 
     def _absorb_info(self, info: np.ndarray, iters: int) -> None:
@@ -525,7 +548,7 @@ class SlamEngine:
             return False
         t0 = time.perf_counter()
         self.graph, self.table, self.marginals, info, iters = _optimize_tick(
-            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx,
+            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx - self._kf_base,
             do_opt=True, init_lambda=0.0, **self._opt_statics(),
         )
         info = info.cpu().numpy().astype(np.float64)
@@ -615,6 +638,31 @@ class SlamEngine:
         self._n_landmarks = 1
         self._n_lme = 1
 
+    def _maybe_marginalize(self) -> None:
+        """Fixed-lag trigger: once the active window holds window + chunk
+        keyframes, marginalize the oldest ``chunk`` into the prior and compact
+        the graph (``solver/fixed_lag.py``). The dropped keyframes' optimized
+        poses are archived first, so exported trajectories stay complete. One
+        host fetch per marginalization: the dropped poses and the new counts."""
+        W = self.cfg.solver.fixed_lag_window
+        if W <= 0:
+            return
+        C = self.cfg.solver.fixed_lag_chunk or max(8, W // 4)
+        while self._n_poses >= W + C:
+            dropped = self.graph.poses[:C]
+            self.graph, self.prior, num_b = fl.marginalize(self.graph, self.prior, C)
+            g = self.graph
+            counts = torch.stack([g.num_odom, g.num_lme, num_b]).to(torch.float64)
+            host = torch.cat([dropped.reshape(-1).to(torch.float64), counts]).cpu().numpy()
+            self.archived_poses.extend(host[: 7 * C].reshape(C, 7))
+            n_odom, n_lme, n_b = (int(x) for x in host[7 * C:])
+            if n_b > self.prior.max_poses:
+                print(f"[fixed_lag] WARNING: boundary poses {n_b} exceed prior capacity "
+                      f"{self.prior.max_poses}; information truncated")
+            self._kf_base += C
+            self._n_poses -= C
+            self._n_odom, self._n_lme = n_odom, n_lme
+
     def _ensure_capacity(self, batch: list[KeyframeMeta]) -> None:
         """Double capacities, from the host count mirrors, when the incoming
         batch could overflow them."""
@@ -634,6 +682,8 @@ class SlamEngine:
             self.marginals = torch.eye(3, dtype=self.dtype, device=self.device).repeat(
                 self.graph.max_landmarks, 1, 1
             )
+            if self.cfg.solver.fixed_lag_window > 0:
+                self.prior = fl.grow_prior(self.prior, self.graph.max_landmarks)
 
     # ------------------------------------------------------------------
     # getters mirroring the reference API (semantic_graph_slam.h:27-113)
@@ -649,13 +699,22 @@ class SlamEngine:
         return self.vio_pose.copy()
 
     def get_keyframe_poses(self) -> np.ndarray:
-        """Optimized keyframe trajectory [N,7]."""
-        return self.graph.poses[: self._n_poses].cpu().numpy().astype(np.float64)
+        """Optimized keyframe trajectory [N,7]: marginalized keyframes
+        (fixed-lag) from the archive at their last optimized estimate,
+        active ones from the graph."""
+        active = self.graph.poses[: self._n_poses].cpu().numpy().astype(np.float64)
+        if not self.archived_poses:
+            return active
+        return np.concatenate([np.asarray(self.archived_poses), active], axis=0)
 
     def get_keyframe_pose(self, kf: KeyframeMeta) -> np.ndarray | None:
+        """Optimized pose7 of one keyframe (archive-aware); None if unknown."""
         if kf.node_idx is None:
             return None
-        return self.graph.poses[kf.node_idx].cpu().numpy().astype(np.float64)
+        gi = kf.node_idx - self._kf_base
+        if gi >= 0:
+            return self.graph.poses[gi].cpu().numpy().astype(np.float64)
+        return np.asarray(self.archived_poses[kf.node_idx], np.float64)
 
     def get_mapped_landmarks(self):
         n = int(self.table.count)
@@ -677,8 +736,11 @@ class SlamEngine:
         if int(self.table.count) == 0 or self._n_lme == 0:
             return self.table.cov
         if self._export_marg_tick != self._ticks_done:
+            prior = self._prior_arg()
             if self.cfg.solver.linear_solver == "pcg":
-                self._export_marg = soa_mod.landmark_marginals_graph(self.graph, self._ell_rows())
+                self._export_marg = soa_mod.landmark_marginals_graph(self.graph, self._ell_rows(), prior)
+            elif prior is not None:
+                self._export_marg = fl.landmark_marginals_prior(self.graph, prior)
             else:
                 self._export_marg = lm_mod.landmark_marginals(self.graph)
             self._export_marg_tick = self._ticks_done

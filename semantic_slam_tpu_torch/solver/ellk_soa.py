@@ -1,5 +1,5 @@
 """Structure-of-arrays Schur-PCG LM (port of ``semantic_slam_tpu.solver.ellk_soa``
-for one device, jacobi preconditioner, no fixed-lag prior).
+for one device, jacobi preconditioner).
 
 Landmark slots live in channel tensors ``[C, R, K]`` (slot (r, k) is the r-th
 observation of pose k; r-major, so slot e = r*K + k), the odometry chain in
@@ -23,6 +23,12 @@ here and a landmark CSR (``SoAEdges.lm_slots``/``lm_start``) in the
 kernels. The CG runs ``n_steps`` fixed steps under the kernel's ``active``
 mask (an inactive step leaves x, r, p and rz unchanged), which gives the
 JAX early-exit loop's result with no host sync.
+
+A fixed-lag prior (``solver/fixed_lag.py``) folds into every linearization
+(``pcg.apply_prior_blocks``: gradient, diagonal blocks, landmark part, chi2),
+its chi2 joins the trial objective outside K3, and its dense boundary block
+``Hp`` is applied inside the matvec: in K4's kernel on the card, in
+``_soa_matvec_inner`` here.
 """
 
 from __future__ import annotations
@@ -34,11 +40,13 @@ import torch
 from semantic_slam_tpu_torch.core import geometry as geo
 from semantic_slam_tpu_torch.graph.state import GraphState
 from semantic_slam_tpu_torch.solver import chain_soa as chs
+from semantic_slam_tpu_torch.solver import fixed_lag as fl
 from semantic_slam_tpu_torch.solver.lm import LMStats, _free_masks, inv33, inv66
 from semantic_slam_tpu_torch.solver.pcg import (
     EllBlocks,
     EllEdges,
     _edge_args,
+    apply_prior_blocks,
     build_ell_edges,
     build_slots,
     landmark_marginals_mf_ellk,
@@ -318,13 +326,27 @@ def soa_mv_bwd(v: Tensor, Ow: Tensor, Rt: Tensor, ll: Tensor, Oa: Tensor, z: Ten
     return u, _m66T_vec(Hij, x) + _m66_vec(Hjj, xj)
 
 
-def _soa_matvec_inner(lin: SoALin, ll: Tensor, Ainv: Tensor, lam, pf_soa: Tensor, x: Tensor) -> Tensor:
-    """The damped reduced operator (Hpp - W A^-1 W^T + lam I) x on [6, K]."""
+def prior_matvec(u: Tensor, x: Tensor, prior_Hp: Tensor, prior_idx: Tensor) -> Tensor:
+    """u [6, K] plus the dense boundary prior's product: the rows ``prior_idx``
+    gain ``Hp x[:, prior_idx]`` for the masked x [6, K]. Padded slots repeat
+    index 0 with all-zero rows, so repeated indices add."""
+    idx = prior_idx.long()
+    add = (prior_Hp.to(x.dtype) @ x[:, idx].T.reshape(-1)).reshape(-1, 6)
+    return u.index_add(1, idx, add.T)
+
+
+def _soa_matvec_inner(lin: SoALin, ll: Tensor, Ainv: Tensor, lam, pf_soa: Tensor, x: Tensor,
+                      prior_Hp: Tensor | None = None, prior_idx: Tensor | None = None) -> Tensor:
+    """The damped reduced operator (Hpp - W A^-1 W^T [+ the prior's Hp] +
+    lam I) x on [6, K]."""
     x = x * pf_soa
     Oa, t = soa_mv_fwd(lin.v, lin.Ow, lin.Rt, ll, x, Ainv.shape[0])
     z = torch.einsum("lij,lj->li", Ainv, t)
     u, vj = soa_mv_bwd(lin.v, lin.Ow, lin.Rt, ll, Oa, z, x, _roll_up_soa(x), lin.Hii, lin.Hij, lin.Hjj)
-    return (u + _shift_down_soa(vj) + lam * x) * pf_soa
+    u = u + _shift_down_soa(vj)
+    if prior_Hp is not None:
+        u = prior_matvec(u, x, prior_Hp, prior_idx)
+    return (u + lam * x) * pf_soa
 
 
 def _masked_eye(M: Tensor, lam, free: Tensor, n: int) -> Tensor:
@@ -334,10 +356,14 @@ def _masked_eye(M: Tensor, lam, free: Tensor, n: int) -> Tensor:
 
 
 def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free: Tensor,
-                   max_cg_iters: int, cg_tol: float = 1e-8) -> tuple[Tensor, Tensor]:
+                   max_cg_iters: int, cg_tol: float = 1e-8, prior_Hp: Tensor | None = None,
+                   prior_idx: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """Plain version of the K4 kernel: damped Schur-reduced PCG (jacobi)
     over ``max_cg_iters`` fixed steps, then the landmark back-substitution.
-    Returns (dp [K,6], db [L,3])."""
+    With a fixed-lag prior (``prior_Hp [6PB,6PB]``, ``prior_idx [PB]``) the
+    matvec adds the dense boundary block; ``lin`` already carries the
+    prior's gradient, diagonal and landmark part. Returns (dp [K,6],
+    db [L,3])."""
     dtype = lin.gp.dtype
     pf = pose_free.to(dtype)
     pf_soa = pf[None, :]
@@ -363,7 +389,7 @@ def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free
     zero = torch.zeros((), dtype=dtype, device=b.device)
     for _ in range(max_cg_iters):
         active = torch.sum(r * r) > cg_tol * b2
-        Ap = _soa_matvec_inner(lin, se.ll, Ainv, lam, pf_soa, p)
+        Ap = _soa_matvec_inner(lin, se.ll, Ainv, lam, pf_soa, p, prior_Hp, prior_idx)
         alpha = torch.where(active, rz / torch.clamp(torch.sum(p * Ap), min=1e-30), zero)
         x = x + alpha * p
         r = r - alpha * Ap
@@ -387,7 +413,8 @@ def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free
 
 class SoAOps(NamedTuple):
     """The three steps of an LM iteration: (linearize, solve, chi2), with the
-    signatures of ``soa_linearize``, ``soa_schur_step`` and ``soa_chi2``."""
+    signatures of ``soa_linearize``, ``soa_schur_step`` and ``soa_chi2``
+    (K3's objective has no prior term: the loop adds it)."""
 
     linearize: Callable
     solve: Callable
@@ -409,7 +436,7 @@ def run_lm_loop_soa(
     poses: Tensor, landmarks: Tensor, se: SoAEdges, pose_free: Tensor, lm_free: Tensor,
     max_iterations: int, rel_tol: float, max_cg_iters: int = 128, init_lambda_tau: float = 1e-5,
     robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0, cg_tol: float = 1e-8,
-    ops: SoAOps | None = None,
+    ops: SoAOps | None = None, prior: fl.MarginalPrior | None = None,
 ):
     """The Nielsen LM on the SoA layout. Each iteration linearizes at the
     accepted state (K1+K2), solves (K4) and evaluates the trial point (K3);
@@ -418,13 +445,21 @@ def run_lm_loop_soa(
     times, K3 and K4 iterations times. The one host fetch per iteration is
     the (accepted, done) pair. ``ops`` defaults to the kernels' wrappers;
     ``PLAIN_OPS`` runs the plain versions on any device (the yardstick the
-    kernels are held against on the card).
+    kernels are held against on the card). A fixed-lag ``prior`` folds into
+    every linearization, joins each trial objective and goes to K4 as
+    ``(Hp, p_idx)``; K1-K4 launch as often as without it.
 
     Returns (poses, landmarks, LMStats, final linearization)."""
     ops = ops or kernel_ops()
+    prior_args = () if prior is None else (prior.Hp, prior.p_idx)
 
     def build(p, l):
-        return ops.linearize(p, l, se, robust_kind, robust_delta)
+        lin = ops.linearize(p, l, se, robust_kind, robust_delta)
+        return lin if prior is None else apply_prior_blocks(lin, prior, p, l)
+
+    def chi2_at(p, l):
+        chi = ops.chi2(p, l, se, robust_kind, robust_delta)
+        return chi if prior is None else chi + fl.prior_chi2(prior, p, l).to(chi.dtype)
 
     dtype = poses.dtype
     lin0 = build(poses, landmarks)
@@ -440,10 +475,10 @@ def run_lm_loop_soa(
     p, l, chi2_cur, nu, it = poses, landmarks, chi2_0, 2.0, 0
     while it < max_iterations:
         lin = build(p, l)
-        dp, dl = ops.solve(lin, se, lam, pose_free, lm_free, max_cg_iters, cg_tol)
+        dp, dl = ops.solve(lin, se, lam, pose_free, lm_free, max_cg_iters, cg_tol, *prior_args)
         p_new = geo.pose_retract(p, dp.to(dtype))
         l_new = l + dl.to(dtype)
-        chi2_new = ops.chi2(p_new, l_new, se, robust_kind, robust_delta)
+        chi2_new = chi2_at(p_new, l_new)
 
         delta = torch.cat([dp.reshape(-1), dl.reshape(-1)])
         gvec = torch.cat([lin.gp.T.reshape(-1), lin.gl.reshape(-1)])
@@ -484,8 +519,10 @@ def lm_optimize_soa(
     g: GraphState, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
     max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
     with_marginals: bool = False, ell_rows: tuple = (1, 1, 8), cg_tol: float = 1e-8,
+    prior: fl.MarginalPrior | None = None,
 ):
-    """Single-device matrix-free LM (drop-in for ``lm.lm_optimize``).
+    """Single-device matrix-free LM (drop-in for ``lm.lm_optimize``), with an
+    optional fixed-lag ``prior``.
 
     Below ``min_edges`` edges the graph comes back unchanged with
     ``iterations == 0`` (the count is fetched unless ``min_edges`` is 0, as
@@ -495,24 +532,29 @@ def lm_optimize_soa(
     se = build_soa_edges(_edge_args(g), g.poses.shape[0], ell_rows[2], g.landmarks.shape[0])
     if min_edges > 0 and int(g.num_edges()) < min_edges:  # fetches the count
         chi2 = kernel_ops().chi2(g.poses, g.landmarks, se, robust_kind, robust_delta)
+        if prior is not None:
+            chi2 = chi2 + fl.prior_chi2(prior, g.poses, g.landmarks).to(chi2.dtype)
         stats = LMStats(0, chi2, chi2, torch.zeros_like(chi2))
         return (g, stats, None) if with_marginals else (g, stats)
 
     poses, landmarks, stats, lin_f = run_lm_loop_soa(
         g.poses, g.landmarks, se, pose_free, lm_free, max_iterations, rel_tol, max_cg_iters,
-        robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, cg_tol=cg_tol,
+        robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, cg_tol=cg_tol, prior=prior,
     )
     g = g.replace(poses=poses, landmarks=landmarks)
     if with_marginals:
-        return g, stats, landmark_marginals_mf_ellk(soa_to_ell_blocks(lin_f, se), pose_free, lm_free)
+        return g, stats, landmark_marginals_mf_ellk(soa_to_ell_blocks(lin_f, se), pose_free, lm_free, prior)
     return g, stats
 
 
-def landmark_marginals_graph(g: GraphState, ell_rows: tuple) -> Tensor:
+def landmark_marginals_graph(g: GraphState, ell_rows: tuple, prior: fl.MarginalPrior | None = None) -> Tensor:
     """Matrix-free marginals at the current estimate (one fresh
-    linearization, through the K1+K2 wrapper): on-demand export of
-    covariances on profiles whose ticks skip the recovery."""
+    linearization, through the K1+K2 wrapper, with the prior folded in):
+    on-demand export of covariances on profiles whose ticks skip the
+    recovery."""
     pose_free, lm_free = _free_masks(g)
     se = build_soa_edges(_edge_args(g), g.poses.shape[0], ell_rows[2], g.landmarks.shape[0])
     lin = kernel_ops().linearize(g.poses, g.landmarks, se, "none", 1.0)
-    return landmark_marginals_mf_ellk(soa_to_ell_blocks(lin, se), pose_free, lm_free)
+    if prior is not None:
+        lin = apply_prior_blocks(lin, prior, g.poses, g.landmarks)
+    return landmark_marginals_mf_ellk(soa_to_ell_blocks(lin, se), pose_free, lm_free, prior)

@@ -5,7 +5,8 @@
   * ``obs_linearize``      -- K1, ``csrc/soa_linearize.cu``; ``resident_linearize``
     runs K2 then K1
   * ``resident_chi2``      -- K3, ``csrc/soa_chi2.cu``
-  * ``resident_solve``     -- K4, ``csrc/soa_solve.cu``
+  * ``resident_solve``     -- K4, ``csrc/soa_solve.cu``, with the fixed-lag
+    prior's dense boundary block when one is given
 
 On CPU tensors each wrapper runs its plain version (``solver/ellk_soa.py``
 ``soa_chain_linearize``, ``soa_obs_linearize``, ``soa_chi2``,
@@ -14,7 +15,8 @@ launches its kernel on the current stream or raises; there is no other
 switch between the two. The kernels work in f32, as the TPU kernels do:
 inputs are cast to f32 and outputs back to the caller's dtype. No wrapper
 synchronizes with the host: scalars that live on the device (lambda, chi2)
-stay there. Each wrapper counts its kernel launches in ``.launches``.
+stay there. Each wrapper counts its kernel launches in ``.launches``;
+``resident_solve.prior_launches`` counts K4's launches with a prior.
 """
 
 from __future__ import annotations
@@ -192,19 +194,38 @@ def resident_chi2(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: s
     return chi.to(poses.dtype)
 
 
+def _check_prior(what: str, prior_Hp: Tensor | None, prior_idx: Tensor | None) -> int:
+    """PB of a fixed-lag prior (``prior_Hp [6PB,6PB]``, ``prior_idx [PB]``),
+    0 without one."""
+    if (prior_Hp is None) != (prior_idx is None):
+        raise ValueError(f"{what}: prior_Hp and prior_idx go together")
+    if prior_Hp is None:
+        return 0
+    PB = prior_idx.shape[0] if prior_idx.dim() == 1 else -1
+    _check_shape(what, "prior_idx", prior_idx, (PB,))
+    _check_shape(what, "prior_Hp", prior_Hp, (6 * PB, 6 * PB))
+    if PB < 1:
+        raise ValueError(f"{what}: a prior needs at least one boundary slot")
+    return PB
+
+
 def resident_solve(lin: SoALin, se: SoAEdges, lam: Tensor, pose_free: Tensor, lm_free: Tensor, n_steps: int,
-                   cg_tol: float = 1e-8, prior=None) -> tuple[Tensor, Tensor]:
+                   cg_tol: float = 1e-8, prior_Hp: Tensor | None = None,
+                   prior_idx: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """K4: the damped Schur-reduced PCG step (``n_steps`` steps under the
     ``active`` mask against ``cg_tol``) and the landmark back-substitution.
-    ``lam`` is a 0-d tensor. Returns (dp [K,6], db [L,3])."""
-    if prior is not None:
-        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: resident_solve with a fixed-lag prior")
+    ``lam`` is a 0-d tensor. With a fixed-lag prior (``prior_Hp
+    [6PB,6PB]``, ``prior_idx [PB]``; ``lin`` already carries its gradient,
+    diagonal and landmark part) the matvec adds the dense boundary block on
+    every CG step. Returns (dp [K,6], db [L,3])."""
+    PB = _check_prior("resident_solve", prior_Hp, prior_idx)
     if lin.gp.device.type == "cpu":
-        return soa.soa_schur_step(lin, se, lam, pose_free, lm_free, n_steps, cg_tol)
+        return soa.soa_schur_step(lin, se, lam, pose_free, lm_free, n_steps, cg_tol, prior_Hp, prior_idx)
     what = "resident_solve"
     dev = lin.gp.device
     lam = torch.as_tensor(lam, device=dev)
-    _check_device(what, dev, lam=lam, pose_free=pose_free, lm_free=lm_free,
+    prior = {} if PB == 0 else {"prior_Hp": prior_Hp, "prior_idx": prior_idx}
+    _check_device(what, dev, lam=lam, pose_free=pose_free, lm_free=lm_free, **prior,
                   **{f"lin.{k}": v for k, v in lin._asdict().items()},
                   **{f"se.{k}": v for k, v in se._asdict().items()})
     K, L = lin.gp.shape[1], lin.gl.shape[0]
@@ -226,16 +247,23 @@ def resident_solve(lin: SoALin, se: SoAEdges, lam: Tensor, pose_free: Tensor, lm
     f32 = dict(dtype=torch.float32, device=dev)
     ins = [_f32(getattr(lin, n)) for n in ("v", "Ow", "Rt", "Hii", "Hij", "Hjj", "diag", "gp", "gl", "Hll")]
     lmf, pf, lam32 = _f32(lm_free), _f32(pose_free), _f32(lam)
+    if PB:
+        Hp, pidx = _f32(prior_Hp), _i32(prior_idx)
+    else:  # never read: PB = 0 skips the prior branch
+        Hp, pidx = torch.zeros((1,), **f32), torch.zeros((1,), dtype=torch.int32, device=dev)
     dp, db = torch.empty((6, K), **f32), torch.empty((L, 3), **f32)
-    scratch = torch.empty((lib.soa_solve_scratch(K, R, L, MAX_SOLVE_BLOCKS),), **f32)
+    scratch = torch.empty((lib.soa_solve_scratch(K, R, L, PB, MAX_SOLVE_BLOCKS),), **f32)
     with torch.cuda.device(dev):
         code = lib.soa_solve_launch(
             *(t.data_ptr() for t in ins), lmf.data_ptr(), pf.data_ptr(), se.ll_rk.data_ptr(),
-            se.lm_slots.data_ptr(), se.lm_start.data_ptr(), lam32.data_ptr(), float(cg_tol), int(n_steps),
-            K, R, L, dp.data_ptr(), db.data_ptr(), scratch.data_ptr(), MAX_SOLVE_BLOCKS, _stream(dev),
+            se.lm_slots.data_ptr(), se.lm_start.data_ptr(), lam32.data_ptr(), Hp.data_ptr(), pidx.data_ptr(), PB,
+            float(cg_tol), int(n_steps), K, R, L, dp.data_ptr(), db.data_ptr(), scratch.data_ptr(),
+            MAX_SOLVE_BLOCKS, _stream(dev),
         )
     _build.check(code, "soa_solve kernel launch", "soa_solve")
     resident_solve.launches += 1
+    if PB:
+        resident_solve.prior_launches += 1
     dt = lin.gp.dtype
     return dp.T.to(dt), db.to(dt)
 
@@ -244,3 +272,4 @@ chain_linearize.launches = 0  # kernel launches (CUDA path only)
 obs_linearize.launches = 0
 resident_chi2.launches = 0
 resident_solve.launches = 0
+resident_solve.prior_launches = 0  # of those, launches with a fixed-lag prior

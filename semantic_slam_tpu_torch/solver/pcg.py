@@ -15,7 +15,9 @@ block of a chain graph is exactly block tridiagonal, so parallel cyclic
 reduction (``solver/tridiag.py``) applies its inverse, and only the
 landmark-reduced information ``S = Hll - W^T Hpp^-1 W`` ([3L, 3L], bounded by
 the landmark table) is factored densely. Nothing dense grows with the
-trajectory. The fixed-lag prior and the sharded forms are not ported.
+trajectory. A fixed-lag prior's off-diagonal boundary coupling joins by a
+Woodbury fold (``prior_woodbury``). The sharded forms are not
+ported.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from semantic_slam_tpu_torch.graph.state import GraphState
+from semantic_slam_tpu_torch.solver import fixed_lag as fl
 from semantic_slam_tpu_torch.solver import tridiag as td
 from semantic_slam_tpu_torch.solver.lm import _cholesky_or_nan
 
@@ -111,9 +114,35 @@ def _ell_chain_upper(eb: EllBlocks, pose_free: Tensor) -> Tensor:
     return eb.H_ij * (pf * pf_next)[:, None, None]
 
 
-def landmark_marginals_mf_ellk(eb: EllBlocks, pose_free: Tensor, block_free: Tensor) -> Tensor:
+def apply_prior_blocks(blocks, prior: fl.MarginalPrior, poses: Tensor, landmarks: Tensor):
+    """Fold a fixed-lag prior into a linearization in channel form: any
+    NamedTuple with ``gp [6,K]``, ``diag [6,6,K]``, ``gl [L,3]``,
+    ``Hll [L,3,3]`` and ``chi2`` (``ellk_soa.SoALin``, the row-range loop's
+    reduced state). The gradient, the diagonal blocks and the landmark part
+    only: the dense boundary block ``Hp`` is applied by the matvec. Every
+    addition lands on replicated (post-reduction) fields. This is the JAX
+    package's ``pcg.apply_prior_blocks`` and ``ellk_soa.apply_prior_soa_k``
+    in one: the port's SoA linearization has only the channel layout."""
+    dtype = blocks.gp.dtype
+    PB = prior.max_poses
+    idx = prior.p_idx.long()
+    gp_add, gl_add, chi_pr = fl.prior_fold_terms(prior, poses, landmarks, dtype)
+    return blocks._replace(
+        gp=blocks.gp.index_add(1, idx, gp_add.reshape(PB, 6).T.to(dtype)),
+        diag=blocks.diag.index_add(2, idx, fl.prior_pose_diag(prior).permute(1, 2, 0).to(dtype)),
+        gl=blocks.gl + gl_add.to(dtype),
+        Hll=blocks.Hll + prior.Hl.to(dtype),
+        chi2=blocks.chi2 + chi_pr.to(blocks.chi2.dtype),
+    )
+
+
+def landmark_marginals_mf_ellk(eb: EllBlocks, pose_free: Tensor, block_free: Tensor,
+                               prior: fl.MarginalPrior | None = None) -> Tensor:
     """Matrix-free landmark marginal 3x3 blocks [L,3,3] from per-pose-layout
-    blocks (inactive landmarks get identity)."""
+    blocks (inactive landmarks get identity). With a fixed-lag ``prior``,
+    ``eb`` already holds its diagonal blocks and landmark part
+    (``apply_prior_blocks``), and its off-diagonal boundary coupling is
+    folded here."""
     K, R = eb.ll.shape
     B = eb.Hll.shape[0]
     dtype = eb.diag.dtype
@@ -129,27 +158,57 @@ def landmark_marginals_mf_ellk(eb: EllBlocks, pose_free: Tensor, block_free: Ten
     Ukl = torch.zeros((K * B, 6, 3), dtype=dtype, device=pf.device)
     Ukl.index_add_(0, kl, W_m.reshape(K * R, 6, 3))
     U = Ukl.view(K, B, 6, 3).permute(0, 2, 1, 3).reshape(K, 6, 3 * B)
-    return _sigma_from_chain_parts(fac, U, eb.Hll, pose_free, block_free, dtype)
+    return _sigma_from_chain_parts(fac, U, eb.Hll, pose_free, block_free, dtype, prior)
 
 
-def _sigma_from_chain_parts(fac, U: Tensor, Hll: Tensor, pose_free: Tensor, block_free: Tensor, dtype) -> Tensor:
+def _sigma_from_chain_parts(fac, U: Tensor, Hll: Tensor, pose_free: Tensor, block_free: Tensor, dtype,
+                            prior: fl.MarginalPrior | None = None) -> Tensor:
     """Invert the landmark-reduced information S = Hll - W^T Hpp^-1 W, given
     the factored pose-chain tridiagonal and the W columns U [K,6,3B], and
     return its diagonal 3x3 blocks."""
     B = Hll.shape[0]
+    pf = pose_free.to(dtype)
     lmf = block_free.to(dtype)
-    eye3 = torch.eye(3, dtype=dtype, device=U.device)
+    dev = U.device
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
     X = td.pcr_solve_cols(fac, U)  # T^-1 W
+    if prior is not None:
+        X = prior_woodbury(fac, X, prior, pf)
+
     UtX = torch.einsum("kac,kad->cd", U, X)
     A = Hll * lmf[:, None, None] + eye3[None] * (1.0 - lmf)[:, None, None]
-    bidx = torch.arange(B, device=U.device)
+    bidx3 = torch.arange(B, device=dev)
     S = (-UtX).reshape(B, 3, B, 3)
-    S[bidx, :, bidx, :] += A
+    S[bidx3, :, bidx3, :] += A
     S = S * (lmf[:, None] * lmf[None, :])[:, None, :, None]
-    S[bidx, :, bidx, :] += eye3[None] * (1.0 - lmf)[:, None, None]
+    S[bidx3, :, bidx3, :] += eye3[None] * (1.0 - lmf)[:, None, None]
     S = S.reshape(3 * B, 3 * B)
-    S = 0.5 * (S + S.T) + 1e-8 * torch.eye(3 * B, dtype=dtype, device=U.device)
+    S = 0.5 * (S + S.T) + 1e-8 * torch.eye(3 * B, dtype=dtype, device=dev)
     Sigma = torch.cholesky_inverse(_cholesky_or_nan(S))
-    sigma = Sigma.reshape(B, 3, B, 3)[bidx, :, bidx, :]
+    sigma = Sigma.reshape(B, 3, B, 3)[bidx3, :, bidx3, :]
     sigma = 0.5 * (sigma + sigma.transpose(-1, -2))
     return sigma * lmf[:, None, None] + eye3[None] * (1.0 - lmf)[:, None, None]
+
+
+def prior_woodbury(fac, X: Tensor, prior: fl.MarginalPrior, pf: Tensor) -> Tensor:
+    """Hpp^-1 W from T^-1 W (``X`` [K,6,3B], T the factored chain
+    tridiagonal) when Hpp also holds the prior's off-diagonal boundary
+    coupling: Hpp = T + Sel (Hp - blockdiag Hp) Sel^T, Sel selecting the
+    p_idx rows (the block diagonal is already inside T). Boundary poses
+    outside the mask ``pf`` drop out."""
+    K, B3 = X.shape[0], X.shape[2]
+    dtype, dev = X.dtype, X.device
+    PB = prior.max_poses
+    idx = prior.p_idx.long()
+    bidx = torch.arange(PB, device=dev)
+    Hp = prior.Hp.to(dtype)
+    bd = Hp.reshape(PB, 6, PB, 6)[bidx, :, bidx, :]  # [PB, 6, 6]
+    bd_embed = (bd[:, :, None, :] * torch.eye(PB, dtype=dtype, device=dev)[:, None, :, None]).reshape(6 * PB, 6 * PB)
+    Delta = Hp - bd_embed
+    E = torch.zeros((K, 6, PB, 6), dtype=dtype, device=dev)
+    E[idx, :, bidx, :] = torch.eye(6, dtype=dtype, device=dev)[None] * pf[idx][:, None, None]
+    TiS = td.pcr_solve_cols(fac, E.reshape(K, 6, 6 * PB))  # T^-1 Sel
+    M = TiS[idx].reshape(6 * PB, 6 * PB)  # Sel^T T^-1 Sel
+    SX = X[idx].reshape(6 * PB, B3)  # Sel^T X
+    G = torch.linalg.solve(torch.eye(6 * PB, dtype=dtype, device=dev) + Delta @ M, Delta @ SX)
+    return X - torch.einsum("kac,cd->kad", TiS, G)

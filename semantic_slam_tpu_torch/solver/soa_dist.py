@@ -1,6 +1,5 @@
 """Large-K SoA LM loop over a row range of poses (port of the single-device
-subset of ``semantic_slam_tpu.solver.soa_dist``: no planes, no fixed-lag
-prior, no mesh).
+subset of ``semantic_slam_tpu.solver.soa_dist``: no planes, no mesh).
 
 The loop is the JAX package's distributed one with identity reductions:
 poses, landmarks and the CG vectors are replicated ``[*, K]``/``[L, *]``,
@@ -34,6 +33,13 @@ early-exit loop's result with no host fetch; the LM fetches its
 kernels (z = A^-1 T, the shift, the preconditioner, the dots and updates)
 is plain PyTorch, as the JAX package leaves it to XLA.
 
+A fixed-lag prior stays outside the kernels, as in the JAX loop: it is folded
+once into the replicated post-reduction state of each linearization
+(``pcg.apply_prior_blocks``), its chi2 joins each trial objective after the
+reduction, and its dense boundary block joins the matvec after K9's
+reduction and the shift. That order is what a multi-device loop needs: every
+device adds the same terms to the same replicated arrays.
+
 Reference: graph_slam.cpp:182-219 (the lm_var loop).
 """
 
@@ -47,11 +53,20 @@ from semantic_slam_tpu_torch.core import geometry as geo
 from semantic_slam_tpu_torch.graph.state import GraphState
 from semantic_slam_tpu_torch.solver import chain_soa as chs
 from semantic_slam_tpu_torch.solver import ellk_soa as soa
-from semantic_slam_tpu_torch.solver.ellk_soa import ChainLin, SoAEdges, _m66_vec, _masked_eye, _shift_down_soa
+from semantic_slam_tpu_torch.solver import fixed_lag as fl
+from semantic_slam_tpu_torch.solver.ellk_soa import (
+    ChainLin,
+    SoAEdges,
+    _m66_vec,
+    _masked_eye,
+    _shift_down_soa,
+    prior_matvec,
+)
 from semantic_slam_tpu_torch.solver.lm import LMStats, _free_masks, inv33, inv66
 from semantic_slam_tpu_torch.solver.pcg import (
     EllEdges,
     _edge_args,
+    apply_prior_blocks,
     build_ell_edges,
     build_slots,
     landmark_marginals_mf_ellk,
@@ -222,10 +237,8 @@ def run_lm_loop_soa_dist(
     Per LM iteration: one linearization (K7+K6; the first iteration reuses
     the damping seed's, built at the same state), the right-hand side (K9),
     ``max_cg_iters`` CG steps (K8 and K9 each), the back-substitution (K8)
-    and the trial objective (K10). Returns (poses, landmarks, LMStats)."""
-    if prior is not None:
-        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: the fixed-lag prior of the tiled "
-                                  "PCG loop (soa_dist.run_lm_loop_soa_dist with prior)")
+    and the trial objective (K10); a fixed-lag ``prior`` adds no launch.
+    Returns (poses, landmarks, LMStats)."""
     if pe is not None or planes is not None or plane_free is not None:
         raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: the plane half of the tiled PCG "
                                   "loop (soa_dist.run_lm_loop_soa_dist with planes)")
@@ -247,11 +260,13 @@ def run_lm_loop_soa_dist(
             _dus(lin.gp, off, Kg), _dus(lin.gj, off, Kg), _dus(lin.diag, off, Kg), _dus(lin.Hjj, off, Kg),
             lin.gl, lin.Hll, lin.chi2,
         ))
-        return _LinG(lin, gp_e + _shift_down_soa(gj_e), dg_e + _shift_down_soa(hj_e), gl, Hll, chi)
+        lg = _LinG(lin, gp_e + _shift_down_soa(gj_e), dg_e + _shift_down_soa(hj_e), gl, Hll, chi)
+        return lg if prior is None else apply_prior_blocks(lg, prior, p, l)
 
     def chi2_at(p, l):
         pc, pj = pose_channels(p)
-        return allreduce(ops.chi2(pc, pj, l, de, robust_kind, robust_delta))
+        chi = allreduce(ops.chi2(pc, pj, l, de, robust_kind, robust_delta))
+        return chi if prior is None else chi + fl.prior_chi2(prior, p, l).to(chi.dtype)
 
     def solve(lg: _LinG, lam):
         lin, gp, diag, gl, Hll, _ = lg
@@ -266,7 +281,10 @@ def run_lm_loop_soa_dist(
             z = torch.einsum("lij,lj->li", Ainv, allreduce(T_loc))
             u_loc, vj_loc = ops.mv_bwd(lin, de, Oa, z, xm_loc, xj_loc)
             u_e, vj_e = allreduce((_dus(u_loc, off, Kg), _dus(vj_loc, off, Kg)))
-            return (u_e + _shift_down_soa(vj_e) + lam * xm) * pf
+            u = u_e + _shift_down_soa(vj_e)
+            if prior is not None:
+                u = prior_matvec(u, xm, prior.Hp, prior.p_idx)
+            return (u + lam * xm) * pf
 
         def precond(r):
             return _m66_vec(Minv, r) * pf
@@ -353,10 +371,8 @@ def lm_optimize_soa_tiled(
     Below ``min_edges`` edges the graph comes back unchanged with
     ``iterations == 0`` (the count is fetched unless ``min_edges`` is 0).
     ``with_marginals=True`` also returns the landmark marginals, recovered
-    matrix-free from a fresh linearization at the final state (K2 + K1)."""
-    if prior is not None:
-        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: the fixed-lag prior of the tiled "
-                                  "PCG loop (soa_dist.lm_optimize_soa_tiled with prior)")
+    matrix-free from a fresh linearization at the final state (K2 + K1) with
+    the fixed-lag ``prior``, if any, folded in."""
     ops = ops or kernel_ops()
     K, L = g.poses.shape[0], g.landmarks.shape[0]
     pose_free, lm_free = _free_masks(g)
@@ -364,17 +380,22 @@ def lm_optimize_soa_tiled(
     if min_edges > 0 and int(g.num_edges()) < min_edges:  # fetches the count
         pc = g.poses.T
         chi2 = ops.chi2(pc, chs.roll_up_pose_ch(pc), g.landmarks, de, robust_kind, robust_delta)
+        if prior is not None:
+            chi2 = chi2 + fl.prior_chi2(prior, g.poses, g.landmarks).to(chi2.dtype)
         stats = LMStats(0, chi2, chi2, torch.zeros_like(chi2))
         return (g, stats, None) if with_marginals else (g, stats)
 
     poses, landmarks, stats = run_lm_loop_soa_dist(
         g.poses, g.landmarks, pose_free, lm_free, de, max_iterations, rel_tol, max_cg_iters,
-        robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, cg_tol=cg_tol, ops=ops,
+        robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, prior=prior, cg_tol=cg_tol,
+        ops=ops,
     )
     g = g.replace(poses=poses, landmarks=landmarks)
     if with_marginals:
         # over all K rows the range's edge store is the whole graph's
         lin_ops = soa.PLAIN_OPS if ops is PLAIN_OPS else soa.kernel_ops()
         lin = lin_ops.linearize(g.poses, g.landmarks, de, robust_kind, robust_delta)
-        return g, stats, landmark_marginals_mf_ellk(soa.soa_to_ell_blocks(lin, de), pose_free, lm_free)
+        if prior is not None:
+            lin = apply_prior_blocks(lin, prior, g.poses, g.landmarks)
+        return g, stats, landmark_marginals_mf_ellk(soa.soa_to_ell_blocks(lin, de), pose_free, lm_free, prior)
     return g, stats

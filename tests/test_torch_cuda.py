@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions (K5,
 the RANSAC scoring kernel; K1-K4, the resident SoA Schur-PCG solver's
-kernels; K6-K10, the row-range solver's), and small sessions on the card
-(dense, ``--solver pcg`` and ``--solver pcg`` on the row-range loop) against
-the same sessions on the CPU.
+kernels, K4 also with a fixed-lag prior; K6-K10, the row-range solver's),
+and small sessions on the card (dense, ``--solver pcg`` and ``--solver pcg``
+on the row-range loop; dense and pcg with fixed-lag smoothing) against the
+same sessions on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, carries the ``cuda`` marker
 and skips without a GPU. The file imports no JAX, because the machine with
@@ -153,6 +154,49 @@ def test_soa_solve_matches_plain(cuda, cg_tol, lam):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", ["marginalized", "moved"])
+def test_soa_solve_with_prior_matches_plain(cuda, which):
+    """K4 with a fixed-lag prior against its plain version on the card (5e-2
+    relative norm): the prior of ``fixed_lag.marginalize`` (drop 16), whose
+    boundary block sits on the gauge-fixed pose 0, and the same prior with a
+    dense block moved onto three free poses (``torch_cases.moved_prior``),
+    which the kernel's prior branch must apply: at those poses the error
+    must also be within 1e-3 of the block's own effect on the step. One
+    launch, counted with the prior too."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import fixed_lag as fl
+    from semantic_slam_tpu_torch.solver import kernels as sk
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args, apply_prior_blocks
+    from torch_cases import moved_prior, row_err
+
+    g, se, _ = soa_case(cuda)
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    g, prior, _ = fl.marginalize(g, fl.empty_prior(L, device=cuda), 16)
+    if which == "moved":
+        prior = moved_prior(prior, g.poses, int(g.num_poses))
+    se = soa.build_soa_edges(_edge_args(g), K, se.ll_rk.shape[0], L)
+    pf, lf = _free_masks(g)
+    lin = apply_prior_blocks(soa.soa_linearize(g.poses, g.landmarks, se), prior, g.poses, g.landmarks)
+    lam = torch.tensor(1e-2, device=cuda)
+    before = sk.resident_solve.launches, sk.resident_solve.prior_launches
+    dk, bk = sk.resident_solve(lin, se, lam, pf, lf, 128, 1e-8, prior.Hp, prior.p_idx)
+    dp, bp = soa.soa_schur_step(lin, se, lam, pf, lf, 128, 1e-8, prior.Hp, prior.p_idx)
+    torch.cuda.synchronize()
+    assert (sk.resident_solve.launches, sk.resident_solve.prior_launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((dk, dp), (bk, bp)):
+        assert bool(torch.isfinite(got).all())
+        assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 5e-2
+    d0, _ = soa.soa_schur_step(lin, se, lam, pf, lf, 128, 1e-8)
+    err, effect = row_err(dk, dp, d0, prior.p_idx, int(prior.num_p))
+    if which == "moved":
+        assert effect > 0.1 * float(torch.linalg.norm(dp[prior.p_idx[:3].long()].double()))
+        assert err <= 1e-3 * effect, (err, effect)
+    else:  # the marginalized block meets only the gauge-fixed pose 0
+        assert set(prior.p_idx.tolist()) == {0} and err == effect == 0.0
+
+
+@pytest.mark.cuda
 def test_soa_wrappers_reject_bad_inputs(cuda):
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
     from semantic_slam_tpu_torch.solver import kernels as sk
@@ -169,6 +213,15 @@ def test_soa_wrappers_reject_bad_inputs(cuda):
     lin = soa.soa_linearize(g.poses, g.landmarks, se)
     with pytest.raises(ValueError, match="shape"):
         sk.resident_solve(lin, se, torch.tensor(1.0, device=cuda), pf[:-1], lf, 8)
+    Hp, idx = torch.eye(48, device=cuda), torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        sk.resident_solve(lin, se, torch.tensor(1.0, device=cuda), pf, lf, 8, 1e-8, Hp.cpu(), idx)
+    with pytest.raises(ValueError, match="shape"):
+        sk.resident_solve(lin, se, torch.tensor(1.0, device=cuda), pf, lf, 8, 1e-8, Hp, idx[:-1])
+    # the launch refuses a prior wider than its block's threads (6 PB > 256)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk.resident_solve(lin, se, torch.tensor(1.0, device=cuda), pf, lf, 8, 1e-8, torch.eye(6 * 43, device=cuda),
+                          torch.zeros(43, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.cuda
@@ -225,16 +278,17 @@ def test_tiled_wrappers_reject_bad_inputs(cuda):
         tk.tiled_mv_fwd(lin._replace(Rt=lin.Rt.cpu()), de, torch.zeros((6, 40), device=cuda))
 
 
+MAHA = dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4)
 SMALL_SESSIONS = {
-    # gating, capacities: (max_keyframes, max_landmark_edges), LM iteration cap, linear solver
+    # gating, capacities: (max_keyframes, max_landmark_edges), LM iteration cap, linear solver, fixed-lag
+    # window (chunk 8)
     "euclid": (dict(use_maha_dist=False, use_eq_dist=True, eq_dist_thres=1.0, land_noise_low=0.1), (8, 32), 64,
-               "dense"),
-    "maha": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4), (16, 64), 32,
-             "dense"),
-    "maha-pcg": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4), (16, 64),
-                 32, "pcg"),
-    "maha-pcg-tiled": (dict(use_maha_dist=True, use_eq_dist=False, maha_dist_thres=9.0, land_noise_low=0.4),
-                       (16, 64), 32, "pcg"),
+               "dense", 0),
+    "maha": (MAHA, (16, 64), 32, "dense", 0),
+    "maha-pcg": (MAHA, (16, 64), 32, "pcg", 0),
+    "maha-pcg-tiled": (MAHA, (16, 64), 32, "pcg", 0),
+    "maha-fixed-lag": (MAHA, (8, 64), 32, "dense", 8),
+    "maha-pcg-fixed-lag": (MAHA, (8, 64), 32, "pcg", 8),
 }
 
 
@@ -245,7 +299,9 @@ def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
     and trajectories within the f32 tolerance 1e-3 (index_add_, cuBLAS and
     the kernels sum in other orders than the CPU). With ``pcg`` every LM
     iteration on the card runs K1-K4, or K6-K10 where the crossover is
-    lowered below the session's capacity (``-tiled``)."""
+    lowered below the session's capacity (``-tiled``). The fixed-lag sessions
+    marginalize (the window and the keyframes' archive agree too), and their
+    K4 launches all carry the prior."""
     from semantic_slam_tpu_torch import cli
     from semantic_slam_tpu_torch.config import (
         AssociationConfig, CapacityConfig, KeyframeConfig, SegmentationConfig, SlamConfig, SolverConfig,
@@ -256,7 +312,7 @@ def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
 
     if gating.endswith("tiled"):
         monkeypatch.setattr(soa_dist, "TILED_FROM_K", 0)
-    assoc, (kf_cap, lme_cap), max_iterations, solver = SMALL_SESSIONS[gating]
+    assoc, (kf_cap, lme_cap), max_iterations, solver, window = SMALL_SESSIONS[gating]
     cfg = SlamConfig(
         keyframe=KeyframeConfig(delta_trans=0.4, delta_angle=0.4, delta_time=2.0),
         segmentation=SegmentationConfig(
@@ -264,15 +320,23 @@ def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
             max_planes_per_detection=2, num_hypotheses=64, normal_smoothing_size=10,
         ),
         association=AssociationConfig(**assoc),
-        solver=SolverConfig(max_iterations=max_iterations, linear_solver=solver),
+        solver=SolverConfig(max_iterations=max_iterations, linear_solver=solver, fixed_lag_window=window,
+                            fixed_lag_chunk=8),
         capacity=CapacityConfig(max_keyframes=kf_cap, max_landmarks=16, max_odom_edges=kf_cap,
                                 max_landmark_edges=lme_cap, max_detections_per_frame=4),
     )
-    log = cli.make_synthetic_log(seed=3, n_steps=120, sensor_every=5, drift_noise=0.008, H=120, W=160)
-    before = sk.resident_solve.launches, tk.tiled_mv_bwd.launches
+    log = cli.make_synthetic_log(seed=3, n_steps=240 if window else 120, sensor_every=5, drift_noise=0.008, H=120,
+                                 W=160)
+    before = sk.resident_solve.launches, tk.tiled_mv_bwd.launches, sk.resident_solve.prior_launches
     gpu, cpu = cli.run_session(log, cfg, "cuda"), cli.run_session(log, cfg, "cpu")
-    assert (sk.resident_solve.launches > before[0]) == (gating == "maha-pcg")
+    resident = solver == "pcg" and not gating.endswith("tiled")
+    assert (sk.resident_solve.launches > before[0]) == resident
     assert (tk.tiled_mv_bwd.launches > before[1]) == gating.endswith("tiled")
+    assert sk.resident_solve.prior_launches - before[2] == (
+        sk.resident_solve.launches - before[0] if window else 0)
+    if window:
+        assert gpu._kf_base == cpu._kf_base > 0 and gpu._n_poses == cpu._n_poses < window + 8
+        assert len(gpu.get_keyframe_poses()) == len(gpu.keyframes)
     assert gpu.graph.poses.device.type == "cuda" and gpu.graph.max_poses > kf_cap  # grew on the card
     for e in (gpu, cpu):
         assert int(e.table.count) > 0

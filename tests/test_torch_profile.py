@@ -17,10 +17,12 @@ PCG_LAYERS = ("lm_optimize_soa", "build_soa_edges", "chain_linearize", "obs_line
               "resident_chi2", "landmark_marginals_mf")
 TILED_LAYERS = ("lm_optimize_soa_tiled", "build_dist_edges", "tiled_chain_linearize", "tiled_obs_linearize",
                 "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
+# the layers only fixed-lag smoothing runs
+PRIOR_LAYERS = ("marginalize", "lm_optimize_prior", "prior_fold", "prior_matvec", "prior_marginals")
 
 
-def _small(solver: str, max_iterations: int, **solver_kw):
-    log = cli.make_synthetic_log(seed=0, n_steps=42, sensor_every=6, loops=1, H=60, W=80)
+def _small(solver: str, max_iterations: int, n_steps: int = 42, **solver_kw):
+    log = cli.make_synthetic_log(seed=0, n_steps=n_steps, sensor_every=6, loops=1, H=60, W=80)
     cfg = cli.make_config(cli.build_parser().parse_args(
         ["run", "--log", "in-process", "--device", "cpu", "--max-keyframes", "8", "--crop-size", "32",
          "--solver", solver]
@@ -39,7 +41,7 @@ def test_profile_session_times_every_layer_and_unwraps():
     plain, traced = report["plain"], report["traced"]
     assert plain["lm_iterations"] == traced["lm_iterations"]
     rows = {r["layer"]: r for r in report["layers"]}
-    assert all(rows.pop(label)["calls"] == 0 for label in PCG_LAYERS + TILED_LAYERS)
+    assert all(rows.pop(label)["calls"] == 0 for label in PCG_LAYERS + TILED_LAYERS + PRIOR_LAYERS)
     assert all(r["calls"] > 0 and r["host_ms_total"] > 0 and r["device_ms_total"] is None for r in rows.values())
     assert rows["_optimize_tick"]["calls"] == len(traced["tick_ms"])
     assert rows["score_hypotheses"]["calls"] == cfg.segmentation.max_planes_per_detection * rows["extract_planes"]["calls"]
@@ -88,3 +90,24 @@ def test_profile_session_tiled_counts_the_solver_layers(monkeypatch):
     assert rows["tiled_chi2"] == sum(ran) + rows["lm_optimize_soa_tiled"] - len(ran)
     assert rows["chain_linearize"] == rows["obs_linearize"] == rows["landmark_marginals_mf"] == len(ran)
     assert rows["lm_optimize_soa"] == rows["resident_solve"] == rows["resident_chi2"] == 0
+
+
+def test_profile_session_fixed_lag_labels_the_prior_layers():
+    """A fixed-lag session (window 8, chunk 4) on the dense LM and on the
+    resident PCG loop: the graph is marginalized at least once, every
+    linearization folds the prior (``prior_fold``), and on pcg every
+    matrix-free marginal recovery folds the prior's boundary coupling
+    (``prior_marginals``)."""
+    for solver in ("dense", "pcg"):
+        log, cfg = _small(solver, 2, n_steps=192, pcg_iters=2, fixed_lag_window=8, fixed_lag_chunk=4)
+        report = ps.profile_session(log, cfg, "cpu")
+        rows = {r["layer"]: r["calls"] for r in report["layers"]}
+        assert rows["marginalize"] >= 1, solver
+        if solver == "dense":
+            assert rows["lm_optimize_prior"] == rows["_optimize_tick"] and rows["lm_optimize"] == 0
+            assert rows["prior_fold"] == rows["linearize_arrays"] > 0
+            assert rows["prior_marginals"] == 0
+        else:
+            assert rows["prior_fold"] == rows["chain_linearize"] > 0
+            assert rows["prior_marginals"] == rows["landmark_marginals_mf"] > 0
+            assert rows["lm_optimize_prior"] == rows["prior_matvec"] == 0

@@ -118,17 +118,15 @@ def _with(section: str, **kw):
 UNPORTED = {
     "pcg": lambda cfg: cfg.replace(solver=SolverConfig(linear_solver="pcg", pcg_precond="tridiag")),
     "mesh.num_devices": _with("mesh", num_devices=4),
-    "fixed_lag_window": _with("solver", fixed_lag_window=24),
     "use_plane_landmarks": lambda cfg: cfg.replace(use_plane_landmarks=True),
     "ingest_window": _with("solver", ingest_window=4),
     "use_const_inf_matrix": _with("information", use_const_inf_matrix=False),
     "adaptive_normals": _with("segmentation", adaptive_normals=True),
     "autosave_every_n_ticks": lambda cfg: cfg.replace(autosave_every_n_ticks=10),
     "save_graph": lambda cfg: cfg.replace(save_graph=True),
+    "fixed_lag_window with use_plane_landmarks": lambda cfg: cfg.replace(
+        use_plane_landmarks=True, solver=dataclasses.replace(cfg.solver, fixed_lag_window=24)),
     # the row-range (tiled) PCG loop that --max-keyframes above 4096 takes
-    "prior in the resident and tiled PCG loops": lambda cfg: cfg.replace(
-        solver=SolverConfig(linear_solver="pcg", fixed_lag_window=24),
-        capacity=dataclasses.replace(cfg.capacity, max_keyframes=8192)),
     "plane half of the tiled PCG loop": lambda cfg: cfg.replace(
         use_plane_landmarks=True, solver=SolverConfig(linear_solver="pcg"),
         capacity=dataclasses.replace(cfg.capacity, max_keyframes=8192)),

@@ -344,5 +344,13 @@ def test_wrappers_refuse_other_devices(f32):
         tk.resident_linearize(tg.poses.to("meta"), tg.landmarks.to("meta"), meta)
     with pytest.raises(ValueError, match="unsupported device"):
         tk.resident_chi2(tg.poses.to("meta"), tg.landmarks.to("meta"), meta)
-    with pytest.raises(NotImplementedError, match="prior"):
-        tk.resident_solve(None, tse, None, None, None, 8, prior=object())
+    lin = tsoa.soa_linearize(tg.poses, tg.landmarks, tse)
+    pf, lf = tfree(tg)
+    Hp, idx = torch.eye(48), torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="go together"):
+        tk.resident_solve(lin, tse, torch.tensor(1e-3), pf, lf, 8, prior_Hp=Hp)
+    with pytest.raises(ValueError, match="shape"):
+        tk.resident_solve(lin, tse, torch.tensor(1e-3), pf, lf, 8, 1e-8, Hp[:-6, :-6], idx)
+    meta_lin = lin._replace(**{k: v.to("meta") for k, v in lin._asdict().items()})
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.resident_solve(meta_lin, meta, torch.tensor(1e-3), pf, lf, 8, 1e-8, Hp, idx)

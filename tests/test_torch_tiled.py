@@ -337,8 +337,6 @@ def test_lm_optimize_soa_tiled_matches_pallas_interpret_f32(f32, force_small_blo
 
 def test_unported_parts_raise(f64):
     _, tg, rows = f64
-    with pytest.raises(NotImplementedError, match="fixed-lag prior of the tiled PCG loop"):
-        tsd.lm_optimize_soa_tiled(tg, ell_rows=rows, prior=object())
     de = tsd.build_dist_edges(_edge_args(tg), tg.poses.shape[0], rows[2], tg.landmarks.shape[0])
     pf, lf = _free_masks(tg)
     with pytest.raises(NotImplementedError, match="plane half of the tiled PCG loop"):

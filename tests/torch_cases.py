@@ -1,0 +1,38 @@
+"""Inputs shared by the port's tests (no JAX here: ``test_torch_cuda.py``
+imports this module on the machine with the card, which has none).
+``chip_smoke.py`` keeps its own copy of ``moved_prior``, since it runs
+alone."""
+
+import numpy as np
+import torch
+
+
+def moved_prior(prior, poses: torch.Tensor, num_live: int, seed: int = 5):
+    """``prior`` with its boundary block replaced by a dense seeded SPD block
+    over the free poses (3, num_live // 2, num_live - 2), slots 0-2, at the
+    scale of the marginalized boundary block (the mean of its slot-0
+    diagonal); ``p_ref`` there is ``poses``. On the engine's chain graphs
+    the boundary is the window's first pose, which the gauge fixes, so a
+    marginalized prior's Hp meets only masked directions in the matvec;
+    this one exercises the branch's arithmetic and moves the step at its
+    poses by about its own size."""
+    idx = (3, num_live // 2, num_live - 2)
+    n, dt, dev = len(idx), prior.Hp.dtype, prior.Hp.device
+    scale = prior.Hp[:6, :6].diagonal().mean()
+    A = torch.as_tensor(np.random.default_rng(seed).normal(size=(6 * n, 6 * n)), dtype=dt, device=dev)
+    Hp = torch.zeros_like(prior.Hp)
+    Hp[: 6 * n, : 6 * n] = scale * (A @ A.T / (6 * n) + torch.eye(6 * n, dtype=dt, device=dev))
+    p_idx = torch.zeros_like(prior.p_idx)
+    p_idx[:n] = torch.tensor(idx, dtype=p_idx.dtype, device=dev)
+    p_ref = prior.p_ref.clone()
+    p_ref[:n] = poses[p_idx[:n].long()]
+    return prior._replace(Hp=Hp, p_idx=p_idx, p_ref=p_ref, num_p=torch.tensor(n, dtype=prior.num_p.dtype, device=dev))
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor, without: torch.Tensor, p_idx: torch.Tensor, n: int):
+    """At the prior's poses ``p_idx[:n]``: (|got - want|, |without - want|),
+    Frobenius norms: a kernel's error there beside the prior block's own
+    effect on the step."""
+    rows = p_idx[:n].long()
+    return (float(torch.linalg.norm((got[rows] - want[rows]).double())),
+            float(torch.linalg.norm((without[rows] - want[rows]).double())))
