@@ -11,7 +11,9 @@ before the result line:
              one process per source, all started together;
 3. kernels against plain -- each kernel against its plain PyTorch version on
              the card, at the shapes the main paths give it and at ragged /
-             empty edge cases, timed with CUDA events after warm-up:
+             empty edge cases, timed with CUDA events after warm-up (the
+             wrapper's host work between launches included) and by its own
+             intervals in a ``torch.profiler`` trace (device time):
              K5 (RANSAC scoring) at [D=8, N=65,536, S=128]; K1-K4 (the
              resident SoA Schur-PCG solver) at the bench shape
              K=4096/L=1024/E2=16384 (R=4), at the engine's
@@ -29,10 +31,12 @@ before the result line:
              graph against each other;
 5b. the fixed-lag prior -- a prior from ``fixed_lag.marginalize`` (drop 16,
              PB=8) on the bench graph at a perturbed state: K4 with it against
-             its plain version at the pcg session's shape (K=4096/L=1024, R=32)
-             and at the fixed-lag session's (K=512/L=128, R=32), also with the
+             its plain version at the pcg session's shape (K=4096/L=1024, R=32,
+             K4's cooperative-grid shape) and at the fixed-lag session's
+             (K=512/L=128, R=32, its thread-block-cluster shape), also with the
              prior's block moved onto free poses (the marginalized block sits
-             on the gauge-fixed pose 0), timed with and without the prior; the
+             on the gauge-fixed pose 0), timed with and without the prior, and
+             by device time at 128 and at 0 CG steps (the time of a step); the
              resident LM with the prior through the kernels against the plain
              versions, and the row-range LM with the prior against the
              resident one, at K=4096;
@@ -56,7 +60,8 @@ The line before the last is a JSON object with one entry per kernel (launches
 from the session whose path runs it, K1-K3 and K5 from the pcg slice, K4 from
 the fixed-lag pcg slice, K6-K10 from the tiled slice; times and errors at the
 engine shapes, K4's with the prior at the fixed-lag session's shape; each
-kernel's bound); the last line is ``{"ok": true, "device": {...}}``.
+kernel's bound, and its device time; K4's also per CG step); the last line
+is ``{"ok": true, "device": {...}}``.
 Artifacts of the sessions go to ``OUT_DIR`` under the checkout. Run
 without the package beside it, the script exits 4, a code of its own
 (1 is a failed phase).
@@ -145,6 +150,15 @@ def _time_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(torch, fn, label: str, reps: int = 20) -> float:
+    """The kernels' own time per call of the wrapper ``label``, from a
+    ``torch.profiler`` trace (``profile_slice.kernel_device_ms``): without the
+    host's time between launches, which ``_time_ms`` includes."""
+    from semantic_slam_tpu_torch.profile_slice import kernel_device_ms
+
+    return kernel_device_ms(fn, label, reps)
+
+
 # ---------------------------------------------------------------------------
 # 1. card
 # ---------------------------------------------------------------------------
@@ -231,13 +245,16 @@ def check_score_hypotheses(torch) -> dict:
         if label == "path shape":
             ms = _time_ms(torch, lambda: kernels.score_hypotheses(*args, dist_thres, cos_thres))
             plain_ms = _time_ms(torch, lambda: kernels.score_hypotheses_ref(*args, dist_thres, cos_thres))
+            dev_ms = _device_ms(torch, lambda: kernels.score_hypotheses(*args, dist_thres, cos_thres),
+                                "score_hypotheses")
             # bytes: points and normals (12 B each), the candidate mask (1 B),
             # hypotheses (16 B) and counts (4 B); operations: per point and
             # hypothesis two 3-term dot products as FMAs (12) and the offset add
             b = bound(D * N * 25 + D * S * 20, D * N * S * 13)
             print(f"score_hypotheses [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean "
-                  f"of 20); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-            result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
+                  f"of 20), kernel device time {dev_ms:.4f} ms (profiler); bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']}")
+            result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **b}
     return result
 
 
@@ -402,12 +419,13 @@ def check_soa_kernels(torch) -> dict:
         for name, (kern, plain) in fns.items():
             reps = 5 if name == "resident_solve" else 20
             ms, plain_ms = _time_ms(torch, kern, reps), _time_ms(torch, plain, reps)
+            dev_ms = _device_ms(torch, kern, name, reps)
             b = bound(*bf[name])
-            print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of {reps}); "
-                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
-                  f"{b['flops'] / 1e6:.1f} Mflop)")
+            print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of {reps}), "
+                  f"kernel device time {dev_ms:.4f} ms (profiler); bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                  f"({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
             if record:
-                out[name].update(ms=ms, plain_ms=plain_ms, **b)
+                out[name].update(ms=ms, plain_ms=plain_ms, device_ms=dev_ms, **b)
     return out
 
 
@@ -528,12 +546,13 @@ def check_tiled_kernels(torch) -> dict:
             }
             for name, (kern, plain) in fns.items():
                 ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+                dev_ms = _device_ms(torch, kern, name)
                 b = bound(*bf[name])
-                print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of 20); "
-                      f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
-                      f"{b['flops'] / 1e6:.1f} Mflop)")
+                print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of 20), "
+                      f"kernel device time {dev_ms:.4f} ms (profiler); bound {b['bound_ms']:.4f} ms by "
+                      f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
                 out[name] = {"max_abs_err": max(v[0] for v in errs[name].values()), "ms": ms, "plain_ms": plain_ms,
-                             **b}
+                             "device_ms": dev_ms, **b}
     return out
 
 
@@ -680,18 +699,20 @@ def _moved_prior(torch, prior, poses, num_live: int, seed: int = 5):
 
 
 def check_soa_prior(torch) -> dict:
-    """K4 with a fixed-lag prior against its plain version at the pcg and
-    the fixed-lag sessions' shapes; returns the fixed-lag shape's numbers."""
+    """K4 with a fixed-lag prior against its plain version at the pcg
+    session's shape (the grid shape) and the fixed-lag session's (the cluster
+    shape); returns the fixed-lag shape's numbers."""
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
     from semantic_slam_tpu_torch.solver import kernels
     from semantic_slam_tpu_torch.solver.pcg import apply_prior_blocks
 
     out = {}
-    for label, shape in ((f"pcg session K={BENCH['K']} R={ENGINE_R}", BENCH),
-                         (f"fixed-lag session K={FL_ENGINE['K']} R={ENGINE_R}", FL_ENGINE)):
+    for label, shape, want in ((f"pcg session K={BENCH['K']} R={ENGINE_R}", BENCH, "grid"),
+                               (f"fixed-lag session K={FL_ENGINE['K']} R={ENGINE_R}", FL_ENGINE, "cluster")):
         g, se, pf, lf, prior, num_b, R = _prior_case(torch, **shape, R=ENGINE_R)
         K, L = shape["K"], shape["L"]
         E_real = int(se.lm_start[L])
+        shapes = dict(kernels.resident_solve.shapes)
         print(f"-- K4 with a fixed-lag prior [{label}]: drop {PRIOR_DROP}, {num_b} boundary pose(s), PB="
               f"{prior.max_poses}, p_idx {prior.p_idx.tolist()}, {int(g.num_poses)} live poses, {E_real} real slots")
         require(num_b >= 1 and float(prior.Hl.abs().sum()) > 0, f"{label}: the marginalized prior is empty")
@@ -725,16 +746,27 @@ def check_soa_prior(torch) -> dict:
                         out["max_abs_err"] = max(_rel_err(torch, dk, dpl)[0], _rel_err(torch, bk, bpl)[0])
             if which != "marginalized":
                 continue
-            # times at fixed work (cg_tol=0, 128 steps): with the prior, without it, and the plain version
+            # times at fixed work (cg_tol=0, 128 steps): with the prior, without it, and the plain version;
+            # device time also at 0 steps, for the time of one CG step
             ms = _time_ms(torch, lambda: kernels.resident_solve(*args, 0.0, pr.Hp, pr.p_idx), 5)
             ms0 = _time_ms(torch, lambda: kernels.resident_solve(*args, 0.0), 5)
             plain_ms = _time_ms(torch, lambda: soa.soa_schur_step(*args, 0.0, pr.Hp, pr.p_idx), 5)
+            dev_ms = _device_ms(torch, lambda: kernels.resident_solve(*args, 0.0, pr.Hp, pr.p_idx), "resident_solve", 5)
+            dev0_ms = _device_ms(torch, lambda: kernels.resident_solve(lin, se, lam, pf, lf, 0, 0.0, pr.Hp, pr.p_idx),
+                                 "resident_solve", 5)
+            step_us = (dev_ms - dev0_ms) / 128 * 1e3
             b = bound(*_solve_bytes_flops(K, R, L, E_real, 128, pr.max_poses))
             print(f"  resident_solve [{label}]: kernel with the prior {ms:.4f} ms, without {ms0:.4f} ms, plain with "
-                  f"the prior {plain_ms:.4f} ms (CUDA events, mean of 5); bound {b['bound_ms']:.4f} ms by "
-                  f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
+                  f"the prior {plain_ms:.4f} ms (CUDA events, mean of 5); kernel device time with the prior "
+                  f"{dev_ms:.4f} ms at 128 steps, {dev0_ms:.4f} ms at 0, {step_us:.3f} us a CG step (profiler); "
+                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
+                  f"{b['flops'] / 1e6:.1f} Mflop)")
             if shape is FL_ENGINE:
-                out.update(ms=ms, plain_ms=plain_ms, ms_without_prior=ms0, **b)
+                out.update(ms=ms, plain_ms=plain_ms, ms_without_prior=ms0, device_ms=dev_ms,
+                           device_us_per_step=step_us, **b)
+        took = {k: n - shapes[k] for k, n in kernels.resident_solve.shapes.items()}
+        print(f"  resident_solve [{label}]: launches per shape {took}")
+        require(took[want] > 0 and sum(took.values()) == took[want], f"{label}: K4 did not run in the {want} shape")
     return out
 
 
@@ -842,12 +874,14 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         for w in wrappers.values():
             w.launches = 0
         wrappers["resident_solve"].prior_launches = 0
+        wrappers["resident_solve"].shapes = {"cluster": 0, "grid": 0}
         t0 = time.perf_counter()
         engine = cli.run_session(log, cfg, args.device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
         prior_launches = wrappers["resident_solve"].prior_launches
+        k4_shapes = dict(wrappers["resident_solve"].shapes)
     finally:
         for loop, (mod, fn) in entries.items():
             setattr(mod, fn, origs[loop])
@@ -925,7 +959,8 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         for name, n in expect.items():
             require(launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
         want_prior = launches["resident_solve"] if window else 0
-        print(f"[{label}] K4 launches with the fixed-lag prior: {prior_launches} (expected {want_prior})")
+        print(f"[{label}] K4 launches with the fixed-lag prior: {prior_launches} (expected {want_prior}); K4 "
+              f"launches per shape {k4_shapes}")
         require(prior_launches == want_prior, f"[{label}] K4 took the prior on {prior_launches} launches, "
                                               f"expected {want_prior}")
         for name in (RESIDENT if loop == "resident" else TILED + ("chain_linearize", "obs_linearize")):
@@ -954,7 +989,8 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         print(f"[{label}] median optimizing tick ms over the first 30 {statistics.median(opt_ms[:30]):.2f} and the "
               f"last 30 {statistics.median(opt_ms[-30:]):.2f} (of {len(opt_ms)}); ms per marginalization "
               f"{[round(x, 2) for x in marg_ms]}, median {statistics.median(marg_ms):.2f}")
-    return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop}
+    return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop,
+            "k4_shapes": k4_shapes}
 
 
 def check_isolation() -> None:
@@ -1013,6 +1049,7 @@ def main() -> int:
         pcg = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "4096"], "pcg")
         require(pcg["keyframes"] == dense["keyframes"] and pcg["loop"] == "resident",
                 f"keyframes: pcg {pcg['keyframes']} != dense {dense['keyframes']}")
+        require(pcg["k4_shapes"]["cluster"] == 0, f"pcg slice (K=4096): K4 left the grid shape: {pcg['k4_shapes']}")
         phase("tiled slice on the card")
         tiled = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "8192"], "tiled")
         require(tiled["keyframes"] == dense["keyframes"] and tiled["loop"] == "tiled",
@@ -1029,6 +1066,8 @@ def main() -> int:
         fl_pcg = run_slice(torch, fl_log, ["--fixed-lag", str(FL_WINDOW), "--solver", "pcg"], "fixed_lag_pcg")
         require(fl_pcg["keyframes"] == fl_dense["keyframes"] and fl_pcg["loop"] == "resident",
                 f"keyframes: fixed-lag pcg {fl_pcg['keyframes']} != dense {fl_dense['keyframes']}")
+        require(fl_pcg["k4_shapes"]["grid"] == 0,
+                f"fixed-lag pcg slice (K=512): K4 left the cluster shape: {fl_pcg['k4_shapes']}")
         del fl_log
 
         check_isolation()
@@ -1057,6 +1096,7 @@ def main() -> int:
             "launches": session["launches"][name],
             **{k: numbers[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
+            **{k: numbers[name][k] for k in ("device_ms", "device_us_per_step") if k in numbers[name]},
         }
         for name, (src, rep, session) in meta.items()
     ]}

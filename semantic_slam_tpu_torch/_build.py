@@ -45,7 +45,9 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
     },
     "soa_solve": {
         "soa_solve_scratch": ([_I] * 5, ctypes.c_longlong),
-        "soa_solve_launch": ([_P] * 18 + [_I, _F, _I, _I, _I, _I, _P, _P, _P, _I, _P], ctypes.c_int),
+        "soa_solve_cluster_smem": ([_I] * 3, ctypes.c_longlong),
+        "soa_solve_smem_optin": ([], ctypes.c_longlong),
+        "soa_solve_launch": ([_P] * 18 + [_I, _F, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P], ctypes.c_int),
     },
     "tiled_linearize": {
         "tiled_chain_lin_scratch": ([_I], ctypes.c_longlong),

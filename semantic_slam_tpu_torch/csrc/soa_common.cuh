@@ -10,9 +10,9 @@
 //
 // The chain math mirrors solver/chain_soa.py (same Taylor cutoffs and guards,
 // atan2f for the quaternion log). The two halves of the Schur matvec,
-// mv_fwd_* and mv_bwd_slots, are the math of the TPU kernels
-// _mv_fwd_kernel / _mv_bwd_kernel (solver/pallas_tiled.py): K4 runs them
-// inside its one launch, K8 and K9 as launches of their own.
+// mv_fwd_* and mv_bwd_slot_group with m66_row, are the math of the TPU
+// kernels _mv_fwd_kernel / _mv_bwd_kernel (solver/pallas_tiled.py): K4 runs
+// them inside its one launch, K8 and K9 as launches of their own.
 
 #pragma once
 
@@ -384,13 +384,15 @@ __device__ __forceinline__ V3 mv_fwd_slot(const float* v, const float* Ow, int E
 // K8, per landmark, one warp: T = sum over the landmark's slots of
 // Rt_k^T a_e, lanes striding the CSR segment, then a fixed shuffle tree; the
 // result is valid in lane 0. Deterministic: the order depends only on the
-// CSR. `a` may have been written by other blocks of the same launch.
-__device__ __forceinline__ V3 mv_fwd_landmark_warp(const float* Rt, const float* a, const int* lm_slots, int j0,
-                                                   int j1, int K, int E, int lane) {
+// CSR. `a_at(e)` reads slot e's 3-vector wherever it lives (device memory
+// written by other blocks, or another CTA's shared memory).
+template <class SlotAt>
+__device__ __forceinline__ V3 mv_fwd_landmark_warp_at(const float* Rt, const int* lm_slots, int j0, int j1, int K,
+                                                      int lane, SlotAt a_at) {
   V3 T = v3(0.f, 0.f, 0.f);
   for (int j = j0 + lane; j < j1; j += 32) {
     const int e = lm_slots[j];
-    T = add(T, mTv(load_m3(Rt, K, e % K), load_v3_cg(a, E, e)));
+    T = add(T, mTv(load_m3(Rt, K, e % K), a_at(e)));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -400,58 +402,69 @@ __device__ __forceinline__ V3 mv_fwd_landmark_warp(const float* Rt, const float*
   }
   return T;
 }
-
-// 6x6 channel block [6,6,K] at pose k times x
-__device__ __forceinline__ void m66_vec_acc(const float* M, int K, int k, const float* x, float* out) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) s += M[(i * 6 + j) * K + k] * x[j];
-    out[i] += s;
-  }
-}
-__device__ __forceinline__ void m66T_vec_acc(const float* M, int K, int k, const float* x, float* out) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) s += M[(j * 6 + i) * K + k] * x[j];
-    out[i] += s;
-  }
+// `a` [3, E] may have been written by other blocks of the same launch
+__device__ __forceinline__ V3 mv_fwd_landmark_warp(const float* Rt, const float* a, const int* lm_slots, int j0,
+                                                   int j1, int K, int E, int lane) {
+  return mv_fwd_landmark_warp_at(Rt, lm_slots, j0, j1, K, lane, [=](int e) { return load_v3_cg(a, E, e); });
 }
 
-// K9, the slot part of pose k: u = sum over its R slots of Jp^T (Oa - O' Rt z_l).
-// Oa and zl may have been written by other blocks of the same launch.
-__device__ __forceinline__ void mv_bwd_slots(const float* v, const float* Ow, const float* Rt, const float* Oa,
-                                             const float* zl, const int* ll_rk, int K, int R, int k, float* u) {
-  const int E = R * K;
-  const M3 Rtk = load_m3(Rt, K, k);
+// ---------------------------------------------------------------------------
+// K9's body, and K4's phase c: the per-pose half of the matvec spread over a
+// group of threads. A block holds POSE_GROUP consecutive poses (one a lane)
+// times G slot groups (one a warp). Slots are slot-major (e = r*K + k), so
+// each warp's loads of v, O', Oa and ll_rk at one slot index are coalesced.
+// Thread (lane, g) walks its pose's slots r = g, g + G, ... (a ragged R
+// leaves some warps with one slot fewer); the G partial 6-vectors of a pose
+// are summed through shared memory in the order g = 0..G-1, and the four
+// 6x6 chain products are split over the group, one output row a thread.
+// ---------------------------------------------------------------------------
+
+constexpr int POSE_GROUP = 32;
+
+// loads for mv_bwd_slot_group's `ld`: through L2 (data other blocks of the
+// launch wrote), through the read-only path, or plain (shared memory)
+struct LoadCg { __device__ float operator()(const float* a) const { return __ldcg(a); } };
+struct LoadLdg { __device__ float operator()(const float* a) const { return __ldg(a); } };
+struct LoadPlain { __device__ float operator()(const float* a) const { return *a; } };
+
+// The slot part of one pose for slot group g of G:
+//   u = sum over r = g, g + G, ... < R of Jp^T (Oa - O' Rt z_l)
+// Slot arrays hold element (c, r) of the pose at c*cs + r*rs + kk; Oa ==
+// nullptr stands for Oa = 0. `ld` reads Oa and z, which the same launch may
+// have written (through L2, or from shared memory).
+template <class Ld>
+__device__ __forceinline__ void mv_bwd_slot_group(const float* v, const float* Ow, const float* Oa, const int* ll_rk,
+                                                  const float* zl, const M3& Rtk, int cs, int rs, int kk, int R,
+                                                  int g, int G, Ld ld, float* u) {
 #pragma unroll
   for (int i = 0; i < 6; ++i) u[i] = 0.f;
-  for (int r = 0; r < R; ++r) {
-    const int e = r * K + k;
-    const V3 m = sub(load_v3_cg(Oa, E, e), mv(load_m3(Ow, E, e), mv(Rtk, load_row3_cg(zl, ll_rk[e]))));
-    const V3 vm = cross(load_v3(v, E, e), m);
+  for (int r = g; r < R; r += G) {
+    const int e = r * rs + kk;
+    const int l = ll_rk[e];
+    const V3 wz = mv(load_m3(Ow, cs, e), mv(Rtk, v3(ld(zl + 3 * l), ld(zl + 3 * l + 1), ld(zl + 3 * l + 2))));
+    const V3 m = Oa ? sub(v3(ld(Oa + e), ld(Oa + cs + e), ld(Oa + 2 * cs + e)), wz) : neg(wz);
+    const V3 vm = cross(load_v3(v, cs, e), m);
 #pragma unroll
     for (int i = 0; i < 3; ++i) { u[i] -= m.v[i]; u[i + 3] -= vm.v[i]; }
   }
 }
 
-// K4's pose half: the slot part plus the whole chain,
-//   u += Hii x_k + Hij x_{k+1} + Hij_{k-1}^T x_{k-1} + Hjj_{k-1} x_k
-// xm/xn/xp: the masked x at poses k, k+1 (0 past the end), k-1 (0 before 0).
-__device__ __forceinline__ void mv_bwd_pose(const float* v, const float* Ow, const float* Rt, const float* Oa,
-                                            const float* zl, const int* ll_rk, const float* Hii, const float* Hij,
-                                            const float* Hjj, int K, int R, int k, const float* xm,
-                                            const float* xn, const float* xp, float* u) {
-  mv_bwd_slots(v, Ow, Rt, Oa, zl, ll_rk, K, R, k, u);
-  m66_vec_acc(Hii, K, k, xm, u);
-  m66_vec_acc(Hij, K, k, xn, u);
-  if (k > 0) {
-    m66T_vec_acc(Hij, K, k - 1, xp, u);
-    m66_vec_acc(Hjj, K, k - 1, xm, u);
-  }
+// Row i of a 6x6 channel block (element (a, b) at (a*6 + b)*n + col) times
+// x, or of its transpose; x[c] at x[c * xs].
+__device__ __forceinline__ float m66_row(const float* M, int n, int col, int i, bool transpose, const float* x,
+                                         int xs) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) s += M[(transpose ? c * 6 + i : i * 6 + c) * n + col] * x[c * xs];
+  return s;
+}
+
+// The G slot partials of one output (6 channels x POSE_GROUP lanes a group),
+// summed in the order g = 0..G-1
+__device__ __forceinline__ float group_total(const float* part, int G, int i, int lane) {
+  float s = 0.f;
+  for (int g = 0; g < G; ++g) s += part[(g * 6 + i) * POSE_GROUP + lane];
+  return s;
 }
 
 // ---------------------------------------------------------------------------

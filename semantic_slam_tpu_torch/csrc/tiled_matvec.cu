@@ -27,9 +27,16 @@
 //
 // Design: K8 is one thread per slot (rows_mvf_slot) and then one warp per
 // landmark walking the range's landmark CSR in a fixed order
-// (rows_mvf_lm, the mv_fwd_landmark_warp pattern); K9 is one thread per row
-// walking its R slots (mv_bwd_slots) and adding the chain products. No
-// atomics: the results are the same on every run. No host sync.
+// (rows_mvf_lm, the mv_fwd_landmark_warp pattern). K9 is K4's phase-c body
+// (soa_common.cuh mv_bwd_slot_group): a block of 32 rows (one a lane) x 8
+// slot groups (one a warp), each thread walking its row's slots r = g, g + 8,
+// ... with every warp load coalesced over 32 consecutive rows; the 8 partial
+// 6-vectors of a row are summed through shared memory in a fixed order, and
+// the four 6x6 chain products are split over the block one output row a
+// thread. One thread walking all of a row's slots would be R dependent
+// gathers in a row (R=32 on the tiled session's path) on Kl threads; here a
+// thread walks R/8 of them and the block keeps 8 warps of loads in flight.
+// No atomics: the results are the same on every run. No host sync.
 
 #include "soa_common.cuh"
 
@@ -63,24 +70,49 @@ rows_mvf_lm(const float* __restrict__ Rt, const float* __restrict__ Oa, const in
   }
 }
 
-__global__ void __launch_bounds__(BLOCK)
+// K9: one block per POSE_GROUP rows, MVB_G slot groups (warps) per block
+constexpr int MVB_G = 8;
+
+__global__ void __launch_bounds__(POSE_GROUP * MVB_G)
 rows_mvb_pose(const float* __restrict__ v, const float* __restrict__ Ow, const float* __restrict__ Rt,
               const float* __restrict__ Oa, const float* __restrict__ z, const int* __restrict__ ll_rk,
               const float* __restrict__ x, const float* __restrict__ xj, const float* __restrict__ Hii,
               const float* __restrict__ Hij, const float* __restrict__ Hjj, int Kl, int R, float* __restrict__ u,
               float* __restrict__ vj) {
-  const int k = blockIdx.x * BLOCK + threadIdx.x;
-  if (k >= Kl) return;
-  float xm[6], xn[6], uk[6], vk[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  constexpr int NT = POSE_GROUP * MVB_G;
+  __shared__ float part[MVB_G * 6 * POSE_GROUP];
+  __shared__ float chain[24][POSE_GROUP];
+  __shared__ float xs[12][POSE_GROUP];  // x in rows 0-5, xj in rows 6-11
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * POSE_GROUP, k = k0 + lane;
+  const bool on = k < Kl;
+  for (int t = threadIdx.x; t < 12 * POSE_GROUP; t += NT) {
+    const int c = t / POSE_GROUP, kq = k0 + t % POSE_GROUP;
+    xs[c][t % POSE_GROUP] = kq < Kl ? (c < 6 ? x[c * Kl + kq] : xj[(c - 6) * Kl + kq]) : 0.f;
+  }
+  __syncthreads();
+  float us[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (on) {
+    mv_bwd_slot_group(v, Ow, Oa, ll_rk, z, load_m3(Rt, Kl, k), R * Kl, Kl, k, R, g, MVB_G,
+                      LoadLdg{}, us);
+  }
 #pragma unroll
-  for (int i = 0; i < 6; ++i) { xm[i] = x[i * Kl + k]; xn[i] = xj[i * Kl + k]; }
-  mv_bwd_slots(v, Ow, Rt, Oa, z, ll_rk, Kl, R, k, uk);
-  m66_vec_acc(Hii, Kl, k, xm, uk);
-  m66_vec_acc(Hij, Kl, k, xn, uk);
-  m66T_vec_acc(Hij, Kl, k, xm, vk);
-  m66_vec_acc(Hjj, Kl, k, xn, vk);
-#pragma unroll
-  for (int i = 0; i < 6; ++i) { u[i * Kl + k] = uk[i]; vj[i * Kl + k] = vk[i]; }
+  for (int i = 0; i < 6; ++i) part[(g * 6 + i) * POSE_GROUP + lane] = us[i];
+  // the chain's four products, one output row a thread: Hii x and Hij xj to
+  // u, Hij^T x and Hjj xj to vj
+  for (int j = g; j < 24; j += MVB_G) {
+    const int b = j / 6, i = j % 6;
+    const float* M = b == 0 ? Hii : b == 3 ? Hjj : Hij;
+    const float* xv = (b == 0 || b == 2) ? &xs[0][lane] : &xs[6][lane];
+    chain[j][lane] = on ? m66_row(M, Kl, k, i, b == 2, xv, POSE_GROUP) : 0.f;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < 12 * POSE_GROUP; t += NT) {
+    const int o = t / POSE_GROUP, q = t % POSE_GROUP, kq = k0 + q;
+    if (kq >= Kl) continue;
+    if (o < 6) u[o * Kl + kq] = group_total(part, MVB_G, o, q) + chain[o][q] + chain[6 + o][q];
+    else vj[(o - 6) * Kl + kq] = chain[12 + o - 6][q] + chain[18 + o - 6][q];
+  }
 }
 
 }  // namespace
@@ -106,7 +138,7 @@ extern "C" int tiled_mv_bwd_launch(const float* v, const float* Ow, const float*
                                    const float* Hij, const float* Hjj, int Kl, int R, float* u, float* vj,
                                    void* stream_ptr) {
   if (Kl <= 0 || R <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  rows_mvb_pose<<<(Kl + BLOCK - 1) / BLOCK, BLOCK, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+  rows_mvb_pose<<<(Kl + POSE_GROUP - 1) / POSE_GROUP, POSE_GROUP * MVB_G, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
       v, Ow, Rt, Oa, z, ll_rk, x, xj, Hii, Hij, Hjj, Kl, R, u, vj);
   return static_cast<int>(cudaGetLastError());
 }

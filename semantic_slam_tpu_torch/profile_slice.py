@@ -92,13 +92,48 @@ CTYPES_KERNELS = {
     "chain_linearize": ("chain_kernel",),
     "obs_linearize": ("pose_kernel", "landmark_kernel"),
     "resident_chi2": ("chi2_kernel",),
-    "resident_solve": ("solve_kernel",),
+    "resident_solve": ("solve_cluster_kernel", "solve_grid_kernel"),
     "tiled_chain_linearize": ("rows_chain",),
     "tiled_obs_linearize": ("rows_obs_pose", "rows_obs_lm"),
     "tiled_mv_fwd": ("rows_mvf_slot", "rows_mvf_lm"),
     "tiled_mv_bwd": ("rows_mvb_pose",),
     "tiled_chi2": ("rows_chi2",),
 }
+
+
+# wrappers that also launch the shared one-block sum ``reduce2_kernel``
+# (soa_common.cuh), which a session trace cannot assign to one of them
+REDUCE2_LAUNCHERS = ("chain_linearize", "obs_linearize", "resident_chi2", "tiled_chain_linearize",
+                     "tiled_obs_linearize", "tiled_chi2")
+
+
+def kernel_device_ms(fn, label: str, reps: int = 20) -> float:
+    """Device ms per call of ``fn``, a call of the wrapper ``label`` alone:
+    the summed intervals of its kernels (``CTYPES_KERNELS``, and
+    ``reduce2_kernel`` where it launches one) in a ``torch.profiler`` trace
+    of ``reps`` calls after three warm-up calls. It leaves out the wrapper's
+    host work between launches, which CUDA events around back-to-back calls
+    include."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = CTYPES_KERNELS[label] + (("reduce2_kernel",) if label in REDUCE2_LAUNCHERS else ())
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA and any(f"{n}(" in e.name for n in names)]
+    # each kernel launches at most once a call; the mean per kernel name, summed,
+    # also holds where the trace dropped some events
+    by_name = {}
+    for e in evs:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        raise RuntimeError(f"no kernel events of {names} in a trace of {reps} calls")
+    return sum(sum(v) / len(v) for v in by_name.values()) / 1e3
 
 
 def _sync_for(device: str):

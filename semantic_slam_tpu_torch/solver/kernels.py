@@ -6,7 +6,8 @@
     runs K2 then K1
   * ``resident_chi2``      -- K3, ``csrc/soa_chi2.cu``
   * ``resident_solve``     -- K4, ``csrc/soa_solve.cu``, with the fixed-lag
-    prior's dense boundary block when one is given
+    prior's dense boundary block when one is given; ``solve_shape`` picks
+    its launch shape (one thread-block cluster or the cooperative grid)
 
 On CPU tensors each wrapper runs its plain version (``solver/ellk_soa.py``
 ``soa_chain_linearize``, ``soa_obs_linearize``, ``soa_chi2``,
@@ -30,6 +31,32 @@ Tensor = torch.Tensor
 
 ROBUST_KINDS = {"none": 0, "huber": 1, "dcs": 2}
 MAX_SOLVE_BLOCKS = 4096  # K4's dot-product partials are sized for this many blocks
+
+# K4's cluster shape (csrc/soa_solve.cu): up to 16 CTAs, each owning a range of
+# poses (a multiple of 32) with its slots, pose blocks and the landmarks' z in
+# shared memory, beside a fixed 17,764 bytes of static shared memory
+SOLVE_CLUSTER_CTAS = 16
+SOLVE_STATIC_SMEM = 17764
+
+
+def solve_cluster_smem(K: int, R: int, L: int) -> int:
+    """Bytes of shared memory one CTA of K4's cluster shape takes (the
+    kernel's ``ClusterLayout`` and ``Shared``): per slot v, O', Oa and ll_rk
+    (16 words), per pose Rt, the chain blocks (Hij and Hjj with one pose
+    more), pf, M^-1 and five CG vectors (184 words, +72), per landmark z (3)."""
+    per_cta = -(-K // SOLVE_CLUSTER_CTAS)
+    Kb = 32 * -(-per_cta // 32)
+    return 4 * (16 * R * Kb + 184 * Kb + 72 + 3 * L) + SOLVE_STATIC_SMEM
+
+
+def solve_shape(K: int, R: int, L: int, smem_per_block: int) -> str:
+    """K4's launch shape: ``"cluster"`` (one thread-block cluster, state in
+    shared memory, hardware barriers) when a CTA's share of the graph fits the
+    card's ``smem_per_block`` (bytes a block may opt in to: 232,448 on an
+    H100), else ``"grid"`` (the cooperative grid over device memory). The
+    fixed-lag prior's block stays in device memory in both, so it does not
+    enter. Nothing else picks or forces a shape."""
+    return "cluster" if solve_cluster_smem(K, R, L) <= smem_per_block else "grid"
 
 
 def _f32(t: Tensor) -> Tensor:
@@ -254,14 +281,19 @@ def resident_solve(lin: SoALin, se: SoAEdges, lam: Tensor, pose_free: Tensor, lm
     dp, db = torch.empty((6, K), **f32), torch.empty((L, 3), **f32)
     scratch = torch.empty((lib.soa_solve_scratch(K, R, L, PB, MAX_SOLVE_BLOCKS),), **f32)
     with torch.cuda.device(dev):
+        smem = lib.soa_solve_smem_optin()
+        if smem <= 0:
+            raise RuntimeError(f"{what}: could not read the device's shared memory per block")
+        shape = solve_shape(K, R, L, smem)
         code = lib.soa_solve_launch(
             *(t.data_ptr() for t in ins), lmf.data_ptr(), pf.data_ptr(), se.ll_rk.data_ptr(),
             se.lm_slots.data_ptr(), se.lm_start.data_ptr(), lam32.data_ptr(), Hp.data_ptr(), pidx.data_ptr(), PB,
             float(cg_tol), int(n_steps), K, R, L, dp.data_ptr(), db.data_ptr(), scratch.data_ptr(),
-            MAX_SOLVE_BLOCKS, _stream(dev),
+            MAX_SOLVE_BLOCKS, int(shape == "cluster"), _stream(dev),
         )
     _build.check(code, "soa_solve kernel launch", "soa_solve")
     resident_solve.launches += 1
+    resident_solve.shapes[shape] += 1
     if PB:
         resident_solve.prior_launches += 1
     dt = lin.gp.dtype
@@ -273,3 +305,4 @@ obs_linearize.launches = 0
 resident_chi2.launches = 0
 resident_solve.launches = 0
 resident_solve.prior_launches = 0  # of those, launches with a fixed-lag prior
+resident_solve.shapes = {"cluster": 0, "grid": 0}  # of those, launches per shape

@@ -1,0 +1,233 @@
+#!/usr/bin/env python3
+"""Device times of K4 (the resident Schur-PCG solve) and K9 (the row-range
+matvec's per-pose half) on one NVIDIA GPU, for this checkout or another one.
+
+    python semantic_slam_tpu_torch/tools/kernel_times.py [--root DIR] [--split] --out FILE
+    python semantic_slam_tpu_torch/tools/kernel_times.py --baseline DIR --out FILE
+
+``--root DIR`` measures the package of the checkout at DIR (default: this
+one) through its own wrappers, built from its own sources. The shapes are
+``chip_smoke.py``'s (imported from DIR): K4 with the marginalized fixed-lag
+prior at the fixed-lag session's graph (K=512, L=128, R=32) and at the pcg
+session's (K=4096, L=1024, R=32), also without the prior, at 128 and at 0
+fixed CG steps (the difference over 128 is the time of a step); K9 on all
+rows of the tiled session's graph (K=8192, L=2048, R=32). Device time is the
+sum of the kernels' own intervals in a ``torch.profiler`` trace of ``--reps``
+calls; event time is CUDA events around the same calls (the wrapper's host
+work between launches included).
+
+``--split`` also times copies of K4's source with one phase body emptied
+(the early exit off, so that every copy runs all steps): what a step spends
+per phase, and in barriers and reductions alone (every body emptied).
+
+``--baseline DIR`` runs this script on DIR and on this checkout in turns
+(baseline, this, this, baseline), each in a process of its own, and writes
+both sides' numbers. Every number comes with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+THIS_ROOT = os.path.dirname(os.path.dirname(HERE))
+# kernel names a wrapper launches, in either version of the sources
+K4_NAMES = ("solve_kernel", "solve_cluster_kernel", "solve_grid_kernel")
+K9_NAMES = ("rows_mvb_pose",)
+# phase anchors of K4's source: (anchor, text after it, replacement); the
+# first set is the earlier single-shape kernel's, the second the two-shape one's
+SPLIT_EDITS = (
+    {
+        "A": [("// a. per slot", "e < E;", "e < (SKIP_A ? 0 : E);")],
+        "B": [("// b. per landmark", "l < L;", "l < (SKIP_B ? 0 : L);")],
+        "C": [("// c. per pose (K9)", "k < K;", "k < (SKIP_C ? 0 : K);")],
+        "D": [("// d. per pose:", "k < K;", "k < (SKIP_D ? 0 : K);")],
+    },
+    {
+        "A": [("// a. p = z + beta p", "slots_fwd<CLUSTER>(A, loc, k0, nk);", "if (!SKIP_A) slots_fwd<CLUSTER>(A, loc, k0, nk);")],
+        "B": [("// b. per landmark: z_l", "l < L;", "l < (SKIP_B ? 0 : L);")],
+        "C": [("// c. per pose", "float pap = pose_rows", "float pap = SKIP_C ? 0.f : pose_rows")],
+        "D": [("// d. per own pose", "t < 6 * nk;", "t < (SKIP_D ? 0 : 6 * nk);"),
+              ("float part[2] = {0.f, 0.f};  // r.z, r.r", "t < 6 * nk;", "t < (SKIP_D ? 0 : 6 * nk);")],
+    },
+)
+EARLY_EXIT = "if (!(rr > A.tol * b2)) break;"
+VARIANTS = {"full": "", "no a": "A", "no b": "B", "no c": "C", "no d": "D", "barriers only": "ABCD"}
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def device_ms(torch, fn, names, reps: int) -> tuple[float, float]:
+    """(device ms, CUDA-event ms) per call of ``fn`` over ``reps`` calls after
+    warm-up; device ms sums the intervals of the kernels named ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and any(f"{n}(" in e.name for n in names)]
+    # each kernel launches at most once a call; the mean per kernel name, summed,
+    # also holds where the trace dropped some events
+    by_name = {}
+    for e in evs:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        raise RuntimeError(f"no kernel events of {names} in a trace of {reps} calls")
+    ms = sum(sum(v) / len(v) for v in by_name.values()) / 1e3
+    return ms, event_ms
+
+
+def _variant_libs(root: str, build_dir: str) -> dict:
+    """K4's source at ``root`` with phase bodies emptied, built in parallel."""
+    src_dir = os.path.join(root, "semantic_slam_tpu_torch", "csrc")
+    src = open(os.path.join(src_dir, "soa_solve.cu")).read()
+    edits = next(e for e in SPLIT_EDITS if all(a in src for edit in e.values() for a, _, _ in edit))
+
+    def cut(text, anchor, old, new):
+        i = text.index(anchor)
+        j = text.index(old, i)
+        return text[:j] + new + text[j + len(old):]
+
+    src = src.replace(EARLY_EXIT, "if (!(SKIP_A || SKIP_B || SKIP_C || SKIP_D) && !(rr > A.tol * b2)) break;")
+    for phase_edits in edits.values():
+        for anchor, old, new in phase_edits:
+            src = cut(src, anchor, old, new)
+    src = src.replace('#include "soa_common.cuh"', f'#include "{src_dir}/soa_common.cuh"')
+    path = os.path.join(build_dir, "soa_solve_split.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    from semantic_slam_tpu_torch import _build
+
+    procs = {}
+    for name, skip in VARIANTS.items():
+        lib = os.path.join(build_dir, f"libsplit_{name.replace(' ', '_')}.so")
+        defs = [f"-DSKIP_{p}={int(p in skip)}" for p in "ABCD"]
+        procs[name] = (lib, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-o", lib, path]))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for the variant {name!r}")
+        cdll = ctypes.CDLL(lib)
+        for fn, (argtypes, restype) in _build.SIGNATURES["soa_solve"].items():
+            getattr(cdll, fn).argtypes, getattr(cdll, fn).restype = argtypes, restype
+        cdll.slam_cuda_error_string.argtypes, cdll.slam_cuda_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+        libs[name] = cdll
+    return libs
+
+
+def measure(root: str, reps: int, split: bool) -> dict:
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    import semantic_slam_tpu_torch  # noqa: F401  (full-f32 matmuls)
+    from semantic_slam_tpu_torch import _build
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+    from semantic_slam_tpu_torch.solver.pcg import apply_prior_blocks
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    _build.build()
+    out = {"root": root, "card": card(), "k4": {}, "k9": {}}
+    cases = {}
+    for label, shape in (("K=512 L=128 R=32", cs.FL_ENGINE), ("K=4096 L=1024 R=32", cs.BENCH)):
+        g, se, pf, lf, prior, _, R = cs._prior_case(torch, **shape, R=cs.ENGINE_R)
+        lin = apply_prior_blocks(soa.soa_linearize(g.poses, g.landmarks, se), prior, g.poses, g.landmarks)
+        cases[label] = (lin, se, cs._init_lambda(torch, lin), pf, lf, prior)
+    for label, (lin, se, lam, pf, lf, prior) in cases.items():
+        for with_prior in (True, False):
+            pr = (prior.Hp, prior.p_idx) if with_prior else ()
+            row = {}
+            for n in (128, 0):
+                row[n] = device_ms(torch, lambda: kernels.resident_solve(lin, se, lam, pf, lf, n, 0.0, *pr),
+                                   K4_NAMES, reps)
+            key = f"{label}{' prior' if with_prior else ''}"
+            out["k4"][key] = {"device_ms": row[128][0], "event_ms": row[128][1], "device_ms_0_steps": row[0][0],
+                              "device_us_per_step": (row[128][0] - row[0][0]) / 128 * 1e3}
+            print(f"K4 [{key}]: {json.dumps(out['k4'][key])}", flush=True)
+    g, _, _, _, R = cs._soa_case(torch, **cs.TILED_BENCH, R=cs.ENGINE_R, perturb=True)
+    K = cs.TILED_BENCH["K"]
+    rr = cs.RowRange(torch, g, R, 0, K)
+    lp = sd.obs_plain(rr.pc, g.landmarks, rr.de, sd.chain_plain(rr.pc, rr.pj, rr.de))
+    x = torch.randn(6, K, generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    xj = torch.cat([x[:, 1:], x[:, :1]], dim=1)
+    Op, Tp = sd.mv_fwd_plain(lp, rr.de, x)
+    z = torch.linalg.solve(lp.Hll + torch.eye(3, device="cuda"), Tp[..., None])[..., 0]
+    dev, ev = device_ms(torch, lambda: tk.tiled_mv_bwd(lp, rr.de, Op, z, x, xj), K9_NAMES, 10 * reps)
+    out["k9"]["K=8192 L=2048 R=32"] = {"device_ms": dev, "event_ms": ev}
+    print(f"K9 [K=8192 L=2048 R=32]: device {dev:.5f} ms, event {ev:.5f} ms", flush=True)
+
+    if split:
+        out["split"] = {}
+        with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+            libs = _variant_libs(root, tmp)
+            real = _build._libs.get("soa_solve")
+            try:
+                for label, (lin, se, lam, pf, lf, prior) in cases.items():
+                    for name, lib in libs.items():
+                        _build._libs["soa_solve"] = lib
+                        t = {n: device_ms(torch, lambda: kernels.resident_solve(lin, se, lam, pf, lf, n, 0.0, prior.Hp,
+                                                                                  prior.p_idx), K4_NAMES, reps)[0]
+                             for n in (128, 0)}
+                        us = (t[128] - t[0]) / 128 * 1e3
+                        out["split"][f"{label} prior, {name}"] = us
+                        print(f"K4 split [{label} prior, {name}]: {us:.3f} us per step", flush=True)
+            finally:
+                _build._libs["soa_solve"] = real
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--root", default=THIS_ROOT, help="checkout whose package is measured")
+    ap.add_argument("--baseline", help="another checkout, measured in turns with this one")
+    ap.add_argument("--split", action="store_true", help="also the per-phase split of a K4 step")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", required=True, help="JSON file to write")
+    args = ap.parse_args()
+    if not args.baseline:
+        res = measure(os.path.abspath(args.root), args.reps, args.split)
+    else:
+        runs = []
+        for i, root in enumerate((args.baseline, THIS_ROOT, THIS_ROOT, args.baseline)):
+            part = f"{args.out}.{i}"
+            cmd = [sys.executable, os.path.abspath(__file__), "--root", os.path.abspath(root), "--reps",
+                   str(args.reps), "--out", part] + (["--split"] if args.split and i in (0, 1) else [])
+            print(f"== {' '.join(cmd)}", flush=True)
+            subprocess.run(cmd, check=True)
+            with open(part) as f:
+                runs.append(json.load(f))
+        res = {"order": ["baseline", "this", "this", "baseline"], "runs": runs}
+    with open(args.out, "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions (K5,
 the RANSAC scoring kernel; K1-K4, the resident SoA Schur-PCG solver's
-kernels, K4 also with a fixed-lag prior; K6-K10, the row-range solver's),
+kernels, K4 also with a fixed-lag prior and in both of its launch shapes;
+K6-K10, the row-range solver's; K4 and K9 also bit for bit on a repeat),
 and small sessions on the card (dense, ``--solver pcg`` and ``--solver pcg``
 on the row-range loop; dense and pcg with fixed-lag smoothing) against the
 same sessions on the CPU.
@@ -196,6 +197,98 @@ def test_soa_solve_with_prior_matches_plain(cuda, which):
         assert set(prior.p_idx.tolist()) == {0} and err == effect == 0.0
 
 
+# K4's two launch shapes on graphs on both sides of the boundary, and with
+# ragged pose ranges: id -> (K, L, R); E2 fills R slots a pose
+# (``build_graph`` spreads E2 - 8 observations over K - 2 poses)
+SHAPE_CASES = {
+    "cluster-K1024-R16": (1024, 256, 16),
+    "grid-K2048-R16": (2048, 512, 16),
+    "cluster-ragged-K1000-R5": (1000, 250, 5),
+    "grid-ragged-K4999-R5": (4999, 1250, 5),
+}
+
+
+def shape_case(device, case):
+    K, L, R = SHAPE_CASES[case]
+    return soa_case(device, K=K, L=L, E2=8 + (K - 2) * R, R=R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SHAPE_CASES))
+@pytest.mark.parametrize("prior", ["none", "moved"])
+@pytest.mark.parametrize("cg_tol", [1e-8, 0.0], ids=["early-exit", "fixed-work"])
+def test_soa_solve_shapes_match_plain(cuda, case, prior, cg_tol):
+    """K4 in the shape ``solve_shape`` picks for the graph (named in the case
+    id) against its plain version: dp and db within 5e-2 relative norm, and
+    with a dense prior block moved onto three free poses, within 1e-3 of the
+    block's own effect at those poses."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import fixed_lag as fl
+    from semantic_slam_tpu_torch.solver import kernels as sk
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args, apply_prior_blocks
+    from torch_cases import moved_prior, row_err
+
+    g, se, (pf, lf) = shape_case(cuda, case)
+    K, L, R = SHAPE_CASES[case]
+    assert sk.solve_shape(K, R, L, 232448) == case.split("-")[0]
+    Hp = idx = None
+    if prior == "moved":
+        g, pr, _ = fl.marginalize(g, fl.empty_prior(L, device=cuda), 16)
+        pr = moved_prior(pr, g.poses, int(g.num_poses))
+        se = soa.build_soa_edges(_edge_args(g), K, R, L)
+        pf, lf = _free_masks(g)
+        Hp, idx = pr.Hp, pr.p_idx
+    lin = soa.soa_linearize(g.poses, g.landmarks, se)
+    if prior == "moved":
+        lin = apply_prior_blocks(lin, pr, g.poses, g.landmarks)
+    lam = torch.tensor(1e-2, device=cuda)
+    shapes = dict(sk.resident_solve.shapes)
+    dk, bk = sk.resident_solve(lin, se, lam, pf, lf, 128, cg_tol, Hp, idx)
+    dp, bp = soa.soa_schur_step(lin, se, lam, pf, lf, 128, cg_tol, Hp, idx)
+    torch.cuda.synchronize()
+    want = case.split("-")[0]
+    assert sk.resident_solve.shapes[want] == shapes[want] + 1
+    for got, ref in ((dk, dp), (bk, bp)):
+        assert bool(torch.isfinite(got).all())
+        assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= 5e-2
+    assert float(dk[~pf].abs().max()) == 0.0 and float(bk[~lf].abs().max()) == 0.0
+    if prior == "moved":
+        d0, _ = soa.soa_schur_step(lin, se, lam, pf, lf, 128, cg_tol)
+        err, effect = row_err(dk, dp, d0, idx, int(pr.num_p))
+        assert effect > 0.1 * float(torch.linalg.norm(dp[idx[:3].long()].double()))
+        assert err <= 1e-3 * effect, (err, effect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cluster-ragged-K1000-R5", "grid-ragged-K4999-R5"])
+def test_soa_solve_repeats_bit_for_bit(cuda, case):
+    """K4 gives the same bits on two launches in either shape (fixed
+    reduction trees, no atomics)."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    g, se, (pf, lf) = shape_case(cuda, case)
+    lin = soa.soa_linearize(g.poses, g.landmarks, se)
+    lam = torch.tensor(1e-2, device=cuda)
+    a = sk.resident_solve(lin, se, lam, pf, lf, 128, 0.0)
+    b = sk.resident_solve(lin, se, lam, pf, lf, 128, 0.0)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_solve_shape_smem_matches_kernel(cuda):
+    """The shape rule's shared-memory count is the kernel's own."""
+    from semantic_slam_tpu_torch import _build
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    lib = _build.library("soa_solve")
+    for K, R, L in [(512, 32, 128), (1000, 5, 250), (4096, 32, 1024), (300, 16, 64), (2048, 16, 512)]:
+        assert sk.solve_cluster_smem(K, R, L) == lib.soa_solve_cluster_smem(K, R, L)
+    assert lib.soa_solve_smem_optin() > 0
+
+
 @pytest.mark.cuda
 def test_soa_wrappers_reject_bad_inputs(cuda):
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
@@ -260,6 +353,34 @@ def test_tiled_kernels_match_plain(cuda, robust, rows):
     assert rel_err(xk, xp) <= 1e-4
     torch.cuda.synchronize()
     assert [w.launches for w in wrappers] == [c + 1 for c in counts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["whole", "upper-half"])
+def test_tiled_mv_bwd_ragged_repeats(cuda, rows):
+    """K9 at a ragged row count and R (K=1000, R=5: rows [500, 1000) are not a
+    multiple of its 32-row blocks, R not of its 8 slot groups) against its
+    plain version within 1e-4 of scale, and the same bits on two launches."""
+    from semantic_slam_tpu_torch.solver import chain_soa as chs
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    K, L, R = 1000, 250, 5
+    g, _, _ = soa_case(cuda, K=K, L=L, E2=8 + (K - 2) * R, R=R)
+    off = 0 if rows == "whole" else K // 2
+    de = sd.build_dist_edges(_edge_args(g), K, R, L, off)
+    pc_all = g.poses.T
+    pc, pj = pc_all[:, off:].contiguous(), chs.roll_up_pose_ch(pc_all)[:, off:].contiguous()
+    lp = sd.obs_plain(pc, g.landmarks, de, sd.chain_plain(pc, pj, de))
+    rng = np.random.default_rng(6)
+    x, xj = (torch.as_tensor(rng.normal(size=(6, K - off)), dtype=torch.float32, device=cuda) for _ in range(2))
+    Op, Tp = sd.mv_fwd_plain(lp, de, x)
+    got = tk.tiled_mv_bwd(lp, de, Op, Tp, x, xj)
+    again = tk.tiled_mv_bwd(lp, de, Op, Tp, x, xj)
+    for a, b, c in zip(got, sd.mv_bwd_plain(lp, de, Op, Tp, x, xj), again):
+        assert rel_err(a, b) <= 1e-4
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda

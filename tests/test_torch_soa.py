@@ -354,3 +354,24 @@ def test_wrappers_refuse_other_devices(f32):
     meta_lin = lin._replace(**{k: v.to("meta") for k, v in lin._asdict().items()})
     with pytest.raises(ValueError, match="unsupported device"):
         tk.resident_solve(meta_lin, meta, torch.tensor(1e-3), pf, lf, 8, 1e-8, Hp, idx)
+
+
+H100_SMEM_PER_BLOCK = 232448  # bytes a block may opt in to on an H100 (227 KB)
+
+
+def test_solve_shape_rule():
+    """K4's launch shape: one thread-block cluster at the fixed-lag pcg
+    session's graph (K=512, L=128, R=32; a prior's block, PB up to 8, stays in
+    device memory and takes no shared memory), the cooperative grid at the
+    pcg session's K=4096 and the row-range threshold's K=8192."""
+    assert tk.solve_cluster_smem(512, 32, 128) <= H100_SMEM_PER_BLOCK
+    assert tk.solve_shape(512, 32, 128, H100_SMEM_PER_BLOCK) == "cluster"
+    for K, L in ((4096, 1024), (8192, 2048)):
+        assert tk.solve_shape(K, 32, L, H100_SMEM_PER_BLOCK) == "grid"
+    # the card-only tests' graphs on both sides of the boundary
+    assert tk.solve_shape(1024, 16, 256, H100_SMEM_PER_BLOCK) == "cluster"
+    assert tk.solve_shape(2048, 16, 512, H100_SMEM_PER_BLOCK) == "grid"
+    assert tk.solve_shape(1000, 5, 250, H100_SMEM_PER_BLOCK) == "cluster"
+    assert tk.solve_shape(4999, 5, 1250, H100_SMEM_PER_BLOCK) == "grid"
+    # a card with less shared memory takes the grid at the session's graph
+    assert tk.solve_shape(512, 32, 128, 100 * 1024) == "grid"
