@@ -14,11 +14,14 @@ before the result line:
              empty edge cases, timed with CUDA events after warm-up (the
              wrapper's host work between launches included) and by its own
              intervals in a ``torch.profiler`` trace (device time):
-             K5 (RANSAC scoring) at [D=8, N=65,536, S=128]; K1-K4 (the
+             K5 (RANSAC scoring) at [D=8, N=65,536, S=128], its bound
+             counted in instructions a test; K1-K4 (the
              resident SoA Schur-PCG solver) at the bench shape
              K=4096/L=1024/E2=16384 (R=4), at the engine's
-             ``--max-keyframes 4096`` shape (R=32) and at a ragged K=1000,
-             under robust none/huber/dcs; K6-K10 (the row-range solver) at
+             ``--max-keyframes 4096`` shape (R=32), at the fixed-lag pcg
+             session's K=512/L=128/E2=2048 (R=32; K1 and K3 timed under
+             each robust kernel) and at a ragged K=1000, under robust
+             none/huber/dcs; K6-K10 (the row-range solver) at
              the bench shape K=8192/L=2048/E2=32768 (R=4), at the engine's
              ``--max-keyframes 8192`` shape (R=32) and at K=16384/L=4096, each
              on the whole row range and on rows [K/2, K);
@@ -52,7 +55,8 @@ before the result line:
              keyframes) with ``--fixed-lag 64``, dense and ``--solver pcg``
              (resident loop at K=512): at least 3 marginalizations, fewer than
              80 active poses, every keyframe exported, chi2 never rising, ATE
-             no worse than raw VIO's, and every K4 launch carrying the prior.
+             no worse than raw VIO's, and every K4 launch carrying the prior;
+             the pcg one's K1-K4 launch counts are printed.
 The counters are reset just before each session and checked against the LM's
 iteration counts just after.
 
@@ -96,6 +100,16 @@ LM_RTOL = 1e-3
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# instructions its lanes start a second (132 SMs x 4 schedulers x 32 lanes at
+# the 1.98 GHz boost clock): the rate for work that is not mostly FMAs,
+# which FP32_FLOP_PER_S counts as two operations each
+INSTR_PER_S = 132 * 128 * 1.98e9
+# K5's instructions a point-hypothesis test, from the SASS of the kernel as
+# built for sm_90a (semantic_slam_tpu_torch/tools/k5_sass.py): 2 FMUL, 4 FFMA
+# and an FADD for the two dot products and the offset, 2 FSETP for the
+# compares with the predicate AND folded in, and the count's select and add;
+# not the loop's loads, warp sums, lane select or counter
+K5_INSTR_PER_TEST = 11
 
 BENCH = dict(K=4096, L=1024, E2=16384)  # bench.py's mid cell, R = 4
 ENGINE_R = 32  # yolo_detector: 8 detections x 4 planes per keyframe
@@ -129,12 +143,14 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float = 0.0, n_instr: float = 0.0) -> dict:
     """The least time for the work: the larger of bytes over the HBM rate and
-    fp32 operations over the fp32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOP_PER_S * 1e3
+    operations, fp32 flops over the fp32 rate or instructions over the instruction
+    rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n_flops / FP32_FLOP_PER_S, n_instr / INSTR_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "flops": n_flops}
+            "bytes": n_bytes, "flops": n_flops, "instructions": n_instr}
 
 
 def _time_ms(torch, fn, reps: int = 20) -> float:
@@ -248,12 +264,12 @@ def check_score_hypotheses(torch) -> dict:
             dev_ms = _device_ms(torch, lambda: kernels.score_hypotheses(*args, dist_thres, cos_thres),
                                 "score_hypotheses")
             # bytes: points and normals (12 B each), the candidate mask (1 B),
-            # hypotheses (16 B) and counts (4 B); operations: per point and
-            # hypothesis two 3-term dot products as FMAs (12) and the offset add
-            b = bound(D * N * 25 + D * S * 20, D * N * S * 13)
+            # hypotheses (16 B) and counts (4 B); operations: the test's own
+            # instructions (K5_INSTR_PER_TEST) at the instruction rate
+            b = bound(D * N * 25 + D * S * 20, n_instr=D * N * S * K5_INSTR_PER_TEST)
             print(f"score_hypotheses [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean "
                   f"of 20), kernel device time {dev_ms:.4f} ms (profiler); bound {b['bound_ms']:.4f} ms by "
-                  f"{b['bound_by']}")
+                  f"{b['bound_by']} ({K5_INSTR_PER_TEST} instructions a test)")
             result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **b}
     return result
 
@@ -335,8 +351,8 @@ def _solve_bytes_flops(K: int, R: int, L: int, E_real: int, steps: int, PB: int 
 
 
 def check_soa_kernels(torch) -> dict:
-    """K1-K4 against their plain versions at the bench, engine and ragged
-    shapes; returns the engine shape's numbers per kernel."""
+    """K1-K4 against their plain versions at the bench, engine, fixed-lag and
+    ragged shapes; returns the engine shape's numbers per kernel."""
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
     from semantic_slam_tpu_torch.solver import kernels
 
@@ -344,6 +360,7 @@ def check_soa_kernels(torch) -> dict:
     cases = (
         ("bench R=4", BENCH, None, ("none", "huber", "dcs")),
         (f"engine R={ENGINE_R}", BENCH, ENGINE_R, ("none", "huber", "dcs")),
+        (f"fixed-lag R={ENGINE_R}", FL_ENGINE, ENGINE_R, ("none", "huber", "dcs")),
         ("ragged K=1000", RAGGED, None, ("none", "huber", "dcs")),
     )
     for label, shape, R_arg, kinds in cases:
@@ -352,7 +369,7 @@ def check_soa_kernels(torch) -> dict:
         E_real = int(se.lm_start[L])
         bf = _lin_bytes_flops(K, R, L, E_real)
         print(f"-- SoA kernels [{label}]: K={K} L={L} R={R}, {E_real} real slots of {K * R}")
-        timed = label.startswith("bench") or label.startswith("engine")
+        timed = not label.startswith("ragged")
         record = label.startswith("engine")
         for kind in kinds:
             # K2
@@ -403,27 +420,31 @@ def check_soa_kernels(torch) -> dict:
 
         if not timed:
             continue
-        # times: CUDA events after warm-up; K4 at fixed work (cg_tol=0, 128 steps)
+        # times: CUDA events after warm-up; K4 at fixed work (cg_tol=0, 128 steps), not at the fixed-lag shape,
+        # where check_soa_prior times it with the prior; K1 and K3 there under each robust kernel
         cp = soa.soa_chain_linearize(g.poses, se)
-        fns = {
-            "chain_linearize": (lambda: kernels.chain_linearize(g.poses, se),
-                                lambda: soa.soa_chain_linearize(g.poses, se)),
-            "obs_linearize": (lambda: kernels.obs_linearize(g.poses, g.landmarks, se, cp),
-                              lambda: soa.soa_obs_linearize(g.poses, g.landmarks, se, cp)),
-            "resident_chi2": (lambda: kernels.resident_chi2(g.poses, g.landmarks, se),
-                              lambda: soa.soa_chi2(g.poses, g.landmarks, se)),
-            "resident_solve": (lambda: kernels.resident_solve(lin, se, lam, pf, lf, 128, 0.0),
-                               lambda: soa.soa_schur_step(lin, se, lam, pf, lf, 128, 0.0)),
-        }
+        fixed_lag = shape is FL_ENGINE
+        runs = [("chain_linearize", "", lambda: kernels.chain_linearize(g.poses, se),
+                 lambda: soa.soa_chain_linearize(g.poses, se))]
+        for kind in kinds if fixed_lag else ("none",):
+            runs += [
+                ("obs_linearize", kind, lambda kind=kind: kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind),
+                 lambda kind=kind: soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, kind)),
+                ("resident_chi2", kind, lambda kind=kind: kernels.resident_chi2(g.poses, g.landmarks, se, kind),
+                 lambda kind=kind: soa.soa_chi2(g.poses, g.landmarks, se, kind)),
+            ]
+        if not fixed_lag:
+            runs.append(("resident_solve", "", lambda: kernels.resident_solve(lin, se, lam, pf, lf, 128, 0.0),
+                         lambda: soa.soa_schur_step(lin, se, lam, pf, lf, 128, 0.0)))
         bf["resident_solve"] = _solve_bytes_flops(K, R, L, E_real, 128)
-        for name, (kern, plain) in fns.items():
+        for name, kind, kern, plain in runs:
             reps = 5 if name == "resident_solve" else 20
             ms, plain_ms = _time_ms(torch, kern, reps), _time_ms(torch, plain, reps)
             dev_ms = _device_ms(torch, kern, name, reps)
             b = bound(*bf[name])
-            print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of {reps}), "
-                  f"kernel device time {dev_ms:.4f} ms (profiler); bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-                  f"({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
+            print(f"  {name} [{label}{', ' + kind if kind else ''}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"(CUDA events, mean of {reps}), kernel device time {dev_ms:.4f} ms (profiler); bound "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
             if record:
                 out[name].update(ms=ms, plain_ms=plain_ms, device_ms=dev_ms, **b)
     return out
@@ -1068,6 +1089,9 @@ def main() -> int:
                 f"keyframes: fixed-lag pcg {fl_pcg['keyframes']} != dense {fl_dense['keyframes']}")
         require(fl_pcg["k4_shapes"]["grid"] == 0,
                 f"fixed-lag pcg slice (K=512): K4 left the cluster shape: {fl_pcg['k4_shapes']}")
+        n = fl_pcg["launches"]
+        print(f"fixed-lag pcg session launches: K1 obs_linearize {n['obs_linearize']}, K2 chain_linearize "
+              f"{n['chain_linearize']}, K3 resident_chi2 {n['resident_chi2']}, K4 resident_solve {n['resident_solve']}")
         del fl_log
 
         check_isolation()

@@ -36,12 +36,12 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
     "soa_linearize": {
         "soa_chain_lin_scratch": ([_I], ctypes.c_longlong),
         "soa_chain_lin_launch": ([_P] * 3 + [_I] + [_P] * 8, ctypes.c_int),
-        "soa_obs_lin_scratch": ([_I, _I], ctypes.c_longlong),
-        "soa_obs_lin_launch": ([_P] * 12 + [_I, _I, _I, _I, _F] + [_P] * 10, ctypes.c_int),
+        "soa_obs_lin_scratch": ([_I, _I, _I], ctypes.c_longlong),
+        "soa_obs_lin_launch": ([_P] * 12 + [_I] * 6 + [_F] + [_P] * 10, ctypes.c_int),
     },
     "soa_chi2": {
-        "soa_chi2_scratch": ([_I], ctypes.c_longlong),
-        "soa_chi2_launch": ([_P] * 7 + [_I, _I, _I, _F, _P, _P, _P], ctypes.c_int),
+        "soa_chi2_scratch": ([_I, _I, _I], ctypes.c_longlong),
+        "soa_chi2_launch": ([_P] * 7 + [_I] * 5 + [_F] + [_P] * 3, ctypes.c_int),
     },
     "soa_solve": {
         "soa_solve_scratch": ([_I] * 5, ctypes.c_longlong),

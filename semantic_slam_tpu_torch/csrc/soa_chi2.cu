@@ -11,10 +11,16 @@
 // measurement and information (50 floats). ~60 flops per slot and ~400 per
 // chain edge are far below the card's rate.
 //
-// Design: one thread per pose k evaluates chain edge k -> k+1 and its R slots
-// (robust rho), a block sums its threads in a fixed tree, and one more block
-// adds the per-block partials in a fixed order into a device scalar. No
-// atomics, no host sync.
+// Design: two launches. The first spreads the slots as K1 does
+// (soa_linearize.cu lin_slots_kernel): a grid of (pose ranges of 32, slot
+// chunks of RB) with G warps a block, thread (lane, g) walking its pose's
+// slots r = r0 + g, r0 + g + G, ... of the block's chunk (solver/kernels.py
+// `lin_split` picks RB and G), so that the grid fills the card at K=512 as at
+// K=4096. Warp 0 of each pose range's first chunk also evaluates the chain
+// edges k -> k+1 of its 32 poses. A block sums its threads in a fixed tree
+// and writes its two partials; reduce2_kernel then adds them in a fixed order
+// into the device scalar, so a repeat gives the same bits. No atomics, no
+// host sync.
 
 #include "soa_common.cuh"
 
@@ -22,42 +28,57 @@ using namespace soa;
 
 namespace {
 
-constexpr int BLOCK = 128;
-
-__global__ void __launch_bounds__(BLOCK)
-chi2_kernel(const float* __restrict__ pose, const float* __restrict__ lm, const float* __restrict__ meas,
-            const float* __restrict__ info, const int* __restrict__ ll_rk, const float* __restrict__ o_meas,
-            const float* __restrict__ o_info, int K, int R, int kind, float delta, float* __restrict__ part_obs,
-            float* __restrict__ part_chain) {
-  __shared__ float smem[64];
-  const int k = blockIdx.x * BLOCK + threadIdx.x;
-  float chi[2] = {0.f, 0.f};
+__global__ void __launch_bounds__(POSE_GROUP * MAX_SLOT_GROUPS)
+chi2_slots_kernel(const float* __restrict__ pose, const float* __restrict__ lm, const float* __restrict__ meas,
+                  const float* __restrict__ info, const int* __restrict__ ll_rk, const float* __restrict__ o_meas,
+                  const float* __restrict__ o_info, int K, int R, int RB, int kind, float delta,
+                  float* __restrict__ part) {
+  __shared__ float red[64];
+  const int G = blockDim.x >> 5, lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int k = blockIdx.x * POSE_GROUP + lane, c = blockIdx.y;
+  const int r0 = c * RB, r1 = min(R, r0 + RB);
+  float s[2] = {0.f, 0.f};  // observations, chain
   if (k < K) {
-    V3 tj;
-    Q4 qj;
-    load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
-    pose_chi2(pose, tj, qj, lm, meas, info, ll_rk, o_meas, o_info, K, R, k, kind, delta, chi);
+    V3 t;
+    Q4 q;
+    load_pose(pose, K, k, t, q);
+    s[0] = obs_slot_group_chi2(rotmat(qconj(q)), t, lm, meas, info, ll_rk, K, R * K, k, r0, r1, g, G, kind, delta);
+    if (c == 0 && g == 0) {
+      V3 tj, mt;
+      Q4 qj, mq;
+      load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
+      load_pose(o_meas, K, k, mt, mq);
+      s[1] = chain_chi(chain_residual(t, q, tj, qj, mt, mq), load_info6(o_info, K, k));
+    }
   }
-  block_sum<2>(chi, smem);
+  block_sum<2>(s, red);
   if (threadIdx.x == 0) {
-    part_obs[blockIdx.x] = chi[0];
-    part_chain[blockIdx.x] = chi[1];
+    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
+    part[b] = s[0];
+    part[nb + b] = s[1];
   }
 }
 
 }  // namespace
 
-extern "C" long long soa_chi2_scratch(int K) { return 2LL * ((K + BLOCK - 1) / BLOCK); }
+// Scratch floats: two partials a block, C = ceil(R / RB) chunks of
+// ceil(K / 32) pose ranges.
+extern "C" long long soa_chi2_scratch(int K, int R, int RB) {
+  return 2LL * ((R + RB - 1) / RB) * ((K + POSE_GROUP - 1) / POSE_GROUP);
+}
 
-// Launches on `stream`; returns cudaGetLastError() of the launches (0 = ok).
+// RB slots a block in G slot groups (warps). Launches on `stream`; returns
+// cudaGetLastError() (0 = ok).
 extern "C" int soa_chi2_launch(const float* pose, const float* lm, const float* meas, const float* info,
-                               const int* ll_rk, const float* o_meas, const float* o_info, int K, int R,
-                               int robust_kind, float robust_delta, float* chi, float* scratch, void* stream_ptr) {
-  if (K <= 0 || R <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int nb = (K + BLOCK - 1) / BLOCK;
-  chi2_kernel<<<nb, BLOCK, 0, stream>>>(pose, lm, meas, info, ll_rk, o_meas, o_info, K, R, robust_kind,
-                                        robust_delta, scratch, scratch + nb);
+                               const int* ll_rk, const float* o_meas, const float* o_info, int K, int R, int RB,
+                               int G, int robust_kind, float robust_delta, float* chi, float* scratch,
+                               void* stream_ptr) {
+  if (K <= 0 || R <= 0 || RB <= 0 || G <= 0 || G > MAX_SLOT_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((K + POSE_GROUP - 1) / POSE_GROUP, (R + RB - 1) / RB);
+  const int nb = grid.x * grid.y;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  chi2_slots_kernel<<<grid, POSE_GROUP * G, 0, stream>>>(pose, lm, meas, info, ll_rk, o_meas, o_info, K, R, RB,
+                                                         robust_kind, robust_delta, scratch);
   reduce2_kernel<<<1, 256, 0, stream>>>(scratch, nb, scratch + nb, nb, chi);
   return static_cast<int>(cudaGetLastError());
 }

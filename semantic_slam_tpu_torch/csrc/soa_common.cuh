@@ -468,8 +468,9 @@ __device__ __forceinline__ float group_total(const float* part, int G, int i, in
 }
 
 // ---------------------------------------------------------------------------
-// per-row bodies of the linearization and the objective, shared by the
-// whole-graph kernels (K1-K3) and the row-range kernels (K6, K7, K10)
+// per-row bodies of the linearization and the objective: the chain's (K2,
+// K3, K7, K10) and the one-thread-a-pose observation bodies of the
+// row-range kernels (K6, K10); K1 and K3 take the slot-group bodies below
 // ---------------------------------------------------------------------------
 
 // Chain edge of row k from pose (ti, qi) to its successor (tj, qj), with the
@@ -506,11 +507,46 @@ __device__ __forceinline__ float chain_linearize_row(const V3& ti, const Q4& qi,
   return chain_chi(c, O);
 }
 
-// The observation half of pose k's linearization: per slot the residual,
-// robust rho and IRLS weight, v and O' out, and the slot's landmark terms
-// Rt^T O'r and Rt^T O' Rt to slot_gl [3,E] / slot_hll [9,E]; Rt out; the
-// pose's gradient and 6x6 diagonal quadrants summed in registers.
+// Slot e's linearization: the residual, its robust rho and IRLS weight, and
+// the weighted O' and O'r (ellk_soa.obs_parts)
+struct SlotLin { V3 v, Orw; M3 Ow; float rho; };
+__device__ __forceinline__ SlotLin slot_linearize(const M3& Rt, const V3& t, const float* lm, const int* ll_rk,
+                                                  const float* meas, const float* info, int E, int e, int kind,
+                                                  float delta) {
+  const ObsSlot s = obs_slot(Rt, t, lm, ll_rk, meas, info, E, e);
+  SlotLin out;
+  float w;
+  robust_rho_w(s.chi, kind, delta, out.rho, w);
+  out.v = s.v;
+  out.Ow = kind == ROBUST_NONE ? s.O : mscale(s.O, w);
+  out.Orw = kind == ROBUST_NONE ? s.Or : scale(s.Or, w);
+  return out;
+}
+
+// A pose's sums over its slots: the gradient [-O'r; -v x O'r], the 6x6
+// diagonal's quadrants [[O', -O'B], [., -hat(v) O'B]] (B = hat(v)), chi2
 struct ObsPose { V3 g_top, g_bot; M3 TL, TR, BR; float chi; };
+__device__ __forceinline__ ObsPose obs_pose_zero() {
+  ObsPose o;
+  o.g_top = o.g_bot = v3(0.f, 0.f, 0.f);
+  o.TL = o.TR = o.BR = mzero();
+  o.chi = 0.f;
+  return o;
+}
+__device__ __forceinline__ void pose_accumulate(ObsPose& o, const SlotLin& s) {
+  o.chi += s.rho;
+  o.g_top = sub(o.g_top, s.Orw);
+  o.g_bot = sub(o.g_bot, cross(s.v, s.Orw));
+  const M3 OB = ob_product(s.Ow, s.v);
+  o.TL = madd(o.TL, s.Ow);
+  o.TR = msub(o.TR, OB);
+  o.BR = msub(o.BR, hat_mul(s.v, OB));
+}
+
+// The observation half of pose k's linearization, one thread walking all R
+// slots (K6): per slot v and O' out, and the slot's landmark terms Rt^T O'r
+// and Rt^T O' Rt to slot_gl [3,E] / slot_hll [9,E]; Rt out; the pose's sums
+// in registers.
 __device__ __forceinline__ ObsPose obs_pose_linearize(const float* pose, const float* lm, const float* meas,
                                                       const float* info, const int* ll_rk, int K, int R, int k,
                                                       int kind, float delta, float* v_out, float* Ow_out,
@@ -521,45 +557,27 @@ __device__ __forceinline__ ObsPose obs_pose_linearize(const float* pose, const f
   load_pose(pose, K, k, t, q);
   const M3 Rt = rotmat(qconj(q));
   store_m3(Rt_out, K, k, Rt);
-  ObsPose o;
-  o.g_top = o.g_bot = v3(0.f, 0.f, 0.f);
-  o.TL = o.TR = o.BR = mzero();
-  o.chi = 0.f;
+  ObsPose o = obs_pose_zero();
   for (int r = 0; r < R; ++r) {
     const int e = r * K + k;
-    const ObsSlot s = obs_slot(Rt, t, lm, ll_rk, meas, info, E, e);
-    float rho, w;
-    robust_rho_w(s.chi, kind, delta, rho, w);
-    o.chi += rho;
-    const M3 Ow = kind == ROBUST_NONE ? s.O : mscale(s.O, w);
-    const V3 Orw = kind == ROBUST_NONE ? s.Or : scale(s.Or, w);
+    const SlotLin s = slot_linearize(Rt, t, lm, ll_rk, meas, info, E, e, kind, delta);
     store_v3(v_out, E, e, s.v);
-    store_m3(Ow_out, E, e, Ow);
-    o.g_top = sub(o.g_top, Orw);
-    o.g_bot = sub(o.g_bot, cross(s.v, Orw));
-    store_v3(slot_gl, E, e, mTv(Rt, Orw));
-    store_m3(slot_hll, E, e, mulT(Rt, mul(Ow, Rt)));
-    const M3 OB = ob_product(Ow, s.v);
-    o.TL = madd(o.TL, Ow);
-    o.TR = msub(o.TR, OB);
-    o.BR = msub(o.BR, hat_mul(s.v, OB));
+    store_m3(Ow_out, E, e, s.Ow);
+    store_v3(slot_gl, E, e, mTv(Rt, s.Orw));
+    store_m3(slot_hll, E, e, mulT(Rt, mul(s.Ow, Rt)));
+    pose_accumulate(o, s);
   }
   return o;
 }
 
-// gp [6,K] and diag [6,6,K] of pose k: the observation parts plus the chain's
-// i-side of row k (gi, Hii) and, where gj/Hjj are given, its j-side of row
-// k-1 (K1 folds the whole chain; K6 leaves the j-side to the host).
-__device__ __forceinline__ void store_pose_gp_diag(const ObsPose& o, const float* gi, const float* Hii,
-                                                   const float* gj, const float* Hjj, int K, int k, float* gp,
-                                                   float* diag) {
-  const bool prev = gj != nullptr && k > 0;
+// gp [6,K] and diag [6,6,K] of pose k (K6): the observation parts plus the
+// chain's i-side of row k (gi, Hii); the host adds the j-side.
+__device__ __forceinline__ void store_pose_gp_diag(const ObsPose& o, const float* gi, const float* Hii, int K, int k,
+                                                   float* gp, float* diag) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    float top = o.g_top.v[i] + gi[i * K + k], bot = o.g_bot.v[i] + gi[(i + 3) * K + k];
-    if (prev) { top += gj[i * K + k - 1]; bot += gj[(i + 3) * K + k - 1]; }
-    gp[i * K + k] = top;
-    gp[(i + 3) * K + k] = bot;
+    gp[i * K + k] = o.g_top.v[i] + gi[i * K + k];
+    gp[(i + 3) * K + k] = o.g_bot.v[i] + gi[(i + 3) * K + k];
   }
 #pragma unroll
   for (int i = 0; i < 6; ++i)
@@ -569,9 +587,7 @@ __device__ __forceinline__ void store_pose_gp_diag(const ObsPose& o, const float
       if (i < 3) d = j < 3 ? o.TL.m[i][j] : o.TR.m[i][j - 3];
       else d = j < 3 ? o.TR.m[j][i - 3] : o.BR.m[i - 3][j - 3];
       const int c = i * 6 + j;
-      d += Hii[c * K + k];
-      if (prev) d += Hjj[c * K + k - 1];
-      diag[c * K + k] = d;
+      diag[c * K + k] = d + Hii[c * K + k];
     }
 }
 
@@ -595,7 +611,7 @@ __device__ __forceinline__ void landmark_sum12(const float* slot_gl, const float
     for (int off = 16; off > 0; off >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
 }
 
-// The objective of pose k (K3, K10): the robust chi2 of its R slots added to
+// The objective of pose k (K10): the robust chi2 of its R slots added to
 // chi[0], the chain chi2 of row k against the successor (tj, qj) to chi[1].
 __device__ __forceinline__ void pose_chi2(const float* pose, const V3& tj, const Q4& qj, const float* lm,
                                           const float* meas, const float* info, const int* ll_rk,
@@ -613,6 +629,102 @@ __device__ __forceinline__ void pose_chi2(const float* pose, const V3& tj, const
     robust_rho_w(obs_slot(Rt, ti, lm, ll_rk, meas, info, E, r * K + k).chi, kind, delta, rho, w);
     chi[0] += rho;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K1's and K3's bodies: a pose's slots spread over the grid. A block holds
+// POSE_GROUP consecutive poses (one a lane) times G slot groups (one a warp)
+// and one chunk [r0, r1) of their slots; the chunks of a pose range are
+// blocks of their own. Warp g walks r = r0 + g, r0 + g + G, ... < r1, every
+// load coalesced over the 32 poses (slot (r, k) at e = r*K + k).
+// ---------------------------------------------------------------------------
+
+// slot groups (warps) a block of K1's or K3's slot pass at most
+constexpr int MAX_SLOT_GROUPS = 8;
+
+// a pose's partial sums as floats: g_top, g_bot, then TL, TR, BR row-major
+constexpr int POSE_PART = 33;
+__device__ __forceinline__ void pose_part_store(const ObsPose& o, float* p, int stride) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[i * stride] = o.g_top.v[i];
+    p[(3 + i) * stride] = o.g_bot.v[i];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      p[(6 + 3 * i + j) * stride] = o.TL.m[i][j];
+      p[(15 + 3 * i + j) * stride] = o.TR.m[i][j];
+      p[(24 + 3 * i + j) * stride] = o.BR.m[i][j];
+    }
+  }
+}
+// the part channel of element (i, j) of the 6x6 diagonal (lower left: TR^T)
+__device__ __forceinline__ int diag_part_channel(int i, int j) {
+  if (i < 3) return j < 3 ? 6 + 3 * i + j : 15 + 3 * i + j - 3;
+  return j < 3 ? 15 + 3 * j + i - 3 : 24 + 3 * (i - 3) + j - 3;
+}
+
+// K1, thread (lane, g): pose k's slots r = r0 + g, r0 + g + G, ... < r1, v
+// and O' out per slot; returns these slots' share of the pose's sums.
+__device__ __forceinline__ ObsPose obs_slot_group_linearize(const M3& Rt, const V3& t, const float* lm,
+                                                            const float* meas, const float* info, const int* ll_rk,
+                                                            int K, int E, int k, int r0, int r1, int g, int G,
+                                                            int kind, float delta, float* v_out, float* Ow_out) {
+  ObsPose o = obs_pose_zero();
+  for (int r = r0 + g; r < r1; r += G) {
+    const int e = r * K + k;
+    const SlotLin s = slot_linearize(Rt, t, lm, ll_rk, meas, info, E, e, kind, delta);
+    store_v3(v_out, E, e, s.v);
+    store_m3(Ow_out, E, e, s.Ow);
+    pose_accumulate(o, s);
+  }
+  return o;
+}
+
+// K1, one warp per landmark: its gradient Rt^T O'r and block Rt^T O' Rt over
+// its CSR segment [j0, j1), each slot's terms computed from the inputs as the
+// slot pass computes them (only the CSR's real slots are visited, a small
+// share of the R*K at the sessions' graphs, so this reads less than a
+// per-slot scratch array would cost to write); lanes stride the segment, then
+// a fixed shuffle tree (deterministic); acc[12] (gl, then Hll row-major) is
+// valid in lane 0.
+__device__ __forceinline__ void landmark_lin_warp(const float* pose, const float* lm, const float* meas,
+                                                  const float* info, const int* ll_rk, const int* lm_slots, int j0,
+                                                  int j1, int K, int E, int kind, float delta, int lane, float* acc) {
+#pragma unroll
+  for (int c = 0; c < 12; ++c) acc[c] = 0.f;
+  for (int j = j0 + lane; j < j1; j += 32) {
+    const int e = lm_slots[j], k = e % K;
+    V3 t;
+    Q4 q;
+    load_pose(pose, K, k, t, q);
+    const M3 Rt = rotmat(qconj(q));
+    const SlotLin s = slot_linearize(Rt, t, lm, ll_rk, meas, info, E, e, kind, delta);
+    const V3 gl = mTv(Rt, s.Orw);
+    const M3 H = mulT(Rt, mul(s.Ow, Rt));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      acc[i] += gl.v[i];
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) acc[3 + 3 * i + jj] += H.m[i][jj];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 12; ++c)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
+}
+
+// K3, thread (lane, g): the robust chi2 of pose k's slots r = r0 + g, ... < r1
+__device__ __forceinline__ float obs_slot_group_chi2(const M3& Rt, const V3& t, const float* lm, const float* meas,
+                                                     const float* info, const int* ll_rk, int K, int E, int k,
+                                                     int r0, int r1, int g, int G, int kind, float delta) {
+  float chi = 0.f;
+  for (int r = r0 + g; r < r1; r += G) {
+    float rho, w;
+    robust_rho_w(obs_slot(Rt, t, lm, ll_rk, meas, info, E, r * K + k).chi, kind, delta, rho, w);
+    chi += rho;
+  }
+  return chi;
 }
 
 // Deterministic block sum of NV values per thread (blockDim.x a multiple of

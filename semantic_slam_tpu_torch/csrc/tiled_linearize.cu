@@ -75,7 +75,7 @@ rows_obs_pose(const float* __restrict__ pose, const float* __restrict__ lm, cons
     const ObsPose o = obs_pose_linearize(pose, lm, meas, info, ll_rk, Kl, R, k, kind, delta, v_out, Ow_out, Rt_out,
                                          slot_gl, slot_hll);
     chi[0] = o.chi;
-    store_pose_gp_diag(o, gi, Hii, nullptr, nullptr, Kl, k, gp, diag);  // gp_obs + gi, diag_obs + Hii
+    store_pose_gp_diag(o, gi, Hii, Kl, k, gp, diag);  // gp_obs + gi, diag_obs + Hii
   }
   block_sum<1>(chi, smem);
   if (threadIdx.x == 0) partial[blockIdx.x] = chi[0];

@@ -90,8 +90,8 @@ LAYERS = (
 CTYPES_KERNELS = {
     "score_hypotheses": ("score_kernel",),
     "chain_linearize": ("chain_kernel",),
-    "obs_linearize": ("pose_kernel", "landmark_kernel"),
-    "resident_chi2": ("chi2_kernel",),
+    "obs_linearize": ("lin_slots_kernel", "lin_fold_kernel"),
+    "resident_chi2": ("chi2_slots_kernel",),
     "resident_solve": ("solve_cluster_kernel", "solve_grid_kernel"),
     "tiled_chain_linearize": ("rows_chain",),
     "tiled_obs_linearize": ("rows_obs_pose", "rows_obs_lm"),
@@ -103,36 +103,45 @@ CTYPES_KERNELS = {
 
 # wrappers that also launch the shared one-block sum ``reduce2_kernel``
 # (soa_common.cuh), which a session trace cannot assign to one of them
-REDUCE2_LAUNCHERS = ("chain_linearize", "obs_linearize", "resident_chi2", "tiled_chain_linearize",
-                     "tiled_obs_linearize", "tiled_chi2")
+REDUCE2_LAUNCHERS = ("chain_linearize", "resident_chi2", "tiled_chain_linearize", "tiled_obs_linearize",
+                     "tiled_chi2")
+
+
+# traces kernel_device_ms takes at most: CUPTI now and then hands back a
+# trace without the kernel's events (seen once for K4's cooperative launch)
+DEVICE_MS_TRACES = 3
 
 
 def kernel_device_ms(fn, label: str, reps: int = 20) -> float:
     """Device ms per call of ``fn``, a call of the wrapper ``label`` alone:
     the summed intervals of its kernels (``CTYPES_KERNELS``, and
     ``reduce2_kernel`` where it launches one) in a ``torch.profiler`` trace
-    of ``reps`` calls after three warm-up calls. It leaves out the wrapper's
-    host work between launches, which CUDA events around back-to-back calls
-    include."""
+    of ``reps`` calls after three warm-up calls, traced again (up to
+    ``DEVICE_MS_TRACES`` times) while a trace holds none of them. It leaves
+    out the wrapper's host work between launches, which CUDA events around
+    back-to-back calls include."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     names = CTYPES_KERNELS[label] + (("reduce2_kernel",) if label in REDUCE2_LAUNCHERS else ())
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA and any(f"{n}(" in e.name for n in names)]
+    for _ in range(DEVICE_MS_TRACES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA and any(f"{n}(" in e.name for n in names)]
+        if evs:
+            break
+    else:
+        raise RuntimeError(f"no kernel events of {names} in {DEVICE_MS_TRACES} traces of {reps} calls")
     # each kernel launches at most once a call; the mean per kernel name, summed,
     # also holds where the trace dropped some events
     by_name = {}
     for e in evs:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if not by_name:
-        raise RuntimeError(f"no kernel events of {names} in a trace of {reps} calls")
     return sum(sum(v) / len(v) for v in by_name.values()) / 1e3
 
 

@@ -4,7 +4,8 @@
   * ``chain_linearize``    -- K2, ``csrc/soa_linearize.cu``
   * ``obs_linearize``      -- K1, ``csrc/soa_linearize.cu``; ``resident_linearize``
     runs K2 then K1
-  * ``resident_chi2``      -- K3, ``csrc/soa_chi2.cu``
+  * ``resident_chi2``      -- K3, ``csrc/soa_chi2.cu``; ``lin_split`` spreads
+    K1's and K3's slots over the grid
   * ``resident_solve``     -- K4, ``csrc/soa_solve.cu``, with the fixed-lag
     prior's dense boundary block when one is given; ``solve_shape`` picks
     its launch shape (one thread-block cluster or the cooperative grid)
@@ -37,6 +38,31 @@ MAX_SOLVE_BLOCKS = 4096  # K4's dot-product partials are sized for this many blo
 # shared memory, beside a fixed 17,764 bytes of static shared memory
 SOLVE_CLUSTER_CTAS = 16
 SOLVE_STATIC_SMEM = 17764
+
+
+# K1's and K3's blocks (csrc/soa_linearize.cu, soa_chi2.cu): 32 consecutive
+# poses, one a lane, times up to 8 slot groups (warps)
+LIN_POSES = 32
+LIN_MAX_GROUPS = 8
+
+
+def lin_split(K: int, R: int, sms: int) -> tuple[int, int]:
+    """K1's and K3's launch split ``(RB, G)``: a block takes 32 poses and a
+    chunk of RB of their R slots, walked by G = min(RB, 8) slot groups; the
+    chunks of a pose range are blocks of their own. RB comes from the fewest
+    chunks whose grid, ceil(K / 32) pose ranges x ceil(R / RB) chunks, fills
+    one wave of ``sms`` blocks (the card's SM count), and is 1 where none
+    does. Nothing else picks or forces a split."""
+    ranges = -(-K // LIN_POSES)
+    for chunks in range(1, R + 1):
+        RB = -(-R // chunks)
+        if ranges * -(-R // RB) >= sms:
+            break
+    return RB, min(RB, LIN_MAX_GROUPS)
+
+
+def _lin_split_on(dev: torch.device, K: int, R: int) -> tuple[int, int]:
+    return lin_split(K, R, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 def solve_cluster_smem(K: int, R: int, L: int) -> int:
@@ -164,12 +190,13 @@ def obs_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, chain: ChainLi
     gp, diag = torch.empty((6, K), **f32), torch.empty((6, 6, K), **f32)
     gl, Hll = torch.empty((L, 3), **f32), torch.empty((L, 3, 3), **f32)
     chi = torch.empty((), **f32)
-    scratch = torch.empty((lib.soa_obs_lin_scratch(K, R),), **f32)
+    RB, G = _lin_split_on(dev, K, R)
+    scratch = torch.empty((lib.soa_obs_lin_scratch(K, R, RB),), **f32)
     with torch.cuda.device(dev):
         code = lib.soa_obs_lin_launch(
             pose_ch.data_ptr(), lm.data_ptr(), meas.data_ptr(), info.data_ptr(), se.ll_rk.data_ptr(),
             se.lm_slots.data_ptr(), se.lm_start.data_ptr(), Hii.data_ptr(), Hjj.data_ptr(), gi.data_ptr(),
-            gj.data_ptr(), chi_chain.data_ptr(), K, R, L, kind, float(robust_delta),
+            gj.data_ptr(), chi_chain.data_ptr(), K, R, L, RB, G, kind, float(robust_delta),
             v.data_ptr(), Ow.data_ptr(), Rt.data_ptr(), gp.data_ptr(), diag.data_ptr(), gl.data_ptr(), Hll.data_ptr(),
             chi.data_ptr(), scratch.data_ptr(), _stream(dev),
         )
@@ -209,11 +236,12 @@ def resident_chi2(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: s
     pose_ch, lm = _f32(poses.T), _f32(landmarks)
     meas, info, o_meas, o_info = _f32(se.meas), _f32(se.info), _f32(se.o_meas_ch), _f32(se.o_info_ch)
     chi = torch.empty((), **f32)
-    scratch = torch.empty((lib.soa_chi2_scratch(K),), **f32)
+    RB, G = _lin_split_on(dev, K, R)
+    scratch = torch.empty((lib.soa_chi2_scratch(K, R, RB),), **f32)
     with torch.cuda.device(dev):
         code = lib.soa_chi2_launch(
             pose_ch.data_ptr(), lm.data_ptr(), meas.data_ptr(), info.data_ptr(), se.ll_rk.data_ptr(),
-            o_meas.data_ptr(), o_info.data_ptr(), K, R, kind, float(robust_delta), chi.data_ptr(),
+            o_meas.data_ptr(), o_info.data_ptr(), K, R, RB, G, kind, float(robust_delta), chi.data_ptr(),
             scratch.data_ptr(), _stream(dev),
         )
     _build.check(code, "soa_chi2 kernel launch", "soa_chi2")

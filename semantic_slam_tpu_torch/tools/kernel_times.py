@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Device times of K4 (the resident Schur-PCG solve) and K9 (the row-range
-matvec's per-pose half) on one NVIDIA GPU, for this checkout or another one.
+"""Device times of K1-K3 (the resident loop's linearization and objective),
+K4 (the resident Schur-PCG solve) and K9 (the row-range matvec's per-pose
+half) on one NVIDIA GPU, for this checkout or another one.
 
     python semantic_slam_tpu_torch/tools/kernel_times.py [--root DIR] [--split] --out FILE
     python semantic_slam_tpu_torch/tools/kernel_times.py --baseline DIR --out FILE
 
 ``--root DIR`` measures the package of the checkout at DIR (default: this
 one) through its own wrappers, built from its own sources. The shapes are
-``chip_smoke.py``'s (imported from DIR): K4 with the marginalized fixed-lag
+``chip_smoke.py``'s (imported from DIR): K1, K2 and K3 on the perturbed
+graphs of the fixed-lag pcg session (K=512, L=128, R=32) and of the pcg
+session (K=4096, L=1024, R=32), K1 and K3 under robust none, huber and dcs;
+K4 with the marginalized fixed-lag
 prior at the fixed-lag session's graph (K=512, L=128, R=32) and at the pcg
 session's (K=4096, L=1024, R=32), also without the prior, at 128 and at 0
 fixed CG steps (the difference over 128 is the time of a step); K9 on all
@@ -19,6 +23,10 @@ work between launches included).
 ``--split`` also times copies of K4's source with one phase body emptied
 (the early exit off, so that every copy runs all steps): what a step spends
 per phase, and in barriers and reductions alone (every body emptied).
+
+``--sweep`` also times K1 and K3 at both shapes under other launch splits
+than ``kernels.lin_split`` picks (slots a block, slot groups a block), where
+the checkout has that rule.
 
 ``--baseline DIR`` runs this script on DIR and on this checkout in turns
 (baseline, this, this, baseline), each in a process of its own, and writes
@@ -40,6 +48,13 @@ THIS_ROOT = os.path.dirname(os.path.dirname(HERE))
 # kernel names a wrapper launches, in either version of the sources
 K4_NAMES = ("solve_kernel", "solve_cluster_kernel", "solve_grid_kernel")
 K9_NAMES = ("rows_mvb_pose",)
+K1_NAMES = ("pose_kernel", "landmark_kernel", "reduce2_kernel", "lin_slots_kernel", "lin_fold_kernel")
+K2_NAMES = ("chain_kernel", "reduce2_kernel")
+K3_NAMES = ("chi2_kernel", "reduce2_kernel", "chi2_slots_kernel")
+LIN_SHAPES = (("K=512 L=128 R=32", "FL_ENGINE"), ("K=4096 L=1024 R=32", "BENCH"))
+# (slots a block, slot groups a block) tried by --sweep at each shape
+SWEEP = {"K=512 L=128 R=32": ((1, 1), (2, 2), (4, 4), (8, 8), (32, 8)),
+         "K=4096 L=1024 R=32": ((4, 4), (8, 8), (16, 4), (32, 8))}
 # phase anchors of K4's source: (anchor, text after it, replacement); the
 # first set is the earlier single-shape kernel's, the second the two-shape one's
 SPLIT_EDITS = (
@@ -67,9 +82,10 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def device_ms(torch, fn, names, reps: int) -> tuple[float, float]:
+def device_ms(torch, fn, names, reps: int, per_kernel: dict | None = None) -> tuple[float, float]:
     """(device ms, CUDA-event ms) per call of ``fn`` over ``reps`` calls after
-    warm-up; device ms sums the intervals of the kernels named ``names``."""
+    warm-up; device ms sums the intervals of the kernels named ``names``, and
+    ``per_kernel``, where given, receives each kernel's own ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -83,12 +99,15 @@ def device_ms(torch, fn, names, reps: int) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and any(f"{n}(" in e.name for n in names)]
+    for _ in range(3):  # traced again while a trace holds none of the kernels' events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and any(f"{n}(" in e.name for n in names)]
+        if evs:
+            break
     # each kernel launches at most once a call; the mean per kernel name, summed,
     # also holds where the trace dropped some events
     by_name = {}
@@ -96,8 +115,10 @@ def device_ms(torch, fn, names, reps: int) -> tuple[float, float]:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not by_name:
         raise RuntimeError(f"no kernel events of {names} in a trace of {reps} calls")
-    ms = sum(sum(v) / len(v) for v in by_name.values()) / 1e3
-    return ms, event_ms
+    means = {next(n for n in names if f"{n}(" in name): sum(v) / len(v) / 1e3 for name, v in by_name.items()}
+    if per_kernel is not None:
+        per_kernel.update(means)
+    return sum(means.values()), event_ms
 
 
 def _variant_libs(root: str, build_dir: str) -> dict:
@@ -138,7 +159,44 @@ def _variant_libs(root: str, build_dir: str) -> dict:
     return libs
 
 
-def measure(root: str, reps: int, split: bool) -> dict:
+def measure_lin(torch, cs, kernels, reps: int, sweep: bool, smi: str) -> dict:
+    """K1, K2 and K3 at LIN_SHAPES: device and event ms (and, with ``sweep``,
+    K1 and K3 under other launch splits)."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+
+    out = {}
+    for label, shape in LIN_SHAPES:
+        g, se, _, _, _ = cs._soa_case(torch, **getattr(cs, shape), R=cs.ENGINE_R, perturb=True)
+        cp = soa.soa_chain_linearize(g.poses, se)
+        fns = {"K2": (lambda: kernels.chain_linearize(g.poses, se), K2_NAMES)}
+        for kind in ("none", "huber", "dcs"):
+            fns[f"K1 {kind}"] = (lambda kind=kind: kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind), K1_NAMES)
+            fns[f"K3 {kind}"] = (lambda kind=kind: kernels.resident_chi2(g.poses, g.landmarks, se, kind), K3_NAMES)
+        rule = getattr(kernels, "lin_split", None)
+        splits = [None] + (list(SWEEP[label]) if sweep and rule else [])
+        for sp in splits:
+            if sp is not None:
+                kernels.lin_split = lambda K, R, sms, sp=sp: sp
+            try:
+                for name, (fn, names) in fns.items():
+                    if sp is not None and name == "K2":
+                        continue
+                    per = {}
+                    dev, ev = device_ms(torch, fn, names, reps, per)
+                    key = f"{name} [{label}]" + (f" split {sp}" if sp else "")
+                    out[key] = {"device_ms": dev, "event_ms": ev, "per_kernel_ms": per}
+                    if sp is None and rule and name != "K2":
+                        out[key]["split"] = list(rule(g.poses.shape[0], cs.ENGINE_R,
+                                                      torch.cuda.get_device_properties(0).multi_processor_count))
+                    split = ", ".join(f"{n} {t:.5f}" for n, t in per.items())
+                    print(f"{key}: device {dev:.5f} ms ({split}), event {ev:.5f} ms ({smi})", flush=True)
+            finally:
+                if rule:
+                    kernels.lin_split = rule
+    return out
+
+
+def measure(root: str, reps: int, split: bool, sweep: bool) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -155,6 +213,7 @@ def measure(root: str, reps: int, split: bool) -> dict:
         raise SystemExit("kernel_times: no CUDA device")
     _build.build()
     out = {"root": root, "card": card(), "k4": {}, "k9": {}}
+    out["lin"] = measure_lin(torch, cs, kernels, reps, sweep, out["card"])
     cases = {}
     for label, shape in (("K=512 L=128 R=32", cs.FL_ENGINE), ("K=4096 L=1024 R=32", cs.BENCH)):
         g, se, pf, lf, prior, _, R = cs._prior_case(torch, **shape, R=cs.ENGINE_R)
@@ -170,7 +229,7 @@ def measure(root: str, reps: int, split: bool) -> dict:
             key = f"{label}{' prior' if with_prior else ''}"
             out["k4"][key] = {"device_ms": row[128][0], "event_ms": row[128][1], "device_ms_0_steps": row[0][0],
                               "device_us_per_step": (row[128][0] - row[0][0]) / 128 * 1e3}
-            print(f"K4 [{key}]: {json.dumps(out['k4'][key])}", flush=True)
+            print(f"K4 [{key}]: {json.dumps(out['k4'][key])} ({out['card']})", flush=True)
     g, _, _, _, R = cs._soa_case(torch, **cs.TILED_BENCH, R=cs.ENGINE_R, perturb=True)
     K = cs.TILED_BENCH["K"]
     rr = cs.RowRange(torch, g, R, 0, K)
@@ -181,7 +240,7 @@ def measure(root: str, reps: int, split: bool) -> dict:
     z = torch.linalg.solve(lp.Hll + torch.eye(3, device="cuda"), Tp[..., None])[..., 0]
     dev, ev = device_ms(torch, lambda: tk.tiled_mv_bwd(lp, rr.de, Op, z, x, xj), K9_NAMES, 10 * reps)
     out["k9"]["K=8192 L=2048 R=32"] = {"device_ms": dev, "event_ms": ev}
-    print(f"K9 [K=8192 L=2048 R=32]: device {dev:.5f} ms, event {ev:.5f} ms", flush=True)
+    print(f"K9 [K=8192 L=2048 R=32]: device {dev:.5f} ms, event {ev:.5f} ms ({out['card']})", flush=True)
 
     if split:
         out["split"] = {}
@@ -208,17 +267,19 @@ def main() -> int:
     ap.add_argument("--root", default=THIS_ROOT, help="checkout whose package is measured")
     ap.add_argument("--baseline", help="another checkout, measured in turns with this one")
     ap.add_argument("--split", action="store_true", help="also the per-phase split of a K4 step")
+    ap.add_argument("--sweep", action="store_true", help="also K1 and K3 under other launch splits")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", required=True, help="JSON file to write")
     args = ap.parse_args()
     if not args.baseline:
-        res = measure(os.path.abspath(args.root), args.reps, args.split)
+        res = measure(os.path.abspath(args.root), args.reps, args.split, args.sweep)
     else:
         runs = []
         for i, root in enumerate((args.baseline, THIS_ROOT, THIS_ROOT, args.baseline)):
             part = f"{args.out}.{i}"
             cmd = [sys.executable, os.path.abspath(__file__), "--root", os.path.abspath(root), "--reps",
-                   str(args.reps), "--out", part] + (["--split"] if args.split and i in (0, 1) else [])
+                   str(args.reps), "--out", part] + (["--split"] if args.split and i in (0, 1) else []) + (
+                       ["--sweep"] if args.sweep and i in (0, 1) else [])
             print(f"== {' '.join(cmd)}", flush=True)
             subprocess.run(cmd, check=True)
             with open(part) as f:

@@ -1,7 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions (K5,
 the RANSAC scoring kernel; K1-K4, the resident SoA Schur-PCG solver's
-kernels, K4 also with a fixed-lag prior and in both of its launch shapes;
-K6-K10, the row-range solver's; K4 and K9 also bit for bit on a repeat),
+kernels, K1 and K3 also at the sessions' and ragged graphs and with empty
+parts, K4 also with a fixed-lag prior and in both of its launch shapes;
+K6-K10, the row-range solver's; K1, K3, K4 and K9 also bit for bit on a
+repeat),
 and small sessions on the card (dense, ``--solver pcg`` and ``--solver pcg``
 on the row-range loop; dense and pcg with fixed-lag smoothing) against the
 same sessions on the CPU.
@@ -128,6 +130,104 @@ def test_soa_linearize_and_chi2_match_plain(cuda, robust, R):
     torch.cuda.synchronize()
     assert (sk.chain_linearize.launches, sk.obs_linearize.launches, sk.resident_chi2.launches) == tuple(
         c + 1 for c in counts)
+
+
+# K1 and K3 (their pose's slots spread over the grid by ``lin_split``) at the
+# fixed-lag pcg and pcg sessions' graphs and at ragged ones: id -> (K, L, E2, R)
+LIN_CASES = {
+    "fixed-lag-K512-R32": (512, 128, 2048, 32),
+    "pcg-K4096-R32": (4096, 1024, 16384, 32),
+    "ragged-K1000-R5": (1000, 250, 8 + 998 * 5, 5),
+    "ragged-K4999-R5": (4999, 1250, 8 + 4997 * 5, 5),
+}
+LIN_OUTPUTS = ("v", "Ow", "Rt", "gp", "diag", "gl", "Hll", "chi2")
+
+
+def lin_case(device, case, variant="graph"):
+    """The case's graph; ``idle-landmarks`` adds 7 landmarks that no slot
+    observes, ``no-slots`` leaves every slot empty."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    K, L, E2, R = LIN_CASES[case]
+    g, se, _ = soa_case(device, K=K, L=L, E2=E2, R=R)
+    if variant == "idle-landmarks":
+        extra = torch.as_tensor(np.random.default_rng(3).normal(size=(7, 3)), dtype=torch.float32, device=device)
+        g = g.replace(landmarks=torch.cat([g.landmarks, extra]))
+        se = soa.build_soa_edges(_edge_args(g), K, R, L + 7)
+    elif variant == "no-slots":
+        args = list(_edge_args(g))
+        args[9] = torch.zeros_like(args[9])  # the landmark-edge mask
+        se = soa.build_soa_edges(tuple(args), K, R, L)
+    return g, se
+
+
+def check_lin_chi2(g, se, robust):
+    """K1 on the plain chain blocks and K3 against their plain versions: each
+    output within 1e-4 of its own scale (f32, summation order only); returns
+    the kernels' outputs."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    cp = soa.soa_chain_linearize(g.poses, se)
+    counts = (sk.obs_linearize.launches, sk.resident_chi2.launches)
+    lk = sk.obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
+    lp = soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
+    xk = sk.resident_chi2(g.poses, g.landmarks, se, robust, 1.0)
+    xp = soa.soa_chi2(g.poses, g.landmarks, se, robust, 1.0)
+    torch.cuda.synchronize()
+    assert (sk.obs_linearize.launches, sk.resident_chi2.launches) == tuple(c + 1 for c in counts)
+    for name in LIN_OUTPUTS:
+        got, want = getattr(lk, name), getattr(lp, name)
+        assert bool(torch.isfinite(got).all()), name
+        assert rel_err(got, want) <= 1e-4, name
+    assert rel_err(xk, xp) <= 1e-4
+    return lk, xk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
+@pytest.mark.parametrize("case", sorted(LIN_CASES))
+def test_lin_chi2_match_plain(cuda, case, robust):
+    """K1 and K3 against their plain versions at the sessions' graphs and at
+    ragged K and R, under each robust kernel."""
+    check_lin_chi2(*lin_case(cuda, case), robust)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
+@pytest.mark.parametrize("variant", ["idle-landmarks", "no-slots"])
+def test_lin_chi2_empty_parts_match_plain(cuda, variant, robust):
+    """K1 and K3 with landmarks that no slot observes, and with every slot
+    empty: those landmarks' gl and Hll, and everything empty slots add, are
+    exactly 0."""
+    g, se = lin_case(cuda, "ragged-K1000-R5", variant)
+    lk, xk = check_lin_chi2(g, se, robust)
+    idle = slice(LIN_CASES["ragged-K1000-R5"][1], None) if variant == "idle-landmarks" else slice(None)
+    assert float(lk.gl[idle].abs().max()) == 0.0 and float(lk.Hll[idle].abs().max()) == 0.0
+    if variant == "no-slots":
+        from semantic_slam_tpu_torch.solver import ellk_soa as soa
+
+        assert float(lk.Ow.abs().max()) == 0.0
+        assert rel_err(xk, soa.soa_chain_linearize(g.poses, se).chi2) <= 1e-4  # the chain's alone
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fixed-lag-K512-R32", "ragged-K4999-R5"])
+def test_lin_chi2_repeat_bit_for_bit(cuda, case):
+    """K1 and K3 give the same bits on two launches (fixed summation orders,
+    no float atomics)."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    g, se = lin_case(cuda, case)
+    cp = soa.soa_chain_linearize(g.poses, se)
+    a = sk.obs_linearize(g.poses, g.landmarks, se, cp, "huber", 1.0)
+    b = sk.obs_linearize(g.poses, g.landmarks, se, cp, "huber", 1.0)
+    for name in LIN_OUTPUTS:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    xs = [sk.resident_chi2(g.poses, g.landmarks, se, "huber", 1.0) for _ in range(3)]
+    assert torch.equal(xs[0], xs[1]) and torch.equal(xs[1], xs[2])
 
 
 @pytest.mark.cuda

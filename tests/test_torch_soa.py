@@ -375,3 +375,27 @@ def test_solve_shape_rule():
     assert tk.solve_shape(4999, 5, 1250, H100_SMEM_PER_BLOCK) == "grid"
     # a card with less shared memory takes the grid at the session's graph
     assert tk.solve_shape(512, 32, 128, 100 * 1024) == "grid"
+
+
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def test_lin_split_rule():
+    """K1's and K3's launch split: a block takes 32 poses and a chunk of RB
+    slots in G <= min(RB, 8) slot groups; the chunks cover R with none empty,
+    and the grid fills one wave of an H100's SMs wherever K and R allow it,
+    with no fewer chunks that would."""
+    for K, R in ((512, 32), (4096, 32), (1000, 5), (4999, 5), (300, 16), (40, 3), (8192, 32), (1, 1)):
+        RB, G = tk.lin_split(K, R, H100_SMS)
+        ranges, chunks = -(-K // 32), -(-R // RB)
+        assert 1 <= G <= min(RB, 8) and (chunks - 1) * RB < R <= chunks * RB
+        if ranges * R >= H100_SMS:
+            assert ranges * chunks >= H100_SMS
+        else:
+            assert RB == 1
+        fewer = [c for c in range(1, chunks) if ranges * -(-R // -(-R // c)) >= H100_SMS]
+        assert not fewer, (K, R, fewer)
+    # the fixed-lag pcg session's graph: 16 pose ranges x 11 chunks of 3 slots
+    assert tk.lin_split(512, 32, H100_SMS) == (3, 3)
+    # the pcg session's: 128 pose ranges x 2 chunks of 16 slots, 8 slot groups
+    assert tk.lin_split(4096, 32, H100_SMS) == (16, 8)
