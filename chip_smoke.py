@@ -16,11 +16,14 @@ before the result line:
              intervals in a ``torch.profiler`` trace (device time):
              K5 (RANSAC scoring) at [D=8, N=65,536, S=128], its bound
              counted in instructions a test; K1-K4 (the
-             resident SoA Schur-PCG solver) at the bench shape
+             resident SoA Schur-PCG solver; K1 + K2 as the one call the LM
+             makes, its chain outputs and its linearization each against
+             the plain version, and K1 alone on given chain blocks) at the
+             bench shape
              K=4096/L=1024/E2=16384 (R=4), at the engine's
              ``--max-keyframes 4096`` shape (R=32), at the fixed-lag pcg
-             session's K=512/L=128/E2=2048 (R=32; K1 and K3 timed under
-             each robust kernel) and at a ragged K=1000, under robust
+             session's K=512/L=128/E2=2048 (R=32; K1 + K2, K1 alone and K3
+             timed under each robust kernel) and at a ragged K=1000, under robust
              none/huber/dcs; K6-K10 (the row-range solver) at
              the bench shape K=8192/L=2048/E2=32768 (R=4), at the engine's
              ``--max-keyframes 8192`` shape (R=32) and at K=16384/L=4096, each
@@ -50,7 +53,7 @@ before the result line:
              (K=4096/L=1024/E2=16384, R=32): every LM iteration runs K1-K4;
 8. tiled slice -- the same session with ``--solver pcg --max-keyframes 8192``
              (K=8192/L=2048/E2=32768, R=32): every LM iteration runs K6-K10,
-             and the marginals' linearization K1+K2;
+             and the marginals' linearization K1 + K2;
 9. fixed-lag slices -- a longer 640x480 session (seed 1, 1920 steps, ~120
              keyframes) with ``--fixed-lag 64``, dense and ``--solver pcg``
              (resident loop at K=512): at least 3 marginalizations, fewer than
@@ -61,10 +64,13 @@ The counters are reset just before each session and checked against the LM's
 iteration counts just after.
 
 The line before the last is a JSON object with one entry per kernel (launches
-from the session whose path runs it, K1-K3 and K5 from the pcg slice, K4 from
-the fixed-lag pcg slice, K6-K10 from the tiled slice; times and errors at the
-engine shapes, K4's with the prior at the fixed-lag session's shape; each
-kernel's bound, and its device time; K4's also per CG step); the last line
+from the session whose path runs it, K1-K3 and K5 from the pcg slice (K1's and
+K2's both the count of their one wrapper), K4 from the fixed-lag pcg slice,
+K6-K10 from the tiled slice; times and errors at the engine shapes, K4's with
+the prior at the fixed-lag session's shape, K1's those of K1 alone, K2's
+device time the pair's less K1's and its event time the pair's call, all
+measured here; each kernel's bound, and its device time; K4's also per CG
+step); the last line
 is ``{"ok": true, "device": {...}}``.
 Artifacts of the sessions go to ``OUT_DIR`` under the checkout. Run
 without the package beside it, the script exits 4, a code of its own
@@ -87,7 +93,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 # pairs within this distance of either threshold may count differently in the
 # kernel (FMA chain) and the plain version (cuBLAS matmul)
 THRESHOLD_BAND = 1e-6
-# K1-K3 against plain: max |kernel - plain| over max |plain|, per output (f32,
+# K1-K3, K6-K10 against plain: max |kernel - plain| over max |plain|, per output (f32,
 # summation order only)
 LIN_RTOL = 1e-4
 # K4 against plain: ||kernel - plain|| / ||plain|| for dp and db, the repo's
@@ -304,6 +310,10 @@ def _soa_case(torch, K: int, L: int, E2: int, R: int | None = None, perturb: boo
     return g, se, pf, lf, R
 
 
+# the linearization's outputs that K1 computes (Hii, Hij, Hjj are K2's)
+LIN_FIELDS = ("v", "Ow", "Rt", "gp", "diag", "gl", "Hll", "chi2")
+
+
 def _rel_err(torch, got, want) -> tuple[float, float]:
     """(max |got - want|, that over max |want|)."""
     d = float((got.double() - want.double()).abs().max())
@@ -372,26 +382,23 @@ def check_soa_kernels(torch) -> dict:
         timed = not label.startswith("ragged")
         record = label.startswith("engine")
         for kind in kinds:
-            # K2
-            ck = kernels.chain_linearize(g.poses, se)
+            # K1 + K2 as the LM calls them: the chain's own outputs, then the linearization that folds them in
+            lk, ck = kernels.fused_linearize(g.poses, g.landmarks, se, kind, 1.0)
             cp = soa.soa_chain_linearize(g.poses, se)
-            errs = {n: _rel_err(torch, a, b) for n, a, b in zip(cp._fields, ck, cp)}
-            worst = max(e[1] for e in errs.values())
-            if kind == "none":
-                print(f"  chain_linearize (K2): max rel err {worst:.3g} (bound {LIN_RTOL:g}) "
-                      + ", ".join(f"{n} {e[1]:.2g}" for n, e in errs.items()))
-                require(worst <= LIN_RTOL, f"{label}: K2 disagrees with its plain version: {errs}")
-                if record:
-                    out["chain_linearize"] = {"max_abs_err": max(e[0] for e in errs.values())}
-            # K1 on the plain chain blocks, so that its own error shows
-            lk = kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind, 1.0)
             lp = soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, kind, 1.0)
-            errs = {n: _rel_err(torch, getattr(lk, n), getattr(lp, n))
-                    for n in ("v", "Ow", "Rt", "gp", "diag", "gl", "Hll", "chi2")}
+            e2 = {n: _rel_err(torch, a, b) for n, a, b in zip(cp._fields, ck, cp)}
+            e1 = {n: _rel_err(torch, getattr(lk, n), getattr(lp, n)) for n in LIN_FIELDS}
+            for what, errs in (("chain (K2)", e2), ("linearization (K1)", e1)):
+                worst = max(e[1] for e in errs.values())
+                print(f"  fused_linearize (K1 + K2) [{kind}] {what}: max rel err {worst:.3g} (bound {LIN_RTOL:g}) "
+                      + ", ".join(f"{n} {e[1]:.2g}" for n, e in errs.items()))
+                require(worst <= LIN_RTOL, f"{label} {kind}: K1 + K2's {what} disagrees with its plain version: {errs}")
+            # K1 alone on the plain chain blocks, so that its own error shows
+            la = kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind, 1.0)
+            errs = {n: _rel_err(torch, getattr(la, n), getattr(lp, n)) for n in LIN_FIELDS}
             worst = max(e[1] for e in errs.values())
-            print(f"  obs_linearize (K1) [{kind}]: max rel err {worst:.3g} (bound {LIN_RTOL:g}) "
-                  + ", ".join(f"{n} {e[1]:.2g}" for n, e in errs.items()))
-            require(worst <= LIN_RTOL, f"{label} {kind}: K1 disagrees with its plain version: {errs}")
+            print(f"  obs_linearize (K1 alone) [{kind}]: max rel err {worst:.3g} (bound {LIN_RTOL:g})")
+            require(worst <= LIN_RTOL, f"{label} {kind}: K1 alone disagrees with its plain version: {errs}")
             # K3
             xk = kernels.resident_chi2(g.poses, g.landmarks, se, kind, 1.0)
             xp = soa.soa_chi2(g.poses, g.landmarks, se, kind, 1.0)
@@ -400,7 +407,8 @@ def check_soa_kernels(torch) -> dict:
                   f"{e3[1]:.3g} (bound {LIN_RTOL:g})")
             require(e3[1] <= LIN_RTOL, f"{label} {kind}: K3 disagrees with its plain version")
             if record and kind == "none":
-                out["obs_linearize"] = {"max_abs_err": max(e[0] for e in errs.values())}
+                out["chain_linearize"] = {"max_abs_err": max(e[0] for e in e2.values())}
+                out["obs_linearize"] = {"max_abs_err": max(e[0] for e in e1.values())}
                 out["resident_chi2"] = {"max_abs_err": e3[0]}
 
         # K4 on the plain linearization at the LM's first damping
@@ -421,13 +429,17 @@ def check_soa_kernels(torch) -> dict:
         if not timed:
             continue
         # times: CUDA events after warm-up; K4 at fixed work (cg_tol=0, 128 steps), not at the fixed-lag shape,
-        # where check_soa_prior times it with the prior; K1 and K3 there under each robust kernel
+        # where check_soa_prior times it with the prior; K1 + K2, K1 alone and K3 there under each robust kernel.
+        # K2 has no launch of its own: its device time is the pair's less K1 alone's, its event time the pair's
+        # call (the host's share of a call swamps the difference of two calls), its plain time the chain's own
         cp = soa.soa_chain_linearize(g.poses, se)
         fixed_lag = shape is FL_ENGINE
-        runs = [("chain_linearize", "", lambda: kernels.chain_linearize(g.poses, se),
-                 lambda: soa.soa_chain_linearize(g.poses, se))]
+        runs = [("chain plain", "", None, lambda: soa.soa_chain_linearize(g.poses, se))]
         for kind in kinds if fixed_lag else ("none",):
             runs += [
+                ("resident_linearize", kind,
+                 lambda kind=kind: kernels.resident_linearize(g.poses, g.landmarks, se, kind),
+                 lambda kind=kind: soa.soa_linearize(g.poses, g.landmarks, se, kind)),
                 ("obs_linearize", kind, lambda kind=kind: kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind),
                  lambda kind=kind: soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, kind)),
                 ("resident_chi2", kind, lambda kind=kind: kernels.resident_chi2(g.poses, g.landmarks, se, kind),
@@ -437,16 +449,34 @@ def check_soa_kernels(torch) -> dict:
             runs.append(("resident_solve", "", lambda: kernels.resident_solve(lin, se, lam, pf, lf, 128, 0.0),
                          lambda: soa.soa_schur_step(lin, se, lam, pf, lf, 128, 0.0)))
         bf["resident_solve"] = _solve_bytes_flops(K, R, L, E_real, 128)
+        bf["resident_linearize"] = tuple(a + b for a, b in zip(bf["obs_linearize"], bf["chain_linearize"]))
+        times = {}
         for name, kind, kern, plain in runs:
             reps = 5 if name == "resident_solve" else 20
-            ms, plain_ms = _time_ms(torch, kern, reps), _time_ms(torch, plain, reps)
-            dev_ms = _device_ms(torch, kern, name, reps)
+            plain_ms = _time_ms(torch, plain, reps)
+            if kern is None:
+                times[name] = {"plain_ms": plain_ms}
+                continue
+            ms, dev_ms = _time_ms(torch, kern, reps), _device_ms(torch, kern, name, reps)
+            times[(name, kind)] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms}
             b = bound(*bf[name])
             print(f"  {name} [{label}{', ' + kind if kind else ''}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                   f"(CUDA events, mean of {reps}), kernel device time {dev_ms:.4f} ms (profiler); bound "
                   f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
-            if record:
-                out[name].update(ms=ms, plain_ms=plain_ms, device_ms=dev_ms, **b)
+        for kind in kinds if fixed_lag else ("none",):
+            pair, k1 = times[("resident_linearize", kind)], times[("obs_linearize", kind)]
+            k2 = {"ms": pair["ms"], "device_ms": pair["device_ms"] - k1["device_ms"],
+                  "plain_ms": times["chain plain"]["plain_ms"]}
+            b = bound(*bf["chain_linearize"])
+            print(f"  chain_linearize (K2 in K1's launches) [{label}, {kind}]: device time {k2['device_ms']:.4f} "
+                  f"ms (the pair's less K1 alone's), the pair's call {k2['ms']:.4f} ms (CUDA events); plain "
+                  f"{k2['plain_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+            if record and kind == "none":
+                out["chain_linearize"].update(**k2, pair_device_ms=pair["device_ms"], **b)
+                out["obs_linearize"].update(**k1, **bound(*bf["obs_linearize"]))
+                out["resident_chi2"].update(**times[("resident_chi2", kind)], **bound(*bf["resident_chi2"]))
+        if record:
+            out["resident_solve"].update(**times[("resident_solve", "")], **bound(*bf["resident_solve"]))
     return out
 
 
@@ -822,7 +852,7 @@ def check_fixed_lm_prior(torch) -> None:
 # ---------------------------------------------------------------------------
 
 WRAPPERS = (
-    ("chain_linearize", "semantic_slam_tpu_torch.solver.kernels"),
+    ("fused_linearize", "semantic_slam_tpu_torch.solver.kernels"),
     ("obs_linearize", "semantic_slam_tpu_torch.solver.kernels"),
     ("resident_chi2", "semantic_slam_tpu_torch.solver.kernels"),
     ("resident_solve", "semantic_slam_tpu_torch.solver.kernels"),
@@ -833,7 +863,8 @@ WRAPPERS = (
     ("tiled_mv_bwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
     ("tiled_chi2", "semantic_slam_tpu_torch.solver.tiled_kernels"),
 )
-RESIDENT = ("chain_linearize", "obs_linearize", "resident_chi2", "resident_solve")
+RESIDENT = ("fused_linearize", "resident_chi2", "resident_solve")
+PAIR = ("obs_linearize", "chain_linearize")  # K1 and K2, the kernels line's names of the pair
 TILED = ("tiled_chain_linearize", "tiled_obs_linearize", "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
 
 
@@ -954,13 +985,14 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
                 f"[{label}] LM calls {calls} do not match the ticks {iters} on the {loop} loop")
         if loop == "resident":
             expect = {
-                "chain_linearize": sum(it + 2 for it in ran),
-                "obs_linearize": sum(it + 2 for it in ran),
+                "fused_linearize": sum(it + 2 for it in ran),
+                "obs_linearize": 0,
                 "resident_solve": sum(ran),
                 "resident_chi2": sum(ran) + skipped,
                 **{name: 0 for name in TILED},
             }
-            formula = "K1/K2 = sum(it + 2) over solves, K4 = sum(it), K3 = sum(it) + skipped solves, K6-K10 = 0"
+            formula = ("K1 + K2 = sum(it + 2) over solves, K1 alone = 0, K4 = sum(it), K3 = sum(it) + skipped solves, "
+                       "K6-K10 = 0")
         else:
             steps = cfg.solver.pcg_iters
             expect = {
@@ -969,13 +1001,14 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
                 "tiled_mv_fwd": sum(it * (steps + 1) for it in ran),
                 "tiled_mv_bwd": sum(it * (steps + 1) for it in ran),
                 "tiled_chi2": sum(ran) + skipped,
-                "chain_linearize": len(ran),
-                "obs_linearize": len(ran),
+                "fused_linearize": len(ran),
+                "obs_linearize": 0,
                 "resident_solve": 0,
                 "resident_chi2": 0,
             }
             formula = (f"K6/K7 = sum(it) over solves, K8/K9 = sum(it x ({steps} CG steps + 1)), "
-                       "K10 = sum(it) + skipped solves, K1/K2 = one marginals linearization per solve, K3/K4 = 0")
+                       "K10 = sum(it) + skipped solves, K1 + K2 = one marginals linearization per solve, K1 alone, "
+                       "K3, K4 = 0")
         print(f"[{label}] {loop} LM calls (iterations): {calls[loop]}; expected launches: {formula} = {expect}")
         for name, n in expect.items():
             require(launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
@@ -984,7 +1017,7 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
               f"launches per shape {k4_shapes}")
         require(prior_launches == want_prior, f"[{label}] K4 took the prior on {prior_launches} launches, "
                                               f"expected {want_prior}")
-        for name in (RESIDENT if loop == "resident" else TILED + ("chain_linearize", "obs_linearize")):
+        for name in (RESIDENT if loop == "resident" else TILED + ("fused_linearize",)):
             require(launches[name] > 0, f"[{label}] {name} was launched no time on its path")
     else:
         require(not calls["resident"] and not calls["tiled"]
@@ -1090,8 +1123,8 @@ def main() -> int:
         require(fl_pcg["k4_shapes"]["grid"] == 0,
                 f"fixed-lag pcg slice (K=512): K4 left the cluster shape: {fl_pcg['k4_shapes']}")
         n = fl_pcg["launches"]
-        print(f"fixed-lag pcg session launches: K1 obs_linearize {n['obs_linearize']}, K2 chain_linearize "
-              f"{n['chain_linearize']}, K3 resident_chi2 {n['resident_chi2']}, K4 resident_solve {n['resident_solve']}")
+        print(f"fixed-lag pcg session launches: K1 + K2 fused_linearize {n['fused_linearize']} (two kernel launches "
+              f"each), K3 resident_chi2 {n['resident_chi2']}, K4 resident_solve {n['resident_solve']}")
         del fl_log
 
         check_isolation()
@@ -1117,10 +1150,12 @@ def main() -> int:
     kernels_line = {"kernels": [
         {
             "name": name, "route": "cuda", "source": f"semantic_slam_tpu_torch/csrc/{src}", "replaces": rep,
-            "launches": session["launches"][name],
+            # K1 and K2 launch only through the one wrapper of the pair on the path
+            "launches": session["launches"]["fused_linearize" if name in PAIR else name],
             **{k: numbers[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
-            **{k: numbers[name][k] for k in ("device_ms", "device_us_per_step") if k in numbers[name]},
+            **{k: numbers[name][k] for k in ("device_ms", "device_us_per_step", "pair_device_ms")
+               if k in numbers[name]},
         }
         for name, (src, rep, session) in meta.items()
     ]}

@@ -34,10 +34,8 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
         "score_hypotheses_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P], ctypes.c_int),
     },
     "soa_linearize": {
-        "soa_chain_lin_scratch": ([_I], ctypes.c_longlong),
-        "soa_chain_lin_launch": ([_P] * 3 + [_I] + [_P] * 8, ctypes.c_int),
-        "soa_obs_lin_scratch": ([_I, _I, _I], ctypes.c_longlong),
-        "soa_obs_lin_launch": ([_P] * 12 + [_I] * 6 + [_F] + [_P] * 10, ctypes.c_int),
+        "soa_lin_scratch": ([_I] * 4, ctypes.c_longlong),
+        "soa_lin_launch": ([_P] * 9 + [_I] * 7 + [_F] + [_P] * 16, ctypes.c_int),
     },
     "soa_chi2": {
         "soa_chi2_scratch": ([_I, _I, _I], ctypes.c_longlong),
@@ -52,8 +50,8 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
     "tiled_linearize": {
         "tiled_chain_lin_scratch": ([_I], ctypes.c_longlong),
         "tiled_chain_lin_launch": ([_P] * 4 + [_I] + [_P] * 8, ctypes.c_int),
-        "tiled_obs_lin_scratch": ([_I, _I], ctypes.c_longlong),
-        "tiled_obs_lin_launch": ([_P] * 10 + [_I, _I, _I, _I, _F] + [_P] * 10, ctypes.c_int),
+        "tiled_obs_lin_scratch": ([_I] * 3, ctypes.c_longlong),
+        "tiled_obs_lin_launch": ([_P] * 10 + [_I] * 6 + [_F] + [_P] * 10, ctypes.c_int),
     },
     "tiled_matvec": {
         "tiled_mv_fwd_launch": ([_P] * 6 + [_I, _I, _I] + [_P] * 3, ctypes.c_int),

@@ -12,7 +12,9 @@
 // atan2f for the quaternion log). The two halves of the Schur matvec,
 // mv_fwd_* and mv_bwd_slot_group with m66_row, are the math of the TPU
 // kernels _mv_fwd_kernel / _mv_bwd_kernel (solver/pallas_tiled.py): K4 runs
-// them inside its one launch, K8 and K9 as launches of their own.
+// them inside its one launch, K8 and K9 as launches of their own. The two
+// launches of the linearization's observation half (lin_slots_block,
+// lin_fold_block) are K1's on the whole graph and K6's on a row range.
 
 #pragma once
 
@@ -468,30 +470,40 @@ __device__ __forceinline__ float group_total(const float* part, int G, int i, in
 }
 
 // ---------------------------------------------------------------------------
-// per-row bodies of the linearization and the objective: the chain's (K2,
-// K3, K7, K10) and the one-thread-a-pose observation bodies of the
-// row-range kernels (K6, K10); K1 and K3 take the slot-group bodies below
+// the chain's linearization: one thread a row (K7), or a row's outputs
+// spread over a group of warps (K2, as a block role of K1's first launch)
 // ---------------------------------------------------------------------------
 
-// Chain edge of row k from pose (ti, qi) to its successor (tj, qj), with the
-// row's measurement and information: J_j = Jr^-1(r), J_i = -J_j Ad(rel^-1),
-// both [[X, Y], [0, X]]. Writes Hii/Hij/Hjj [6,6,K] and g_i/g_j [6,K] of row
-// k; returns the row's chi2.
-__device__ __forceinline__ float chain_linearize_row(const V3& ti, const Q4& qi, const V3& tj, const Q4& qj,
-                                                     const float* o_meas, const float* o_info, int K, int k,
-                                                     float* Hii, float* Hij, float* Hjj, float* gi, float* gj) {
+// The residual of row k's chain edge, from pose (ti, qi) to its successor
+// (tj, qj), and its Jacobians J_j = Jr^-1(r), J_i = -J_j Ad(rel^-1), both
+// [[X, Y], [0, X]]: the serial part of the row.
+struct ChainJac { ChainRes c; M3 Xi, Yi, Xj, Yj; };
+__device__ __forceinline__ ChainJac chain_jacobians(const V3& ti, const Q4& qi, const V3& tj, const Q4& qj,
+                                                    const float* o_meas, int K, int k) {
   V3 mt;
   Q4 mq;
   load_pose(o_meas, K, k, mt, mq);
-  const Info6 O = load_info6(o_info, K, k);
-  const ChainRes c = chain_residual(ti, qi, tj, qj, mt, mq);
-  const M3 Xj = so3_ljac_inv(neg(c.rw));
-  const M3 Yj = mneg(mul(Xj, mul(se3_Q(neg(c.rv), neg(c.rw)), Xj)));
-  const Q4 q_ir = qconj(c.rel_q);
-  const V3 t_ir = neg(qrotate(q_ir, c.rel_t));
+  ChainJac J;
+  J.c = chain_residual(ti, qi, tj, qj, mt, mq);
+  J.Xj = so3_ljac_inv(neg(J.c.rw));
+  J.Yj = mneg(mul(J.Xj, mul(se3_Q(neg(J.c.rv), neg(J.c.rw)), J.Xj)));
+  const Q4 q_ir = qconj(J.c.rel_q);
+  const V3 t_ir = neg(qrotate(q_ir, J.c.rel_t));
   const M3 R_ir = rotmat(q_ir);
-  const M3 Xi = mneg(mul(Xj, R_ir));
-  const M3 Yi = mneg(madd(mul(Xj, hat_mul(t_ir, R_ir)), mul(Yj, R_ir)));
+  J.Xi = mneg(mul(J.Xj, R_ir));
+  J.Yi = mneg(madd(mul(J.Xj, hat_mul(t_ir, R_ir)), mul(J.Yj, R_ir)));
+  return J;
+}
+
+// Chain edge of row k, one thread: writes Hii/Hij/Hjj [6,6,K] and g_i/g_j
+// [6,K] of row k; returns the row's chi2.
+__device__ __forceinline__ float chain_linearize_row(const V3& ti, const Q4& qi, const V3& tj, const Q4& qj,
+                                                     const float* o_meas, const float* o_info, int K, int k,
+                                                     float* Hii, float* Hij, float* Hjj, float* gi, float* gj) {
+  const Info6 O = load_info6(o_info, K, k);
+  const ChainJac J = chain_jacobians(ti, qi, tj, qj, o_meas, K, k);
+  const ChainRes& c = J.c;
+  const M3 &Xi = J.Xi, &Yi = J.Yi, &Xj = J.Xj, &Yj = J.Yj;
   // T = J^T O quadrants
   const M3 Ti11 = mulT(Xi, O.O11), Ti12 = mulT(Xi, O.O12);
   const M3 Ti21 = madd(mulT(Yi, O.O11), mulT(Xi, O.O21)), Ti22 = madd(mulT(Yi, O.O12), mulT(Xi, O.O22));
@@ -506,6 +518,87 @@ __device__ __forceinline__ float chain_linearize_row(const V3& ti, const Q4& qi,
   store_v3(gj + 3 * K, K, k, add(mv(Tj21, c.rv), mv(Tj22, c.rw)));
   return chain_chi(c, O);
 }
+
+// quadrant (a, b) of a [6,6,n] channel array at column i
+__device__ __forceinline__ M3 load_quad(const float* O, int n, int i, int a, int b) { M3 r;
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) r.m[p][q] = O[((3 * a + p) * 6 + 3 * b + q) * n + i];
+  return r;
+}
+
+// The top (T11, T12) or bottom (T21, T22) quadrant row of T = J^T O for J =
+// [[X, Y], [0, X]], as chain_linearize_row forms it; O is [6,6,n] at column i.
+__device__ __forceinline__ void chain_T_row(const M3& X, const M3& Y, const float* O, int n, int i, bool bottom,
+                                            M3& Ta, M3& Tb) {
+  const M3 O11 = load_quad(O, n, i, 0, 0), O12 = load_quad(O, n, i, 0, 1);
+  if (bottom) {
+    Ta = madd(mulT(Y, O11), mulT(X, load_quad(O, n, i, 1, 0)));
+    Tb = madd(mulT(Y, O12), mulT(X, load_quad(O, n, i, 1, 1)));
+  } else {
+    Ta = mulT(X, O11);
+    Tb = mulT(X, O12);
+  }
+}
+
+// p ? A : B elementwise (selects of values: a conditional of the two lvalues
+// would take their addresses and put the row's Jacobians in local memory)
+__device__ __forceinline__ M3 msel(bool p, const M3& A, const M3& B) { M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.m[i][j] = p ? A.m[i][j] : B.m[i][j];
+  return r;
+}
+
+// K2's outputs of a row as 17 tasks: t < 12 the quadrant t % 4 (11, 12, 21,
+// 22) of Hii, Hij, Hjj (t / 4); t = 12..15 the top or bottom half of gi, gj;
+// t = 16 the chi2.
+constexpr int CHAIN_TASKS = 17;
+
+// K2's body after the serial part (chain_jacobians, which every warp of a
+// group computes for its rows, recomputed rather than exchanged): warp g of
+// a group of G warps that holds 32 consecutive rows (one a lane) computes
+// only the tasks t = g, g + G, ... < CHAIN_TASKS of row k, each with the T
+// quadrants it needs, in chain_linearize_row's op order, so that a warp's
+// store of one channel is 32 consecutive floats. The row's information is O
+// [6,6,n] at column i. Returns the row's chi2 in the warp that has task 16,
+// else 0.
+__device__ __forceinline__ float chain_row_group_linearize(const ChainJac& J, const float* O, int n, int i, int K,
+                                                           int k, int g, int G, float* Hii, float* Hij, float* Hjj,
+                                                           float* gi, float* gj) {
+  float chi = 0.f;
+  for (int t = g; t < CHAIN_TASKS; t += G) {
+    if (t == CHAIN_TASKS - 1) {
+      chi = chain_chi(J.c, load_info6(O, n, i));
+    } else if (t >= 12) {  // gradients: T rows of side i (gi) or j (gj) against [rv; rw]
+      const bool side_j = t >= 14, bottom = (t & 1) != 0;
+      M3 Ta, Tb;
+      chain_T_row(msel(side_j, J.Xj, J.Xi), msel(side_j, J.Yj, J.Yi), O, n, i, bottom, Ta, Tb);
+      store_v3((side_j ? gj : gi) + (bottom ? 3 * K : 0), K, k, add(mv(Ta, J.c.rv), mv(Tb, J.c.rw)));
+    } else {  // H = T J quadrant: T from side i (Hii, Hij) or j (Hjj), J of side i (Hii) or j (Hij, Hjj)
+      const int blk = t >> 2;
+      const bool bottom = (t & 2) != 0, right = (t & 1) != 0;
+      M3 Ta, Tb;
+      chain_T_row(msel(blk == 2, J.Xj, J.Xi), msel(blk == 2, J.Yj, J.Yi), O, n, i, bottom, Ta, Tb);
+      const M3 X = msel(blk == 0, J.Xi, J.Xj);
+      const M3 Q = right ? madd(mul(Ta, msel(blk == 0, J.Yi, J.Yj)), mul(Tb, X)) : mul(Ta, X);
+      float* H = blk == 0 ? Hii : blk == 1 ? Hij : Hjj;
+      const int r0 = bottom ? 3 : 0, c0 = right ? 3 : 0;
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) H[((r0 + p) * 6 + c0 + q) * K + k] = Q.m[p][q];
+    }
+  }
+  return chi;
+}
+
+// ---------------------------------------------------------------------------
+// the observation slot's linearization and a pose's sums over its slots, and
+// the one-thread-a-row objective of the row-range kernel K10
+// ---------------------------------------------------------------------------
 
 // Slot e's linearization: the residual, its robust rho and IRLS weight, and
 // the weighted O' and O'r (ellk_soa.obs_parts)
@@ -543,74 +636,6 @@ __device__ __forceinline__ void pose_accumulate(ObsPose& o, const SlotLin& s) {
   o.BR = msub(o.BR, hat_mul(s.v, OB));
 }
 
-// The observation half of pose k's linearization, one thread walking all R
-// slots (K6): per slot v and O' out, and the slot's landmark terms Rt^T O'r
-// and Rt^T O' Rt to slot_gl [3,E] / slot_hll [9,E]; Rt out; the pose's sums
-// in registers.
-__device__ __forceinline__ ObsPose obs_pose_linearize(const float* pose, const float* lm, const float* meas,
-                                                      const float* info, const int* ll_rk, int K, int R, int k,
-                                                      int kind, float delta, float* v_out, float* Ow_out,
-                                                      float* Rt_out, float* slot_gl, float* slot_hll) {
-  const int E = R * K;
-  V3 t;
-  Q4 q;
-  load_pose(pose, K, k, t, q);
-  const M3 Rt = rotmat(qconj(q));
-  store_m3(Rt_out, K, k, Rt);
-  ObsPose o = obs_pose_zero();
-  for (int r = 0; r < R; ++r) {
-    const int e = r * K + k;
-    const SlotLin s = slot_linearize(Rt, t, lm, ll_rk, meas, info, E, e, kind, delta);
-    store_v3(v_out, E, e, s.v);
-    store_m3(Ow_out, E, e, s.Ow);
-    store_v3(slot_gl, E, e, mTv(Rt, s.Orw));
-    store_m3(slot_hll, E, e, mulT(Rt, mul(s.Ow, Rt)));
-    pose_accumulate(o, s);
-  }
-  return o;
-}
-
-// gp [6,K] and diag [6,6,K] of pose k (K6): the observation parts plus the
-// chain's i-side of row k (gi, Hii); the host adds the j-side.
-__device__ __forceinline__ void store_pose_gp_diag(const ObsPose& o, const float* gi, const float* Hii, int K, int k,
-                                                   float* gp, float* diag) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    gp[i * K + k] = o.g_top.v[i] + gi[i * K + k];
-    gp[(i + 3) * K + k] = o.g_bot.v[i] + gi[(i + 3) * K + k];
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      float d;
-      if (i < 3) d = j < 3 ? o.TL.m[i][j] : o.TR.m[i][j - 3];
-      else d = j < 3 ? o.TR.m[j][i - 3] : o.BR.m[i - 3][j - 3];
-      const int c = i * 6 + j;
-      diag[c * K + k] = d + Hii[c * K + k];
-    }
-}
-
-// One warp per landmark: the sums of the slot terms slot_gl [3,E] and
-// slot_hll [9,E] over the landmark's CSR segment [j0, j1), lanes striding it,
-// then a fixed shuffle tree (deterministic); acc[12] is valid in lane 0.
-__device__ __forceinline__ void landmark_sum12(const float* slot_gl, const float* slot_hll, const int* lm_slots,
-                                               int j0, int j1, int E, int lane, float* acc) {
-#pragma unroll
-  for (int c = 0; c < 12; ++c) acc[c] = 0.f;
-  for (int j = j0 + lane; j < j1; j += 32) {
-    const int e = lm_slots[j];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[c] += slot_gl[c * E + e];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) acc[3 + c] += slot_hll[c * E + e];
-  }
-#pragma unroll
-  for (int c = 0; c < 12; ++c)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
-}
-
 // The objective of pose k (K10): the robust chi2 of its R slots added to
 // chi[0], the chain chi2 of row k against the successor (tj, qj) to chi[1].
 __device__ __forceinline__ void pose_chi2(const float* pose, const V3& tj, const Q4& qj, const float* lm,
@@ -632,14 +657,14 @@ __device__ __forceinline__ void pose_chi2(const float* pose, const V3& tj, const
 }
 
 // ---------------------------------------------------------------------------
-// K1's and K3's bodies: a pose's slots spread over the grid. A block holds
-// POSE_GROUP consecutive poses (one a lane) times G slot groups (one a warp)
-// and one chunk [r0, r1) of their slots; the chunks of a pose range are
+// K1's, K3's and K6's bodies: a pose's slots spread over the grid. A block
+// holds POSE_GROUP consecutive poses (one a lane) times G slot groups (one a
+// warp) and one chunk [r0, r1) of their slots; the chunks of a pose range are
 // blocks of their own. Warp g walks r = r0 + g, r0 + g + G, ... < r1, every
 // load coalesced over the 32 poses (slot (r, k) at e = r*K + k).
 // ---------------------------------------------------------------------------
 
-// slot groups (warps) a block of K1's or K3's slot pass at most
+// slot groups (warps) a block of K1's, K3's or K6's slot pass at most
 constexpr int MAX_SLOT_GROUPS = 8;
 
 // a pose's partial sums as floats: g_top, g_bot, then TL, TR, BR row-major
@@ -749,6 +774,132 @@ __device__ __forceinline__ void block_sum(float* vals, float* smem /* [32 * NV] 
       for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
       vals[c] = s;
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The two launches of the observation half of the linearization, K1's on the
+// whole graph (soa_linearize.cu) and K6's on a row range (tiled_linearize.cu,
+// whose arrays are the range's own with K = Kl rows):
+//   slot pass, C x ceil(K / 32) slot blocks: block b takes pose range b % n
+//      (n = ceil(K / 32)) and slot chunk c = b / n of RB slots. Thread (lane,
+//      g) walks its pose's slots of the chunk (obs_slot_group_linearize): v
+//      and O' out, the pose's gradient and 6x6 diagonal quadrants summed in
+//      registers. The G groups' sums meet in shared memory in the order g =
+//      0..G-1 and go to scratch pose_part [C, 33, K]; chunk 0 writes Rt; the
+//      block's chi2 partial goes to chi_part[b].
+//   fold, three block roles: one warp per landmark walks its slots in the
+//      fixed order of the CSR (landmark_lin_warp) into gl and Hll; one thread
+//      per pose and output channel adds the C chunk sums in the order c =
+//      0..C-1 and the chain's i-side of pose k (gi, Hii), and with fold_j the
+//      j-side of pose k-1 (the TPU wrapper's gi + shift_down(gj)); the K6 row
+//      range leaves the j-side to the host. The last block adds the chi2
+//      partials in index order: the n_slot slot blocks' and then, with K2 in
+//      the same launch, its n_chain blocks' that follow them, or else the
+//      chain's given chi2.
+// Every sum has a fixed order, so a repeat gives the same bits. Empty slots
+// have zero information, so everything they add is exactly 0.
+// ---------------------------------------------------------------------------
+
+constexpr int FOLD_BLOCK = 128;
+constexpr int FOLD_OUT = 42;  // gp (6) and diag (36) channels of a pose
+
+// slot blocks of the slot pass, and scratch floats of the two launches (chunk
+// sums, then a chi2 partial per slot block and per chain block)
+__host__ __device__ inline long long lin_slot_blocks(int K, int R, int RB) {
+  return static_cast<long long>((R + RB - 1) / RB) * ((K + POSE_GROUP - 1) / POSE_GROUP);
+}
+inline long long lin_scratch(int K, int R, int RB, int n_chain) {
+  return static_cast<long long>((R + RB - 1) / RB) * POSE_PART * K + lin_slot_blocks(K, R, RB) + n_chain;
+}
+// blocks of the fold launch: landmark warps, fold threads, the chi2 block
+inline void lin_fold_blocks(int K, int L, int& n_lm, int& n_fold) {
+  n_lm = (32 * L + FOLD_BLOCK - 1) / FOLD_BLOCK;
+  n_fold = static_cast<int>((static_cast<long long>(FOLD_OUT) * K + FOLD_BLOCK - 1) / FOLD_BLOCK);
+}
+
+// slot block b of the slot pass; part [MAX_SLOT_GROUPS * POSE_PART *
+// POSE_GROUP] and red [32] are the kernel's shared memory
+__device__ __forceinline__ void lin_slots_block(int b, const float* pose, const float* lm, const float* meas,
+                                                const float* info, const int* ll_rk, int K, int R, int RB, int kind,
+                                                float delta, float* v_out, float* Ow_out, float* Rt_out,
+                                                float* pose_part, float* chi_part, float* part, float* red) {
+  const int G = blockDim.x >> 5, lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int n = (K + POSE_GROUP - 1) / POSE_GROUP, c = b / n, k0 = (b % n) * POSE_GROUP, k = k0 + lane;
+  const int r0 = c * RB, r1 = min(R, r0 + RB);
+  ObsPose o = obs_pose_zero();
+  if (k < K) {
+    V3 t;
+    Q4 q;
+    load_pose(pose, K, k, t, q);
+    const M3 Rt = rotmat(qconj(q));
+    if (c == 0 && g == 0) store_m3(Rt_out, K, k, Rt);
+    o = obs_slot_group_linearize(Rt, t, lm, meas, info, ll_rk, K, R * K, k, r0, r1, g, G, kind, delta, v_out,
+                                 Ow_out);
+  }
+  pose_part_store(o, part + g * POSE_PART * POSE_GROUP + lane, POSE_GROUP);
+  float chi[1] = {o.chi};
+  block_sum<1>(chi, red);  // its barrier also publishes part[]
+  for (int i = threadIdx.x; i < POSE_PART * POSE_GROUP; i += blockDim.x) {
+    const int ch = i / POSE_GROUP, qq = i % POSE_GROUP;
+    if (k0 + qq >= K) continue;
+    float s = 0.f;
+    for (int gg = 0; gg < G; ++gg) s += part[(gg * POSE_PART + ch) * POSE_GROUP + qq];
+    pose_part[(static_cast<long long>(c) * POSE_PART + ch) * K + k0 + qq] = s;
+  }
+  if (threadIdx.x == 0) chi_part[b] = chi[0];
+}
+
+// block b of the fold launch (FOLD_BLOCK threads): blocks [0, n_lm) landmark
+// warps, then n_fold blocks of fold threads, then the chi2 block; chi_part
+// holds n_slot slot partials and after them n_chain chain partials, or
+// n_chain = 0 and chi_given is the chain's chi2; chi_chain, where given,
+// receives the chain's share
+__device__ __forceinline__ void lin_fold_block(int b, const float* pose, const float* lm, const float* meas,
+                                               const float* info, const int* ll_rk, const int* lm_slots,
+                                               const int* lm_start, int K, int R, int L, int kind, float delta,
+                                               const float* pose_part, int C, const float* gi, const float* Hii,
+                                               const float* gj, const float* Hjj, bool fold_j,
+                                               const float* chi_part, int n_slot, int n_chain,
+                                               const float* chi_given, int n_lm, int n_fold, float* gl, float* Hll,
+                                               float* gp, float* diag, float* chi, float* chi_chain) {
+  if (b < n_lm) {
+    const int l = (b * FOLD_BLOCK + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+    if (l >= L) return;  // whole warps leave together
+    float acc[12];
+    landmark_lin_warp(pose, lm, meas, info, ll_rk, lm_slots, lm_start[l], lm_start[l + 1], K, R * K, kind, delta,
+                      lane, acc);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) gl[3 * l + i] = acc[i];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) Hll[9 * l + i] = acc[3 + i];
+    }
+    return;
+  }
+  if (b < n_lm + n_fold) {
+    const long long t = static_cast<long long>(b - n_lm) * FOLD_BLOCK + threadIdx.x;
+    if (t >= static_cast<long long>(FOLD_OUT) * K) return;
+    const int o = static_cast<int>(t / K), k = static_cast<int>(t % K);
+    const int ch = o < 6 ? o : diag_part_channel((o - 6) / 6, (o - 6) % 6);
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) s += pose_part[(static_cast<long long>(c) * POSE_PART + ch) * K + k];
+    // gp = gp_obs + gi[k] (+ gj[k-1]);  diag = diag_obs + Hii[k] (+ Hjj[k-1])
+    const int oc = o < 6 ? o : o - 6;
+    s += (o < 6 ? gi : Hii)[oc * K + k];
+    if (fold_j && k > 0) s += (o < 6 ? gj : Hjj)[oc * K + k - 1];
+    (o < 6 ? gp : diag)[oc * K + k] = s;
+    return;
+  }
+  __shared__ float red[64];
+  float s[2] = {0.f, 0.f};  // slot blocks, chain
+  for (int i = threadIdx.x; i < n_slot; i += FOLD_BLOCK) s[0] += chi_part[i];
+  for (int i = threadIdx.x; i < n_chain; i += FOLD_BLOCK) s[1] += chi_part[n_slot + i];
+  if (n_chain == 0 && threadIdx.x == 0) s[1] = chi_given[0];
+  block_sum<2>(s, red);
+  if (threadIdx.x == 0) {
+    chi[0] = s[0] + s[1];
+    if (chi_chain) chi_chain[0] = s[1];
   }
 }
 

@@ -18,21 +18,21 @@
 //
 // What bounds them: bytes, as for K1/K2 (soa_linearize.cu): per slot K6
 // reads meas + info (12 floats), the landmark index and row, and writes v +
-// O' (12 floats) plus 12 floats of landmark terms that its landmark pass
-// reads back; per row K7 reads the pose, its successor, the chain
-// measurement and information (57 floats) and writes 120, and K6 reads 42
-// of them back and writes gp, diag and Rt (51 floats).
+// O' (12 floats); per row K7 reads the pose, its successor, the chain
+// measurement and information (57 floats) and writes 120, and K6 reads 42 of
+// them back and writes gp, diag and Rt (51 floats).
 //
-// Design, no atomics, no host sync (the per-row bodies are K1/K2's, shared
-// through soa_common.cuh):
+// Design, no atomics, no host sync:
 //   K7 rows_chain: one thread per row linearizes chain edge k -> k+1 against
-//      succ[:, k]; per-block chi2 partials, added in a fixed order by
-//      reduce2_kernel;
-//   K6 rows_obs_pose: one thread per row walks its R slots (v, O' out, the
-//      gradient and 6x6 diagonal in registers, plus gi/Hii of the row), the
-//      landmark terms to scratch; rows_obs_lm: one warp per landmark sums its
-//      slots' terms in the fixed order of the range's CSR; reduce2_kernel
-//      adds the observation partials and K7's chi2.
+//      succ[:, k] (chain_linearize_row); per-block chi2 partials, added in a
+//      fixed order by reduce2_kernel;
+//   K6, K1's two launches on the range's arrays (soa_common.cuh
+//      lin_slots_block, lin_fold_block, here under names of their own so that
+//      a trace tells K6 from K1): rows_lin_slots spreads each row's R slots
+//      over the grid (solver/kernels.py `lin_split` picks RB and G),
+//      rows_lin_fold computes gl and Hll over the range's CSR, folds the
+//      chunk sums with the i-side only (gp = obs + gi, diag = obs + Hii) and
+//      adds the slot blocks' chi2 partials and K7's chi2.
 // Empty slots have zero information, so everything they add is exactly 0.
 
 #include "soa_common.cuh"
@@ -61,50 +61,35 @@ rows_chain(const float* __restrict__ pose, const float* __restrict__ succ, const
   if (threadIdx.x == 0) partial[blockIdx.x] = chi[0];
 }
 
-__global__ void __launch_bounds__(BLOCK)
-rows_obs_pose(const float* __restrict__ pose, const float* __restrict__ lm, const float* __restrict__ meas,
-              const float* __restrict__ info, const int* __restrict__ ll_rk, int Kl, int R, int kind, float delta,
-              const float* __restrict__ Hii, const float* __restrict__ gi, float* __restrict__ v_out,
-              float* __restrict__ Ow_out, float* __restrict__ Rt_out, float* __restrict__ gp,
-              float* __restrict__ diag, float* __restrict__ slot_gl, float* __restrict__ slot_hll,
-              float* __restrict__ partial) {
-  __shared__ float smem[32];
-  const int k = blockIdx.x * BLOCK + threadIdx.x;
-  float chi[1] = {0.f};
-  if (k < Kl) {
-    const ObsPose o = obs_pose_linearize(pose, lm, meas, info, ll_rk, Kl, R, k, kind, delta, v_out, Ow_out, Rt_out,
-                                         slot_gl, slot_hll);
-    chi[0] = o.chi;
-    store_pose_gp_diag(o, gi, Hii, Kl, k, gp, diag);  // gp_obs + gi, diag_obs + Hii
-  }
-  block_sum<1>(chi, smem);
-  if (threadIdx.x == 0) partial[blockIdx.x] = chi[0];
+__global__ void __launch_bounds__(POSE_GROUP * MAX_SLOT_GROUPS, 2)
+rows_lin_slots(const float* __restrict__ pose, const float* __restrict__ lm, const float* __restrict__ meas,
+               const float* __restrict__ info, const int* __restrict__ ll_rk, int Kl, int R, int RB, int kind,
+               float delta, float* __restrict__ v_out, float* __restrict__ Ow_out, float* __restrict__ Rt_out,
+               float* __restrict__ pose_part, float* __restrict__ chi_part) {
+  __shared__ float part[MAX_SLOT_GROUPS * POSE_PART * POSE_GROUP];
+  __shared__ float red[32];
+  lin_slots_block(blockIdx.x, pose, lm, meas, info, ll_rk, Kl, R, RB, kind, delta, v_out, Ow_out, Rt_out, pose_part,
+                  chi_part, part, red);
 }
 
-// one warp per landmark: the range's gl [L,3] and Hll [L,9]
-__global__ void __launch_bounds__(BLOCK)
-rows_obs_lm(const float* __restrict__ slot_gl, const float* __restrict__ slot_hll, const int* __restrict__ lm_slots,
-            const int* __restrict__ lm_start, int L, int E, float* __restrict__ gl, float* __restrict__ Hll) {
-  const int l = (blockIdx.x * BLOCK + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (l >= L) return;  // whole warps leave together
-  float acc[12];
-  landmark_sum12(slot_gl, slot_hll, lm_slots, lm_start[l], lm_start[l + 1], E, lane, acc);
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) gl[3 * l + c] = acc[c];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) Hll[9 * l + c] = acc[3 + c];
-  }
+__global__ void __launch_bounds__(FOLD_BLOCK)
+rows_lin_fold(const float* __restrict__ pose, const float* __restrict__ lm, const float* __restrict__ meas,
+              const float* __restrict__ info, const int* __restrict__ ll_rk, const int* __restrict__ lm_slots,
+              const int* __restrict__ lm_start, int Kl, int R, int L, int kind, float delta,
+              const float* __restrict__ pose_part, int C, const float* __restrict__ gi, const float* __restrict__ Hii,
+              const float* __restrict__ chi_part, int n_slot, const float* __restrict__ chi_chain, int n_lm,
+              int n_fold, float* __restrict__ gl, float* __restrict__ Hll, float* __restrict__ gp,
+              float* __restrict__ diag, float* __restrict__ chi) {
+  lin_fold_block(blockIdx.x, pose, lm, meas, info, ll_rk, lm_slots, lm_start, Kl, R, L, kind, delta, pose_part, C, gi,
+                 Hii, nullptr, nullptr, false, chi_part, n_slot, 0, chi_chain, n_lm, n_fold, gl, Hll, gp, diag, chi,
+                 nullptr);
 }
 
 }  // namespace
 
 // Scratch floats each entry point needs from the wrapper.
 extern "C" long long tiled_chain_lin_scratch(int Kl) { return (Kl + BLOCK - 1) / BLOCK; }
-extern "C" long long tiled_obs_lin_scratch(int Kl, int R) {
-  return 12LL * Kl * R + (Kl + BLOCK - 1) / BLOCK;
-}
+extern "C" long long tiled_obs_lin_scratch(int Kl, int R, int RB) { return lin_scratch(Kl, R, RB, 0); }
 
 // K7. Launches on `stream`; returns cudaGetLastError() (0 = ok).
 extern "C" int tiled_chain_lin_launch(const float* pose, const float* succ, const float* o_meas, const float* o_info,
@@ -118,26 +103,29 @@ extern "C" int tiled_chain_lin_launch(const float* pose, const float* succ, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6, given K7's gi, Hii and chi2. Launches on `stream`; returns
-// cudaGetLastError().
+// K6, given K7's gi, Hii and chi2, with RB slots a block in G slot groups
+// (warps). Two launches on `stream`; returns cudaGetLastError() (0 = ok).
 extern "C" int tiled_obs_lin_launch(const float* pose, const float* lm, const float* meas, const float* info,
                                     const int* ll_rk, const int* lm_slots, const int* lm_start, const float* Hii,
-                                    const float* gi, const float* chi_chain, int Kl, int R, int L, int robust_kind,
-                                    float robust_delta, float* v, float* Ow, float* Rt, float* gp, float* diag,
-                                    float* gl, float* Hll, float* chi, float* scratch, void* stream_ptr) {
-  if (Kl <= 0 || R <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                    const float* gi, const float* chi_chain, int Kl, int R, int L, int RB, int G,
+                                    int robust_kind, float robust_delta, float* v, float* Ow, float* Rt, float* gp,
+                                    float* diag, float* gl, float* Hll, float* chi, float* scratch,
+                                    void* stream_ptr) {
+  if (Kl <= 0 || R <= 0 || L <= 0 || RB <= 0 || G <= 0 || G > MAX_SLOT_GROUPS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long E = static_cast<long long>(Kl) * R;
-  const int nb = (Kl + BLOCK - 1) / BLOCK;
-  float* slot_gl = scratch;
-  float* slot_hll = slot_gl + 3 * E;
-  float* part_obs = slot_hll + 9 * E;
-  rows_obs_pose<<<nb, BLOCK, 0, stream>>>(pose, lm, meas, info, ll_rk, Kl, R, robust_kind, robust_delta, Hii, gi, v,
-                                          Ow, Rt, gp, diag, slot_gl, slot_hll, part_obs);
-  const long long lanes = 32LL * L;
-  rows_obs_lm<<<static_cast<int>((lanes + BLOCK - 1) / BLOCK), BLOCK, 0, stream>>>(
-      slot_gl, slot_hll, lm_slots, lm_start, L, static_cast<int>(E), gl, Hll);
-  reduce2_kernel<<<1, 256, 0, stream>>>(part_obs, nb, chi_chain, 1, chi);
+  const int C = (R + RB - 1) / RB, n_slot = static_cast<int>(lin_slot_blocks(Kl, R, RB));
+  float* pose_part = scratch;
+  float* chi_part = pose_part + static_cast<long long>(C) * POSE_PART * Kl;
+  rows_lin_slots<<<n_slot, POSE_GROUP * G, 0, stream>>>(pose, lm, meas, info, ll_rk, Kl, R, RB, robust_kind,
+                                                        robust_delta, v, Ow, Rt, pose_part, chi_part);
+  int n_lm, n_fold;
+  lin_fold_blocks(Kl, L, n_lm, n_fold);
+  rows_lin_fold<<<n_lm + n_fold + 1, FOLD_BLOCK, 0, stream>>>(pose, lm, meas, info, ll_rk, lm_slots, lm_start, Kl, R,
+                                                              L, robust_kind, robust_delta, pose_part, C, gi, Hii,
+                                                              chi_part, n_slot, chi_chain, n_lm, n_fold, gl, Hll, gp,
+                                                              diag, chi);
   return static_cast<int>(cudaGetLastError());
 }
 

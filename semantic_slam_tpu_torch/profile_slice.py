@@ -60,8 +60,7 @@ LAYERS = (
     ("semantic_slam_tpu_torch.solver.lm", "marginals_from_lin", "marginals_from_lin"),
     ("semantic_slam_tpu_torch.solver.ellk_soa", "lm_optimize_soa", "lm_optimize_soa"),
     ("semantic_slam_tpu_torch.solver.ellk_soa", "build_soa_edges", "build_soa_edges"),
-    ("semantic_slam_tpu_torch.solver.kernels", "chain_linearize", "chain_linearize"),
-    ("semantic_slam_tpu_torch.solver.kernels", "obs_linearize", "obs_linearize"),
+    ("semantic_slam_tpu_torch.solver.kernels", "resident_linearize", "resident_linearize"),
     ("semantic_slam_tpu_torch.solver.kernels", "resident_solve", "resident_solve"),
     ("semantic_slam_tpu_torch.solver.kernels", "resident_chi2", "resident_chi2"),
     ("semantic_slam_tpu_torch.solver.ellk_soa", "landmark_marginals_mf_ellk", "landmark_marginals_mf"),
@@ -86,15 +85,17 @@ LAYERS = (
     ("semantic_slam_tpu_torch.frontend.normals", "compute_normals", "compute_normals"),
     ("semantic_slam_tpu_torch.assoc.association", "associate", "associate"),
 )
-# wrapper label -> the names of the kernels it launches through ctypes
+# wrapper label -> the names of the kernels it launches through ctypes (K1
+# with K2's blocks, and K1 alone, launch the same two kernels; K6 launches
+# their bodies under names of its own)
 CTYPES_KERNELS = {
     "score_hypotheses": ("score_kernel",),
-    "chain_linearize": ("chain_kernel",),
+    "resident_linearize": ("lin_slots_kernel", "lin_fold_kernel"),
     "obs_linearize": ("lin_slots_kernel", "lin_fold_kernel"),
     "resident_chi2": ("chi2_slots_kernel",),
     "resident_solve": ("solve_cluster_kernel", "solve_grid_kernel"),
     "tiled_chain_linearize": ("rows_chain",),
-    "tiled_obs_linearize": ("rows_obs_pose", "rows_obs_lm"),
+    "tiled_obs_linearize": ("rows_lin_slots", "rows_lin_fold"),
     "tiled_mv_fwd": ("rows_mvf_slot", "rows_mvf_lm"),
     "tiled_mv_bwd": ("rows_mvb_pose",),
     "tiled_chi2": ("rows_chi2",),
@@ -103,8 +104,7 @@ CTYPES_KERNELS = {
 
 # wrappers that also launch the shared one-block sum ``reduce2_kernel``
 # (soa_common.cuh), which a session trace cannot assign to one of them
-REDUCE2_LAUNCHERS = ("chain_linearize", "resident_chi2", "tiled_chain_linearize", "tiled_obs_linearize",
-                     "tiled_chi2")
+REDUCE2_LAUNCHERS = ("resident_chi2", "tiled_chain_linearize", "tiled_chi2")
 
 
 # traces kernel_device_ms takes at most: CUPTI now and then hands back a
@@ -244,9 +244,12 @@ def profile_session(log, cfg, device: str, out_dir: str | None = None) -> dict:
         elif e.device_type == DeviceType.CUDA and e.name not in labels:
             kernels.append(e)
     hand = {label: [e for e in kernels if any(f"{n}(" in e.name for n in names)]
-            for label, names in CTYPES_KERNELS.items()}
+            for label, names in CTYPES_KERNELS.items() if label in labels}
     for label, evs in hand.items():
         device_us[label] = sum(e.time_range.elapsed_us() for e in evs)
+    # launches of each hand-written kernel by name, reduce2_kernel included
+    names = sorted({n for ns in CTYPES_KERNELS.values() for n in ns} | {"reduce2_kernel"})
+    launches = {n: sum(1 for e in kernels if f"{n}(" in e.name) for n in names}
     busy_us = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
 
     rows = []
@@ -268,6 +271,7 @@ def profile_session(log, cfg, device: str, out_dir: str | None = None) -> dict:
             **_tick_summary(traced),
             "kernel_events": len(kernels),
             "hand_kernel_events": {label: len(evs) for label, evs in hand.items()},
+            "hand_kernel_launches": launches,
             "device_busy_ms": 1e-3 * busy_us if on_card else None,
             "busy_share": 1e-3 * busy_us / (1e3 * traced_wall) if on_card else None,
         },
@@ -289,7 +293,8 @@ def _print_report(report: dict) -> None:
           f"{plain['median_optimizing_tick_ms']} ms, frontend-only {plain['median_frontend_tick_ms']} ms; "
           f"LM iterations {plain['lm_iterations']}")
     print(f"traced run: wall {traced['wall_s']:.4f} s; LM iterations {traced['lm_iterations']}; "
-          f"{traced['kernel_events']} kernel events (hand-written: {traced['hand_kernel_events']}); "
+          f"{traced['kernel_events']} kernel events (hand-written: {traced['hand_kernel_events']}; by kernel: "
+          f"{traced['hand_kernel_launches']}); "
           f"device busy {traced['device_busy_ms']} ms, busy share {traced['busy_share']}")
     print(f"{'layer':<20} {'calls':>6} {'host ms':>10} {'host ms/call':>13} {'dev ms':>10} {'dev ms/call':>12}")
     for r in (r for r in report["layers"] if r["calls"]):

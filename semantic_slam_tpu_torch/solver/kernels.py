@@ -1,24 +1,26 @@
 """Hand-written CUDA kernels of the SoA Schur-PCG solver and their wrappers
 (port of the resident kernels of ``semantic_slam_tpu.solver.pallas_cg``).
 
-  * ``chain_linearize``    -- K2, ``csrc/soa_linearize.cu``
-  * ``obs_linearize``      -- K1, ``csrc/soa_linearize.cu``; ``resident_linearize``
-    runs K2 then K1
+  * ``resident_linearize`` -- K1 + K2, ``csrc/soa_linearize.cu``: one entry
+    point of two launches, K2 (the chain) as blocks of K1's first launch;
+    ``fused_linearize`` also returns the chain's own outputs, and
+    ``obs_linearize`` runs K1 alone on given chain blocks
   * ``resident_chi2``      -- K3, ``csrc/soa_chi2.cu``; ``lin_split`` spreads
-    K1's and K3's slots over the grid
+    K1's, K3's (and the row-range K6's) slots over the grid
   * ``resident_solve``     -- K4, ``csrc/soa_solve.cu``, with the fixed-lag
     prior's dense boundary block when one is given; ``solve_shape`` picks
     its launch shape (one thread-block cluster or the cooperative grid)
 
 On CPU tensors each wrapper runs its plain version (``solver/ellk_soa.py``
-``soa_chain_linearize``, ``soa_obs_linearize``, ``soa_chi2``,
+``soa_linearize``, ``soa_obs_linearize``, ``soa_chi2``,
 ``soa_schur_step``). On CUDA tensors it
 launches its kernel on the current stream or raises; there is no other
 switch between the two. The kernels work in f32, as the TPU kernels do:
 inputs are cast to f32 and outputs back to the caller's dtype. No wrapper
 synchronizes with the host: scalars that live on the device (lambda, chi2)
-stay there. Each wrapper counts its kernel launches in ``.launches``;
-``resident_solve.prior_launches`` counts K4's launches with a prior.
+stay there. Each wrapper counts its calls that launch kernels in
+``.launches``; ``resident_solve.prior_launches`` counts K4's launches with a
+prior.
 """
 
 from __future__ import annotations
@@ -40,29 +42,36 @@ SOLVE_CLUSTER_CTAS = 16
 SOLVE_STATIC_SMEM = 17764
 
 
-# K1's and K3's blocks (csrc/soa_linearize.cu, soa_chi2.cu): 32 consecutive
-# poses, one a lane, times up to 8 slot groups (warps)
+# K1's, K3's and K6's blocks (csrc/soa_common.cuh): 32 consecutive poses, one
+# a lane, times up to 8 slot groups (warps); K2's chain blocks beside K1's are
+# 32 rows with the same warps
 LIN_POSES = 32
 LIN_MAX_GROUPS = 8
+# blocks of the slot pass an SM holds at once: 256 threads at the 128
+# registers that its launch bounds allow
+LIN_BLOCKS_PER_SM = 2
 
 
-def lin_split(K: int, R: int, sms: int) -> tuple[int, int]:
-    """K1's and K3's launch split ``(RB, G)``: a block takes 32 poses and a
-    chunk of RB of their R slots, walked by G = min(RB, 8) slot groups; the
-    chunks of a pose range are blocks of their own. RB comes from the fewest
-    chunks whose grid, ceil(K / 32) pose ranges x ceil(R / RB) chunks, fills
-    one wave of ``sms`` blocks (the card's SM count), and is 1 where none
-    does. Nothing else picks or forces a split."""
+def lin_split(K: int, R: int, sms: int, chain: bool = True) -> tuple[int, int]:
+    """The launch split ``(RB, G)`` of K1's, K3's and K6's slot pass: a
+    slot block takes 32 poses and a chunk of RB of their R slots, walked by
+    G = min(RB, 8) slot groups (warps); the chunks of a pose range are blocks
+    of their own. RB is the smallest of min(8, R), doubled up to R, whose
+    grid, ceil(K / 32) pose ranges x ceil(R / RB) chunks, plus with ``chain``
+    the ceil(K / 32) chain blocks of K2 in the same launch, fits one wave of
+    2 blocks an SM (``sms`` SMs); R where none does. Fitted to the sweep of
+    ``tools/kernel_times.py --sweep`` on an H100 (PERF.md): at each swept
+    shape of K1 + K2, K3 and K6 its split is the fastest tried or within
+    2.5% of it. Nothing else picks or forces a split."""
     ranges = -(-K // LIN_POSES)
-    for chunks in range(1, R + 1):
-        RB = -(-R // chunks)
-        if ranges * -(-R // RB) >= sms:
-            break
+    RB = min(LIN_MAX_GROUPS, R)
+    while RB < R and ranges * -(-R // RB) + (ranges if chain else 0) > LIN_BLOCKS_PER_SM * sms:
+        RB = min(2 * RB, R)
     return RB, min(RB, LIN_MAX_GROUPS)
 
 
-def _lin_split_on(dev: torch.device, K: int, R: int) -> tuple[int, int]:
-    return lin_split(K, R, torch.cuda.get_device_properties(dev).multi_processor_count)
+def _lin_split_on(dev: torch.device, K: int, R: int, chain: bool = True) -> tuple[int, int]:
+    return lin_split(K, R, torch.cuda.get_device_properties(dev).multi_processor_count, chain)
 
 
 def solve_cluster_smem(K: int, R: int, L: int) -> int:
@@ -129,90 +138,97 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def chain_linearize(poses: Tensor, se: SoAEdges) -> ChainLin:
-    """K2: the odometry chain's linearization."""
-    if poses.device.type == "cpu":
-        return soa.soa_chain_linearize(poses, se)
-    what = "chain_linearize"
-    dev = poses.device
-    _check_device(what, dev, o_meas_ch=se.o_meas_ch, o_info_ch=se.o_info_ch)
-    K = poses.shape[0]
-    _check_shape(what, "poses", poses, (K, 7))
-    _check_shape(what, "se.o_meas_ch", se.o_meas_ch, (7, K))
-    _check_shape(what, "se.o_info_ch", se.o_info_ch, (6, 6, K))
-
-    from semantic_slam_tpu_torch import _build
-
-    lib = _build.library("soa_linearize")
-    f32 = dict(dtype=torch.float32, device=dev)
-    pose_ch, o_meas, o_info = _f32(poses.T), _f32(se.o_meas_ch), _f32(se.o_info_ch)
-    Hii, Hij, Hjj = (torch.empty((6, 6, K), **f32) for _ in range(3))
-    gi, gj = torch.empty((6, K), **f32), torch.empty((6, K), **f32)
-    chi = torch.empty((), **f32)
-    scratch = torch.empty((lib.soa_chain_lin_scratch(K),), **f32)
-    with torch.cuda.device(dev):
-        code = lib.soa_chain_lin_launch(
-            pose_ch.data_ptr(), o_meas.data_ptr(), o_info.data_ptr(), K, Hii.data_ptr(), Hij.data_ptr(),
-            Hjj.data_ptr(), gi.data_ptr(), gj.data_ptr(), chi.data_ptr(), scratch.data_ptr(), _stream(dev),
-        )
-    _build.check(code, "soa_chain_lin kernel launch", "soa_linearize")
-    chain_linearize.launches += 1
-    dt = poses.dtype
-    return ChainLin(*(t.to(dt) for t in (Hii, Hij, Hjj, gi, gj, chi)))
-
-
-def obs_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, chain: ChainLin, robust_kind: str = "none",
-                  robust_delta: float = 1.0) -> SoALin:
-    """K1: the observation linearization, folded with K2's chain blocks."""
-    if poses.device.type == "cpu":
-        return soa.soa_obs_linearize(poses, landmarks, se, chain, robust_kind, robust_delta)
-    what = "obs_linearize"
-    dev = poses.device
-    _check_device(what, dev, landmarks=landmarks, **{f"se.{k}": v for k, v in se._asdict().items()},
-                  **{f"chain.{k}": v for k, v in chain._asdict().items()})
+def _check_lin_inputs(what: str, poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str) -> tuple:
+    """(K, R, L, robust kind code) of a linearization's inputs, on every
+    device."""
     K, L = poses.shape[0], landmarks.shape[0]
     _check_shape(what, "poses", poses, (K, 7))
     _check_shape(what, "landmarks", landmarks, (L, 3))
-    R = _check_edges(what, se, K, L)
-    for name, shape in (("Hii", (6, 6, K)), ("Hij", (6, 6, K)), ("Hjj", (6, 6, K)), ("gi", (6, K)), ("gj", (6, K)),
-                        ("chi2", ())):
-        _check_shape(what, f"chain.{name}", getattr(chain, name), shape)
-    kind = _robust(what, robust_kind)
+    return K, _check_edges(what, se, K, L), L, _robust(what, robust_kind)
+
+
+def _linearize(what: str, poses: Tensor, landmarks: Tensor, se: SoAEdges, chain: ChainLin | None, R: int,
+               kind: int, robust_delta: float) -> tuple[SoALin, ChainLin]:
+    """The entry point of ``csrc/soa_linearize.cu`` on CUDA tensors: K1 with
+    K2's chain blocks in its first launch (``chain`` None), or K1 alone on
+    the given chain blocks."""
+    dev = poses.device
+    given = {} if chain is None else {f"chain.{k}": v for k, v in chain._asdict().items()}
+    _check_device(what, dev, landmarks=landmarks, **{f"se.{k}": v for k, v in se._asdict().items()}, **given)
+    K, L = poses.shape[0], landmarks.shape[0]
 
     from semantic_slam_tpu_torch import _build
 
     lib = _build.library("soa_linearize")
     f32 = dict(dtype=torch.float32, device=dev)
     pose_ch, lm, meas, info = _f32(poses.T), _f32(landmarks), _f32(se.meas), _f32(se.info)
-    Hii, Hij, Hjj, gi, gj, chi_chain = (_f32(t) for t in chain)
+    o_meas, o_info = _f32(se.o_meas_ch), _f32(se.o_info_ch)
+    if chain is None:
+        Hii, Hij, Hjj = (torch.empty((6, 6, K), **f32) for _ in range(3))
+        gi, gj, chi_chain = torch.empty((6, K), **f32), torch.empty((6, K), **f32), torch.empty((), **f32)
+    else:
+        Hii, Hij, Hjj, gi, gj, chi_chain = (_f32(t) for t in chain)
     v, Ow = torch.empty((3, R, K), **f32), torch.empty((3, 3, R, K), **f32)
     Rt = torch.empty((3, 3, K), **f32)
     gp, diag = torch.empty((6, K), **f32), torch.empty((6, 6, K), **f32)
     gl, Hll = torch.empty((L, 3), **f32), torch.empty((L, 3, 3), **f32)
     chi = torch.empty((), **f32)
-    RB, G = _lin_split_on(dev, K, R)
-    scratch = torch.empty((lib.soa_obs_lin_scratch(K, R, RB),), **f32)
+    RB, G = _lin_split_on(dev, K, R)  # K1 alone takes the pair's split
+    fused = int(chain is None)
+    scratch = torch.empty((lib.soa_lin_scratch(K, R, RB, fused),), **f32)
     with torch.cuda.device(dev):
-        code = lib.soa_obs_lin_launch(
+        code = lib.soa_lin_launch(
             pose_ch.data_ptr(), lm.data_ptr(), meas.data_ptr(), info.data_ptr(), se.ll_rk.data_ptr(),
-            se.lm_slots.data_ptr(), se.lm_start.data_ptr(), Hii.data_ptr(), Hjj.data_ptr(), gi.data_ptr(),
-            gj.data_ptr(), chi_chain.data_ptr(), K, R, L, RB, G, kind, float(robust_delta),
-            v.data_ptr(), Ow.data_ptr(), Rt.data_ptr(), gp.data_ptr(), diag.data_ptr(), gl.data_ptr(), Hll.data_ptr(),
-            chi.data_ptr(), scratch.data_ptr(), _stream(dev),
+            se.lm_slots.data_ptr(), se.lm_start.data_ptr(), o_meas.data_ptr(), o_info.data_ptr(), K, R, L, RB, G, fused,
+            kind, float(robust_delta), Hii.data_ptr(), Hij.data_ptr(), Hjj.data_ptr(), gi.data_ptr(), gj.data_ptr(),
+            chi_chain.data_ptr(), v.data_ptr(), Ow.data_ptr(), Rt.data_ptr(), gp.data_ptr(), diag.data_ptr(),
+            gl.data_ptr(), Hll.data_ptr(), chi.data_ptr(), scratch.data_ptr(), _stream(dev),
         )
-    _build.check(code, "soa_obs_lin kernel launch", "soa_linearize")
-    obs_linearize.launches += 1
+    _build.check(code, f"{what} kernel launch", "soa_linearize")
     dt = poses.dtype
-    return SoALin(
+    lin = SoALin(
         v=v.to(dt), Ow=Ow.to(dt), Rt=Rt.to(dt), Hii=Hii.to(dt), Hij=Hij.to(dt), Hjj=Hjj.to(dt), Hll=Hll.to(dt),
         gp=gp.to(dt), gl=gl.to(dt), diag=diag.to(dt), chi2=chi.to(dt),
     )
+    return lin, ChainLin(*(t.to(dt) for t in (Hii, Hij, Hjj, gi, gj, chi_chain)))
+
+
+def fused_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str = "none",
+                    robust_delta: float = 1.0) -> tuple[SoALin, ChainLin]:
+    """K1 + K2: the whole graph's linearization, one entry point of two
+    launches with the chain (K2) as blocks of K1's first launch. Returns the
+    linearization and the chain's own blocks, gradients and chi2, which it
+    folds in."""
+    what = "fused_linearize"
+    K, R, L, kind = _check_lin_inputs(what, poses, landmarks, se, robust_kind)
+    if poses.device.type == "cpu":
+        chain = soa.soa_chain_linearize(poses, se)
+        return soa.soa_obs_linearize(poses, landmarks, se, chain, robust_kind, robust_delta), chain
+    out = _linearize(what, poses, landmarks, se, None, R, kind, robust_delta)
+    fused_linearize.launches += 1
+    return out
 
 
 def resident_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str = "none",
                        robust_delta: float = 1.0) -> SoALin:
-    """K2 then K1: the whole graph's linearization."""
-    return obs_linearize(poses, landmarks, se, chain_linearize(poses, se), robust_kind, robust_delta)
+    """K1 + K2 (``fused_linearize``): the whole graph's linearization."""
+    return fused_linearize(poses, landmarks, se, robust_kind, robust_delta)[0]
+
+
+def obs_linearize(poses: Tensor, landmarks: Tensor, se: SoAEdges, chain: ChainLin, robust_kind: str = "none",
+                  robust_delta: float = 1.0) -> SoALin:
+    """K1 alone: the observation linearization, folded with the given chain
+    blocks (the same entry point without its chain blocks)."""
+    what = "obs_linearize"
+    K, R, L, kind = _check_lin_inputs(what, poses, landmarks, se, robust_kind)
+    for name, shape in (("Hii", (6, 6, K)), ("Hij", (6, 6, K)), ("Hjj", (6, 6, K)), ("gi", (6, K)), ("gj", (6, K)),
+                        ("chi2", ())):
+        _check_shape(what, f"chain.{name}", getattr(chain, name), shape)
+    if poses.device.type == "cpu":
+        return soa.soa_obs_linearize(poses, landmarks, se, chain, robust_kind, robust_delta)
+    lin = _linearize(what, poses, landmarks, se, chain, R, kind, robust_delta)[0]
+    obs_linearize.launches += 1
+    return lin
 
 
 def resident_chi2(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: str = "none",
@@ -236,7 +252,7 @@ def resident_chi2(poses: Tensor, landmarks: Tensor, se: SoAEdges, robust_kind: s
     pose_ch, lm = _f32(poses.T), _f32(landmarks)
     meas, info, o_meas, o_info = _f32(se.meas), _f32(se.info), _f32(se.o_meas_ch), _f32(se.o_info_ch)
     chi = torch.empty((), **f32)
-    RB, G = _lin_split_on(dev, K, R)
+    RB, G = _lin_split_on(dev, K, R, chain=False)
     scratch = torch.empty((lib.soa_chi2_scratch(K, R, RB),), **f32)
     with torch.cuda.device(dev):
         code = lib.soa_chi2_launch(
@@ -328,7 +344,7 @@ def resident_solve(lin: SoALin, se: SoAEdges, lam: Tensor, pose_free: Tensor, lm
     return dp.T.to(dt), db.to(dt)
 
 
-chain_linearize.launches = 0  # kernel launches (CUDA path only)
+fused_linearize.launches = 0  # calls that launched kernels (CUDA path only)
 obs_linearize.launches = 0
 resident_chi2.launches = 0
 resident_solve.launches = 0

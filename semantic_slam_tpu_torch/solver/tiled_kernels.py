@@ -2,8 +2,9 @@
 wrappers (port of ``semantic_slam_tpu.solver.pallas_tiled``).
 
   * ``tiled_chain_linearize`` -- K7, ``csrc/tiled_linearize.cu``
-  * ``tiled_obs_linearize``   -- K6, ``csrc/tiled_linearize.cu``;
-    ``tiled_linearize`` runs K7 then K6
+  * ``tiled_obs_linearize``   -- K6, ``csrc/tiled_linearize.cu``: K1's two
+    launches (``csrc/soa_common.cuh``) on the rows' arrays, split by
+    ``kernels.lin_split``; ``tiled_linearize`` runs K7 then K6
   * ``tiled_mv_fwd``          -- K8, ``csrc/tiled_matvec.cu``
   * ``tiled_mv_bwd``          -- K9, ``csrc/tiled_matvec.cu``
   * ``tiled_chi2``            -- K10, ``csrc/tiled_chi2.cu``
@@ -31,6 +32,7 @@ import torch
 
 from semantic_slam_tpu_torch.solver import soa_dist as sd
 from semantic_slam_tpu_torch.solver.ellk_soa import ChainLin, SoAEdges
+from semantic_slam_tpu_torch.solver import kernels
 from semantic_slam_tpu_torch.solver.kernels import _check_device, _check_edges, _check_shape, _f32, _robust, _stream
 from semantic_slam_tpu_torch.solver.soa_dist import TiledLin
 
@@ -109,12 +111,13 @@ def tiled_obs_linearize(pc: Tensor, landmarks: Tensor, de: SoAEdges, chain: Chai
     gp, diag = torch.empty((6, Kl), **f32), torch.empty((6, 6, Kl), **f32)
     gl, Hll = torch.empty((L, 3), **f32), torch.empty((L, 3, 3), **f32)
     chi = torch.empty((), **f32)
-    scratch = torch.empty((lib.tiled_obs_lin_scratch(Kl, R),), **f32)
+    RB, G = kernels._lin_split_on(dev, Kl, R, chain=False)
+    scratch = torch.empty((lib.tiled_obs_lin_scratch(Kl, R, RB),), **f32)
     with torch.cuda.device(dev):
         code = lib.tiled_obs_lin_launch(
             pose.data_ptr(), lm.data_ptr(), meas.data_ptr(), info.data_ptr(), de.ll_rk.data_ptr(),
             de.lm_slots.data_ptr(), de.lm_start.data_ptr(), Hii.data_ptr(), gi.data_ptr(), chi_chain.data_ptr(),
-            Kl, R, L, kind, float(robust_delta), v.data_ptr(), Ow.data_ptr(), Rt.data_ptr(), gp.data_ptr(),
+            Kl, R, L, RB, G, kind, float(robust_delta), v.data_ptr(), Ow.data_ptr(), Rt.data_ptr(), gp.data_ptr(),
             diag.data_ptr(), gl.data_ptr(), Hll.data_ptr(), chi.data_ptr(), scratch.data_ptr(), _stream(dev),
         )
     _build.check(code, "tiled_obs_lin kernel launch", "tiled_linearize")

@@ -1,32 +1,42 @@
 #!/usr/bin/env python3
 """Device times of K1-K3 (the resident loop's linearization and objective),
-K4 (the resident Schur-PCG solve) and K9 (the row-range matvec's per-pose
-half) on one NVIDIA GPU, for this checkout or another one.
+K4 (the resident Schur-PCG solve), K6 (the row-range linearization's
+observation half) and K9 (the row-range matvec's per-pose half) on one
+NVIDIA GPU, for this checkout or another one.
 
-    python semantic_slam_tpu_torch/tools/kernel_times.py [--root DIR] [--split] --out FILE
+    python semantic_slam_tpu_torch/tools/kernel_times.py [--root DIR] [--split] [--sweep] --out FILE
     python semantic_slam_tpu_torch/tools/kernel_times.py --baseline DIR --out FILE
 
 ``--root DIR`` measures the package of the checkout at DIR (default: this
 one) through its own wrappers, built from its own sources. The shapes are
-``chip_smoke.py``'s (imported from DIR): K1, K2 and K3 on the perturbed
+``chip_smoke.py``'s (imported from DIR): the pair K1 + K2 as the LM calls it
+(``kernels.resident_linearize``: one entry point of two launches, or in
+older checkouts K2's launches and then K1's), K1 alone on given chain
+blocks, K2 alone where a checkout still has it, and K3, on the perturbed
 graphs of the fixed-lag pcg session (K=512, L=128, R=32) and of the pcg
-session (K=4096, L=1024, R=32), K1 and K3 under robust none, huber and dcs;
-K4 with the marginalized fixed-lag
-prior at the fixed-lag session's graph (K=512, L=128, R=32) and at the pcg
-session's (K=4096, L=1024, R=32), also without the prior, at 128 and at 0
-fixed CG steps (the difference over 128 is the time of a step); K9 on all
-rows of the tiled session's graph (K=8192, L=2048, R=32). Device time is the
-sum of the kernels' own intervals in a ``torch.profiler`` trace of ``--reps``
-calls; event time is CUDA events around the same calls (the wrapper's host
-work between launches included).
+session (K=4096, L=1024, R=32), under robust none, huber and dcs; K4 with
+the marginalized fixed-lag prior at the fixed-lag session's graph (K=512,
+L=128, R=32) and at the pcg session's (K=4096, L=1024, R=32), also without
+the prior, at 128 and at 0 fixed CG steps (the difference over 128 is the
+time of a step); K6 on all rows of the tiled session's graph (K=8192,
+L=2048, R=32) and on rows [K/2, K) (Kl=4096), and K9 on all its rows.
+Device time is the sum of the kernels' own intervals in a
+``torch.profiler`` trace of ``--reps`` calls; event time is CUDA events
+around the same calls (the wrapper's host work between launches included).
 
 ``--split`` also times copies of K4's source with one phase body emptied
 (the early exit off, so that every copy runs all steps): what a step spends
 per phase, and in barriers and reductions alone (every body emptied).
 
-``--sweep`` also times K1 and K3 at both shapes under other launch splits
-than ``kernels.lin_split`` picks (slots a block, slot groups a block), where
-the checkout has that rule.
+``--sweep`` also times the pair K1 + K2, K3 and K6 under other launch splits
+(slots a block RB, slot groups a block G) than ``kernels.lin_split`` picks,
+where the checkout runs K2 in K1's launches.
+
+``--sessions`` also replays the fixed-lag pcg session (chip_smoke.py's
+``FL_LOG`` with ``--fixed-lag 64 --solver pcg``) and the tiled one (the
+240-step log with ``--solver pcg --max-keyframes 8192``) once to warm up and
+once under a ``torch.profiler`` trace of the device alone, and writes each
+hand-written kernel's launches and summed device ms in the session.
 
 ``--baseline DIR`` runs this script on DIR and on this checkout in turns
 (baseline, this, this, baseline), each in a process of its own, and writes
@@ -50,11 +60,20 @@ K4_NAMES = ("solve_kernel", "solve_cluster_kernel", "solve_grid_kernel")
 K9_NAMES = ("rows_mvb_pose",)
 K1_NAMES = ("pose_kernel", "landmark_kernel", "reduce2_kernel", "lin_slots_kernel", "lin_fold_kernel")
 K2_NAMES = ("chain_kernel", "reduce2_kernel")
+PAIR_NAMES = tuple(dict.fromkeys(K1_NAMES + K2_NAMES))
 K3_NAMES = ("chi2_kernel", "reduce2_kernel", "chi2_slots_kernel")
+K6_NAMES = ("rows_obs_pose", "rows_obs_lm", "reduce2_kernel", "rows_lin_slots", "rows_lin_fold")
 LIN_SHAPES = (("K=512 L=128 R=32", "FL_ENGINE"), ("K=4096 L=1024 R=32", "BENCH"))
-# (slots a block, slot groups a block) tried by --sweep at each shape
-SWEEP = {"K=512 L=128 R=32": ((1, 1), (2, 2), (4, 4), (8, 8), (32, 8)),
-         "K=4096 L=1024 R=32": ((4, 4), (8, 8), (16, 4), (32, 8))}
+# the tiled session's graph: all rows, and rows [K/2, K)
+K6_SHAPES = (("Kl=8192 L=2048 R=32", 0), ("Kl=4096 L=2048 R=32 rows [K/2, K)", 1))
+# splits (RB slots a block, G slot groups a block) tried by --sweep: the pair
+# and K3 at each of LIN_SHAPES, K6 at each of K6_SHAPES
+SWEEP = {
+    "K=512 L=128 R=32": ((2, 2), (3, 3), (4, 4), (8, 8), (16, 8), (32, 8)),
+    "K=4096 L=1024 R=32": ((4, 4), (8, 8), (16, 4), (16, 8), (32, 4), (32, 8)),
+    "Kl=8192 L=2048 R=32": ((4, 4), (8, 8), (16, 4), (16, 8), (32, 4), (32, 8)),
+    "Kl=4096 L=2048 R=32 rows [K/2, K)": ((4, 4), (8, 8), (16, 4), (16, 8), (32, 4), (32, 8)),
+}
 # phase anchors of K4's source: (anchor, text after it, replacement); the
 # first set is the earlier single-shape kernel's, the second the two-shape one's
 SPLIT_EDITS = (
@@ -159,44 +178,139 @@ def _variant_libs(root: str, build_dir: str) -> dict:
     return libs
 
 
+def _sms(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _timed(torch, out: dict, key: str, fn, names, reps: int, smi: str, **extra) -> dict:
+    per = {}
+    dev, ev = device_ms(torch, fn, names, reps, per)
+    out[key] = {"device_ms": dev, "event_ms": ev, "per_kernel_ms": per, **extra}
+    split = ", ".join(f"{n} {t:.5f}" for n, t in per.items())
+    print(f"{key}: device {dev:.5f} ms ({split}), event {ev:.5f} ms ({smi})", flush=True)
+    return out[key]
+
+
+def _with_split(kernels, sp):
+    """``kernels.lin_split`` fixed to ``sp`` inside the block (a context)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        rule = kernels.lin_split
+        kernels.lin_split = lambda K, R, sms, chain=True: sp
+        try:
+            yield
+        finally:
+            kernels.lin_split = rule
+
+    return ctx()
+
+
 def measure_lin(torch, cs, kernels, reps: int, sweep: bool, smi: str) -> dict:
-    """K1, K2 and K3 at LIN_SHAPES: device and event ms (and, with ``sweep``,
-    K1 and K3 under other launch splits)."""
+    """The pair K1 + K2, K1 alone, K2 alone (where it exists) and K3 at
+    LIN_SHAPES: device and event ms (and, with ``sweep``, the pair and K3
+    under other launch splits)."""
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
 
     out = {}
+    fused = hasattr(kernels, "fused_linearize")
     for label, shape in LIN_SHAPES:
         g, se, _, _, _ = cs._soa_case(torch, **getattr(cs, shape), R=cs.ENGINE_R, perturb=True)
+        K = g.poses.shape[0]
         cp = soa.soa_chain_linearize(g.poses, se)
-        fns = {"K2": (lambda: kernels.chain_linearize(g.poses, se), K2_NAMES)}
+        split = list(kernels.lin_split(K, cs.ENGINE_R, _sms(torch)))  # the pair's (and K1 alone's)
         for kind in ("none", "huber", "dcs"):
-            fns[f"K1 {kind}"] = (lambda kind=kind: kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind), K1_NAMES)
-            fns[f"K3 {kind}"] = (lambda kind=kind: kernels.resident_chi2(g.poses, g.landmarks, se, kind), K3_NAMES)
-        rule = getattr(kernels, "lin_split", None)
-        splits = [None] + (list(SWEEP[label]) if sweep and rule else [])
-        for sp in splits:
-            if sp is not None:
-                kernels.lin_split = lambda K, R, sms, sp=sp: sp
-            try:
-                for name, (fn, names) in fns.items():
-                    if sp is not None and name == "K2":
-                        continue
-                    per = {}
-                    dev, ev = device_ms(torch, fn, names, reps, per)
-                    key = f"{name} [{label}]" + (f" split {sp}" if sp else "")
-                    out[key] = {"device_ms": dev, "event_ms": ev, "per_kernel_ms": per}
-                    if sp is None and rule and name != "K2":
-                        out[key]["split"] = list(rule(g.poses.shape[0], cs.ENGINE_R,
-                                                      torch.cuda.get_device_properties(0).multi_processor_count))
-                    split = ", ".join(f"{n} {t:.5f}" for n, t in per.items())
-                    print(f"{key}: device {dev:.5f} ms ({split}), event {ev:.5f} ms ({smi})", flush=True)
-            finally:
-                if rule:
-                    kernels.lin_split = rule
+            pair = _timed(torch, out, f"K1+K2 {kind} [{label}]",
+                          lambda kind=kind: kernels.resident_linearize(g.poses, g.landmarks, se, kind), PAIR_NAMES,
+                          reps, smi, split=split)
+            k1 = _timed(torch, out, f"K1 {kind} [{label}]",
+                        lambda kind=kind: kernels.obs_linearize(g.poses, g.landmarks, se, cp, kind), K1_NAMES, reps,
+                        smi, split=split)
+            if fused:  # K2 has no launch of its own: the pair less K1 alone
+                k2 = out[f"K2 {kind} [{label}]"] = {"device_ms": pair["device_ms"] - k1["device_ms"],
+                                                     "event_ms": pair["event_ms"] - k1["event_ms"]}
+                print(f"K2 {kind} [{label}]: the pair less K1 alone, device {k2['device_ms']:.5f} ms ({smi})",
+                      flush=True)
+            elif kind == "none":
+                _timed(torch, out, f"K2 [{label}]", lambda: kernels.chain_linearize(g.poses, se), K2_NAMES, reps, smi)
+            _timed(torch, out, f"K3 {kind} [{label}]",
+                   lambda kind=kind: kernels.resident_chi2(g.poses, g.landmarks, se, kind), K3_NAMES, reps, smi,
+                   split=list(kernels.lin_split(K, cs.ENGINE_R, _sms(torch), **({"chain": False} if fused else {}))))
+        if not (sweep and fused):
+            continue
+        for sp in SWEEP[label]:
+            with _with_split(kernels, sp):
+                _timed(torch, out, f"K1+K2 none [{label}] split {sp}",
+                       lambda: kernels.resident_linearize(g.poses, g.landmarks, se), PAIR_NAMES, reps, smi)
+                _timed(torch, out, f"K3 none [{label}] split {sp}",
+                       lambda: kernels.resident_chi2(g.poses, g.landmarks, se), K3_NAMES, reps, smi)
     return out
 
 
-def measure(root: str, reps: int, split: bool, sweep: bool) -> dict:
+def measure_k6(torch, cs, kernels, tk, sd, reps: int, sweep: bool, smi: str) -> dict:
+    """K6 at K6_SHAPES on the plain chain blocks (and, with ``sweep``, under
+    other launch splits)."""
+    out = {}
+    g, _, _, _, R = cs._soa_case(torch, **cs.TILED_BENCH, R=cs.ENGINE_R, perturb=True)
+    K = cs.TILED_BENCH["K"]
+    for label, half in K6_SHAPES:
+        rr = cs.RowRange(torch, g, R, K // 2 if half else 0, K // 2 if half else K)
+        cp = sd.chain_plain(rr.pc, rr.pj, rr.de)
+        fn = lambda: tk.tiled_obs_linearize(rr.pc, g.landmarks, rr.de, cp)  # noqa: E731
+        fused = hasattr(kernels, "fused_linearize")
+        split = list(kernels.lin_split(rr.Kl, R, _sms(torch), chain=False)) if fused else None
+        _timed(torch, out, f"K6 none [{label}]", fn, K6_NAMES, reps, smi, split=split)
+        if sweep and split:
+            for sp in SWEEP[label]:
+                with _with_split(kernels, sp):
+                    _timed(torch, out, f"K6 none [{label}] split {sp}", fn, K6_NAMES, reps, smi)
+    return out
+
+
+# every hand-written kernel of either version of the sources, for --sessions
+SESSION_NAMES = tuple(dict.fromkeys(K1_NAMES + K2_NAMES + K3_NAMES + K4_NAMES + K6_NAMES + (
+    "rows_chain", "rows_mvf_slot", "rows_mvf_lm", "rows_mvb_pose", "rows_chi2", "score_kernel")))
+
+
+def measure_sessions(torch, cs, smi: str) -> dict:
+    """Launches and summed device ms of each hand-written kernel in the
+    fixed-lag pcg and tiled sessions (one warm-up replay, then one traced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_slam_tpu_torch import cli
+
+    tiled_log = dict(seed=0, n_steps=240, sensor_every=6, loops=1, H=480, W=640)
+    sessions = {"fixed-lag pcg": (cs.FL_LOG, ["--fixed-lag", str(cs.FL_WINDOW), "--solver", "pcg"]),
+                "tiled": (tiled_log, ["--solver", "pcg", "--max-keyframes", "8192"])}
+    out = {}
+    for label, (log_kw, extra) in sessions.items():
+        log = cli.make_synthetic_log(**log_kw)
+        cfg = cli.make_config(cli.build_parser().parse_args(
+            ["run", "--log", "in-process", "--profile", "yolo_detector", "--device", "cuda", *extra]))
+        cli.run_session(log, cfg, "cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine = cli.run_session(log, cfg, "cuda")
+            torch.cuda.synchronize()
+        row = {}
+        for e in prof.events():
+            name = next((n for n in SESSION_NAMES if f"{n}(" in e.name), None) if e.device_type == DeviceType.CUDA \
+                else None
+            if name:
+                launches, ms = row.get(name, (0, 0.0))
+                row[name] = (launches + 1, ms + e.time_range.elapsed_us() / 1e3)
+        if not row:
+            raise RuntimeError(f"no hand-written kernel events in the trace of the {label} session")
+        out[label] = {"lm_iterations": [s["iterations"] for s in engine.stats_history],
+                      "kernels": {n: {"launches": c, "device_ms": t} for n, (c, t) in row.items()}}
+        print(f"session [{label}]: " + ", ".join(f"{n} {c} launches {t:.4f} ms" for n, (c, t) in row.items())
+              + f" ({smi})", flush=True)
+    return out
+
+
+def measure(root: str, reps: int, split: bool, sweep: bool, sessions: bool = False) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -214,6 +328,7 @@ def measure(root: str, reps: int, split: bool, sweep: bool) -> dict:
     _build.build()
     out = {"root": root, "card": card(), "k4": {}, "k9": {}}
     out["lin"] = measure_lin(torch, cs, kernels, reps, sweep, out["card"])
+    out["k6"] = measure_k6(torch, cs, kernels, tk, sd, reps, sweep, out["card"])
     cases = {}
     for label, shape in (("K=512 L=128 R=32", cs.FL_ENGINE), ("K=4096 L=1024 R=32", cs.BENCH)):
         g, se, pf, lf, prior, _, R = cs._prior_case(torch, **shape, R=cs.ENGINE_R)
@@ -242,6 +357,8 @@ def measure(root: str, reps: int, split: bool, sweep: bool) -> dict:
     out["k9"]["K=8192 L=2048 R=32"] = {"device_ms": dev, "event_ms": ev}
     print(f"K9 [K=8192 L=2048 R=32]: device {dev:.5f} ms, event {ev:.5f} ms ({out['card']})", flush=True)
 
+    if sessions:
+        out["sessions"] = measure_sessions(torch, cs, out["card"])
     if split:
         out["split"] = {}
         with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
@@ -267,19 +384,22 @@ def main() -> int:
     ap.add_argument("--root", default=THIS_ROOT, help="checkout whose package is measured")
     ap.add_argument("--baseline", help="another checkout, measured in turns with this one")
     ap.add_argument("--split", action="store_true", help="also the per-phase split of a K4 step")
-    ap.add_argument("--sweep", action="store_true", help="also K1 and K3 under other launch splits")
+    ap.add_argument("--sweep", action="store_true", help="also K1 + K2, K3 and K6 under other launch splits")
+    ap.add_argument("--sessions", action="store_true",
+                    help="also each kernel's launches and device ms in the fixed-lag pcg and tiled sessions")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", required=True, help="JSON file to write")
     args = ap.parse_args()
     if not args.baseline:
-        res = measure(os.path.abspath(args.root), args.reps, args.split, args.sweep)
+        res = measure(os.path.abspath(args.root), args.reps, args.split, args.sweep, args.sessions)
     else:
         runs = []
         for i, root in enumerate((args.baseline, THIS_ROOT, THIS_ROOT, args.baseline)):
             part = f"{args.out}.{i}"
             cmd = [sys.executable, os.path.abspath(__file__), "--root", os.path.abspath(root), "--reps",
                    str(args.reps), "--out", part] + (["--split"] if args.split and i in (0, 1) else []) + (
-                       ["--sweep"] if args.sweep and i in (0, 1) else [])
+                       ["--sweep"] if args.sweep and i in (0, 1) else []) + (
+                       ["--sessions"] if args.sessions and i in (0, 1) else [])
             print(f"== {' '.join(cmd)}", flush=True)
             subprocess.run(cmd, check=True)
             with open(part) as f:

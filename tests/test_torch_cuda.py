@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions (K5,
 the RANSAC scoring kernel; K1-K4, the resident SoA Schur-PCG solver's
-kernels, K1 and K3 also at the sessions' and ragged graphs and with empty
-parts, K4 also with a fixed-lag prior and in both of its launch shapes;
-K6-K10, the row-range solver's; K1, K3, K4 and K9 also bit for bit on a
+kernels, K1 + K2 in their one call and K1 alone also at the sessions' and
+ragged graphs, K1 and K3 with empty parts, K4 also with a fixed-lag prior and
+in both of its launch shapes; K6-K10, the row-range solver's, K6 also at the
+tiled session's graph; K1 + K2, K1, K3, K4, K6 and K9 also bit for bit on a
 repeat),
 and small sessions on the card (dense, ``--solver pcg`` and ``--solver pcg``
 on the row-range loop; dense and pcg with fixed-lag smoothing) against the
@@ -110,33 +111,37 @@ def rel_err(got, want):
 @pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
 @pytest.mark.parametrize("R", [None, 16], ids=["R-own", "R-16"])
 def test_soa_linearize_and_chi2_match_plain(cuda, robust, R):
-    """K2, K1 and K3 against their plain versions on the card: each output
-    within 1e-4 of its own scale (f32, summation order only)."""
+    """K1 + K2 (one call), K1 alone and K3 against their plain versions on
+    the card: each output within 1e-4 of its own scale (f32, summation order
+    only)."""
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
     from semantic_slam_tpu_torch.solver import kernels as sk
 
     g, se, _ = soa_case(cuda, R=R)
-    counts = (sk.chain_linearize.launches, sk.obs_linearize.launches, sk.resident_chi2.launches)
-    ck, cp = sk.chain_linearize(g.poses, se), soa.soa_chain_linearize(g.poses, se)
+    counts = (sk.fused_linearize.launches, sk.obs_linearize.launches, sk.resident_chi2.launches)
+    (lk, ck), cp = sk.fused_linearize(g.poses, g.landmarks, se, robust, 1.0), soa.soa_chain_linearize(g.poses, se)
     for name, a, b in zip(cp._fields, ck, cp):
         assert rel_err(a, b) <= 1e-4, name
-    lk = sk.obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
     lp = soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
+    la = sk.obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
     for name in ("v", "Ow", "Rt", "gp", "diag", "gl", "Hll", "chi2"):
         assert rel_err(getattr(lk, name), getattr(lp, name)) <= 1e-4, name
+        assert rel_err(getattr(la, name), getattr(lp, name)) <= 1e-4, name
     xk = sk.resident_chi2(g.poses, g.landmarks, se, robust, 1.0)
     assert rel_err(xk, soa.soa_chi2(g.poses, g.landmarks, se, robust, 1.0)) <= 1e-4
     assert rel_err(xk, lk.chi2) <= 1e-4
     torch.cuda.synchronize()
-    assert (sk.chain_linearize.launches, sk.obs_linearize.launches, sk.resident_chi2.launches) == tuple(
+    assert (sk.fused_linearize.launches, sk.obs_linearize.launches, sk.resident_chi2.launches) == tuple(
         c + 1 for c in counts)
 
 
-# K1 and K3 (their pose's slots spread over the grid by ``lin_split``) at the
-# fixed-lag pcg and pcg sessions' graphs and at ragged ones: id -> (K, L, E2, R)
+# K1 + K2, K1 alone and K3 (their pose's slots spread over the grid by
+# ``lin_split``) at the fixed-lag pcg and pcg sessions' graphs, the bench graph
+# and ragged ones: id -> (K, L, E2, R)
 LIN_CASES = {
     "fixed-lag-K512-R32": (512, 128, 2048, 32),
     "pcg-K4096-R32": (4096, 1024, 16384, 32),
+    "bench-K4096-R4": (4096, 1024, 16384, 4),
     "ragged-K1000-R5": (1000, 250, 8 + 998 * 5, 5),
     "ragged-K4999-R5": (4999, 1250, 8 + 4997 * 5, 5),
 }
@@ -196,6 +201,31 @@ def test_lin_chi2_match_plain(cuda, case, robust):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
+@pytest.mark.parametrize("case", sorted(LIN_CASES))
+def test_fused_linearize_matches_plain(cuda, case, robust):
+    """K1 + K2 in their one call (the chain as blocks of K1's first launch)
+    against the plain versions: the chain's own blocks, gradients and chi2,
+    and the linearization that folds them in, each within 1e-4 of its scale;
+    one call counted."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    g, se = lin_case(cuda, case)
+    before = sk.fused_linearize.launches
+    lk, ck = sk.fused_linearize(g.poses, g.landmarks, se, robust, 1.0)
+    cp = soa.soa_chain_linearize(g.poses, se)
+    lp = soa.soa_obs_linearize(g.poses, g.landmarks, se, cp, robust, 1.0)
+    torch.cuda.synchronize()
+    assert sk.fused_linearize.launches == before + 1
+    for name, got, want in zip(cp._fields, ck, cp):
+        assert bool(torch.isfinite(got).all()) and rel_err(got, want) <= 1e-4, name
+    for name in LIN_OUTPUTS + ("Hii", "Hij", "Hjj"):
+        got, want = getattr(lk, name), getattr(lp, name)
+        assert bool(torch.isfinite(got).all()) and rel_err(got, want) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
 @pytest.mark.parametrize("variant", ["idle-landmarks", "no-slots"])
 def test_lin_chi2_empty_parts_match_plain(cuda, variant, robust):
     """K1 and K3 with landmarks that no slot observes, and with every slot
@@ -215,8 +245,8 @@ def test_lin_chi2_empty_parts_match_plain(cuda, variant, robust):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["fixed-lag-K512-R32", "ragged-K4999-R5"])
 def test_lin_chi2_repeat_bit_for_bit(cuda, case):
-    """K1 and K3 give the same bits on two launches (fixed summation orders,
-    no float atomics)."""
+    """K1 + K2, K1 alone and K3 give the same bits on two launches (fixed
+    summation orders, no float atomics)."""
     from semantic_slam_tpu_torch.solver import ellk_soa as soa
     from semantic_slam_tpu_torch.solver import kernels as sk
 
@@ -226,6 +256,9 @@ def test_lin_chi2_repeat_bit_for_bit(cuda, case):
     b = sk.obs_linearize(g.poses, g.landmarks, se, cp, "huber", 1.0)
     for name in LIN_OUTPUTS:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
+    (la, ca), (lb, cb) = (sk.fused_linearize(g.poses, g.landmarks, se, "huber", 1.0) for _ in range(2))
+    for name, x, y in zip(la._fields + ca._fields, la + ca, lb + cb):
+        assert torch.equal(x, y), name
     xs = [sk.resident_chi2(g.poses, g.landmarks, se, "huber", 1.0) for _ in range(3)]
     assert torch.equal(xs[0], xs[1]) and torch.equal(xs[1], xs[2])
 
@@ -400,7 +433,7 @@ def test_soa_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shape"):
         sk.resident_chi2(g.poses, g.landmarks[:-1], se)
     with pytest.raises(ValueError, match="is on"):
-        sk.chain_linearize(g.poses, se._replace(o_info_ch=se.o_info_ch.cpu()))
+        sk.fused_linearize(g.poses, g.landmarks, se._replace(o_info_ch=se.o_info_ch.cpu()))
     with pytest.raises(ValueError, match="unknown robust"):
         sk.obs_linearize(g.poses, g.landmarks, se, soa.soa_chain_linearize(g.poses, se), "cauchy")
     lin = soa.soa_linearize(g.poses, g.landmarks, se)
@@ -453,6 +486,32 @@ def test_tiled_kernels_match_plain(cuda, robust, rows):
     assert rel_err(xk, xp) <= 1e-4
     torch.cuda.synchronize()
     assert [w.launches for w in wrappers] == [c + 1 for c in counts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
+@pytest.mark.parametrize("rows", ["whole", "upper-half"])
+def test_tiled_obs_linearize_session_graph(cuda, robust, rows):
+    """K6 (K1's two launches on the rows' arrays) at the tiled session's
+    graph (K=8192, L=2048, R=32), on all rows and on rows [K/2, K), against
+    its plain version within 1e-4 of scale, and the same bits on a repeat."""
+    from semantic_slam_tpu_torch.solver import chain_soa as chs
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    K, L, R = 8192, 2048, 32
+    g, _, _ = soa_case(cuda, K=K, L=L, E2=32768, R=R)
+    off = 0 if rows == "whole" else K // 2
+    de = sd.build_dist_edges(_edge_args(g), K, R, L, off)
+    pc_all = g.poses.T
+    pc, pj = pc_all[:, off:].contiguous(), chs.roll_up_pose_ch(pc_all)[:, off:].contiguous()
+    cp = sd.chain_plain(pc, pj, de)
+    lk, again = (tk.tiled_obs_linearize(pc, g.landmarks, de, cp, robust) for _ in range(2))
+    lp = sd.obs_plain(pc, g.landmarks, de, cp, robust)
+    for name in lp._fields:
+        assert rel_err(getattr(lk, name), getattr(lp, name)) <= 1e-4, name
+        assert torch.equal(getattr(lk, name), getattr(again, name)), name
 
 
 @pytest.mark.cuda

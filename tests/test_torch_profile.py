@@ -13,8 +13,8 @@ from semantic_slam_tpu_torch import profile_slice as ps
 
 # the layers only the SoA Schur-PCG solver runs: the resident loop's, then
 # the row-range loop's
-PCG_LAYERS = ("lm_optimize_soa", "build_soa_edges", "chain_linearize", "obs_linearize", "resident_solve",
-              "resident_chi2", "landmark_marginals_mf")
+PCG_LAYERS = ("lm_optimize_soa", "build_soa_edges", "resident_linearize", "resident_solve", "resident_chi2",
+              "landmark_marginals_mf")
 TILED_LAYERS = ("lm_optimize_soa_tiled", "build_dist_edges", "tiled_chain_linearize", "tiled_obs_linearize",
                 "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
 # the layers only fixed-lag smoothing runs
@@ -52,8 +52,8 @@ def test_profile_session_times_every_layer_and_unwraps():
 
 
 def test_profile_session_pcg_counts_the_solver_layers():
-    """The pcg session: per optimizing tick, K2 and K1 once per LM iteration
-    plus twice (the first and the final linearization), K4 once per
+    """The pcg session: per optimizing tick, K1 + K2 (one wrapper call) once
+    per LM iteration plus twice (the first and the final linearization), K4 once per
     iteration, K3 once per iteration and once per solve skipped below the
     edge gate; the dense LM's layers never run."""
     log, cfg = _small("pcg", 1, pcg_iters=2)
@@ -62,7 +62,7 @@ def test_profile_session_pcg_counts_the_solver_layers():
     rows = {r["layer"]: r["calls"] for r in report["layers"]}
     ran = [it for it in traced["lm_iterations"] if it > 0]
     assert ran and rows["lm_optimize_soa"] == rows["_optimize_tick"] == len(traced["tick_ms"])
-    assert rows["chain_linearize"] == rows["obs_linearize"] == sum(it + 2 for it in ran)
+    assert rows["resident_linearize"] == sum(it + 2 for it in ran)
     assert rows["resident_solve"] == sum(ran)
     assert rows["resident_chi2"] == sum(ran) + rows["lm_optimize_soa"] - len(ran)
     assert rows["landmark_marginals_mf"] == len(ran)
@@ -74,7 +74,7 @@ def test_profile_session_tiled_counts_the_solver_layers(monkeypatch):
     """The pcg session above the crossover (lowered here so that the tiny
     graph crosses it): per solve, K7 and K6 once per LM iteration, K8 and K9
     (CG steps + 1) times per iteration, K10 once per iteration and once per
-    solve skipped below the edge gate, and one K2 + K1 linearization for the
+    solve skipped below the edge gate, and one K1 + K2 linearization for the
     marginals; the resident loop's solve kernels never run."""
     from semantic_slam_tpu_torch.solver import soa_dist
 
@@ -88,7 +88,7 @@ def test_profile_session_tiled_counts_the_solver_layers(monkeypatch):
     assert rows["tiled_chain_linearize"] == rows["tiled_obs_linearize"] == sum(ran)
     assert rows["tiled_mv_fwd"] == rows["tiled_mv_bwd"] == sum(it * (2 + 1) for it in ran)
     assert rows["tiled_chi2"] == sum(ran) + rows["lm_optimize_soa_tiled"] - len(ran)
-    assert rows["chain_linearize"] == rows["obs_linearize"] == rows["landmark_marginals_mf"] == len(ran)
+    assert rows["resident_linearize"] == rows["landmark_marginals_mf"] == len(ran)
     assert rows["lm_optimize_soa"] == rows["resident_solve"] == rows["resident_chi2"] == 0
 
 
@@ -108,6 +108,6 @@ def test_profile_session_fixed_lag_labels_the_prior_layers():
             assert rows["prior_fold"] == rows["linearize_arrays"] > 0
             assert rows["prior_marginals"] == 0
         else:
-            assert rows["prior_fold"] == rows["chain_linearize"] > 0
+            assert rows["prior_fold"] == rows["resident_linearize"] > 0
             assert rows["prior_marginals"] == rows["landmark_marginals_mf"] > 0
             assert rows["lm_optimize_prior"] == rows["prior_matvec"] == 0

@@ -356,6 +356,32 @@ def test_wrappers_refuse_other_devices(f32):
         tk.resident_solve(meta_lin, meta, torch.tensor(1e-3), pf, lf, 8, 1e-8, Hp, idx)
 
 
+def test_linearize_wrappers_check_shapes_and_dtypes(f32):
+    """K1 + K2 (``fused_linearize``) and K1 alone (``obs_linearize``) refuse
+    bad shapes, index dtypes and robust kernels on every device; on the CPU
+    they run the plain versions, the pair giving the chain's own outputs
+    beside the linearization that folds them in."""
+    _, tg, _, _, tse = f32
+    with pytest.raises(ValueError, match="shape"):
+        tk.fused_linearize(tg.poses, tg.landmarks[:-1], tse)
+    with pytest.raises(ValueError, match="shape"):
+        tk.fused_linearize(tg.poses[:, :6], tg.landmarks, tse)
+    with pytest.raises(TypeError, match="int32"):
+        tk.fused_linearize(tg.poses, tg.landmarks, tse._replace(lm_slots=tse.lm_slots.long()))
+    with pytest.raises(ValueError, match="unknown robust"):
+        tk.fused_linearize(tg.poses, tg.landmarks, tse, "cauchy")
+    chain = tsoa.soa_chain_linearize(tg.poses, tse)
+    with pytest.raises(ValueError, match="shape"):
+        tk.obs_linearize(tg.poses, tg.landmarks, tse, chain._replace(gj=chain.gj[:, :-1]))
+    with pytest.raises(TypeError, match="int32"):
+        tk.obs_linearize(tg.poses, tg.landmarks, tse._replace(ll_rk=tse.ll_rk.long()), chain)
+    lin, ch = tk.fused_linearize(tg.poses, tg.landmarks, tse, "huber")
+    want = tsoa.soa_linearize(tg.poses, tg.landmarks, tse, "huber")
+    assert all(torch.equal(a, b) for a, b in zip(ch, chain))
+    assert all(torch.equal(a, b) for a, b in zip(lin, want))
+    assert all(torch.equal(a, b) for a, b in zip(tk.obs_linearize(tg.poses, tg.landmarks, tse, chain, "huber"), want))
+
+
 H100_SMEM_PER_BLOCK = 232448  # bytes a block may opt in to on an H100 (227 KB)
 
 
@@ -381,21 +407,30 @@ H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def test_lin_split_rule():
-    """K1's and K3's launch split: a block takes 32 poses and a chunk of RB
-    slots in G <= min(RB, 8) slot groups; the chunks cover R with none empty,
-    and the grid fills one wave of an H100's SMs wherever K and R allow it,
-    with no fewer chunks that would."""
-    for K, R in ((512, 32), (4096, 32), (1000, 5), (4999, 5), (300, 16), (40, 3), (8192, 32), (1, 1)):
-        RB, G = tk.lin_split(K, R, H100_SMS)
-        ranges, chunks = -(-K // 32), -(-R // RB)
-        assert 1 <= G <= min(RB, 8) and (chunks - 1) * RB < R <= chunks * RB
-        if ranges * R >= H100_SMS:
-            assert ranges * chunks >= H100_SMS
-        else:
-            assert RB == 1
-        fewer = [c for c in range(1, chunks) if ranges * -(-R // -(-R // c)) >= H100_SMS]
-        assert not fewer, (K, R, fewer)
-    # the fixed-lag pcg session's graph: 16 pose ranges x 11 chunks of 3 slots
-    assert tk.lin_split(512, 32, H100_SMS) == (3, 3)
-    # the pcg session's: 128 pose ranges x 2 chunks of 16 slots, 8 slot groups
-    assert tk.lin_split(4096, 32, H100_SMS) == (16, 8)
+    """K1's, K3's and K6's launch split: a block takes 32 poses and a chunk of
+    RB slots in G = min(RB, 8) slot groups; the chunks cover R with none
+    empty; RB is min(8, R) doubled (capped at R), the smallest whose grid
+    (with the pair's ceil(K / 32) chain blocks where K2 shares the launch)
+    fits one wave of 2 blocks on each of an H100's SMs, and R where none
+    does."""
+    for K, R in ((512, 32), (4096, 32), (1000, 5), (4999, 5), (300, 16), (40, 3), (8192, 32), (1, 1), (16384, 32),
+                 (1000, 12)):
+        for chain in (True, False):
+            RB, G = tk.lin_split(K, R, H100_SMS, chain)
+            ranges, chunks = -(-K // 32), -(-R // RB)
+            assert G == min(RB, 8) and (chunks - 1) * RB < R <= chunks * RB
+            steps = [min(8, R)]
+            while steps[-1] < R:
+                steps.append(min(2 * steps[-1], R))
+            assert RB in steps
+            fits = [rb for rb in steps if ranges * -(-R // rb) + (ranges if chain else 0) <= 2 * H100_SMS]
+            assert RB == (fits[0] if fits else R), (K, R, chain)
+    # the sessions' graphs, swept (PERF.md): the fixed-lag pcg session's K1 + K2 (16 pose ranges x 4 chunks
+    # beside 16 chain blocks) and K3
+    assert tk.lin_split(512, 32, H100_SMS) == tk.lin_split(512, 32, H100_SMS, chain=False) == (8, 8)
+    # the pcg session's K1 + K2: 128 pose ranges x 1 chunk beside 128 chain blocks; its K3: 2 chunks of 16
+    assert tk.lin_split(4096, 32, H100_SMS) == (32, 8)
+    assert tk.lin_split(4096, 32, H100_SMS, chain=False) == (16, 8)
+    # the tiled session's K6 on all 8192 rows (256 ranges x 1 chunk) and on half of them
+    assert tk.lin_split(8192, 32, H100_SMS, chain=False) == (32, 8)
+    assert tk.lin_split(4096, 32, H100_SMS, chain=False) == (16, 8)
