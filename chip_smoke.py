@@ -24,10 +24,13 @@ before the result line:
              ``--max-keyframes 4096`` shape (R=32), at the fixed-lag pcg
              session's K=512/L=128/E2=2048 (R=32; K1 + K2, K1 alone and K3
              timed under each robust kernel) and at a ragged K=1000, under robust
-             none/huber/dcs; K6-K10 (the row-range solver) at
-             the bench shape K=8192/L=2048/E2=32768 (R=4), at the engine's
-             ``--max-keyframes 8192`` shape (R=32) and at K=16384/L=4096, each
-             on the whole row range and on rows [K/2, K);
+             none/huber/dcs; K6-K10 (the row-range solver; K6 + K7 as the
+             one call the loop makes, its chain outputs and its linearization
+             each against the plain version, and K6 alone on given chain
+             blocks) at the bench shape K=8192/L=2048/E2=32768 (R=4), at the
+             engine's ``--max-keyframes 8192`` shape (R=32) and at
+             K=16384/L=4096, each on the whole row range and on rows
+             [0, K/2) and [K/2, K);
 4. two halves -- K6+K7 and K8 -> K9 on rows [0, K/2) and [K/2, K), summed,
              embedded and shifted, against the whole range (the row-range
              contract of a multi-device loop);
@@ -66,10 +69,11 @@ iteration counts just after.
 The line before the last is a JSON object with one entry per kernel (launches
 from the session whose path runs it, K1-K3 and K5 from the pcg slice (K1's and
 K2's both the count of their one wrapper), K4 from the fixed-lag pcg slice,
-K6-K10 from the tiled slice; times and errors at the engine shapes, K4's with
-the prior at the fixed-lag session's shape, K1's those of K1 alone, K2's
-device time the pair's less K1's and its event time the pair's call, all
-measured here; each kernel's bound, and its device time; K4's also per CG
+K6-K10 from the tiled slice (K6's and K7's both the count of their one
+wrapper); times and errors at the engine shapes, K4's with the prior at the
+fixed-lag session's shape, K1's those of K1 alone, K2's device time the
+pair's less K1's and its event time the pair's call, K6's and K7's likewise,
+all measured here; each kernel's bound, and its device time; K4's also per CG
 step); the last line
 is ``{"ok": true, "device": {...}}``.
 Artifacts of the sessions go to ``OUT_DIR`` under the checkout. Run
@@ -523,8 +527,13 @@ def _tiled_bytes_flops(K: int, R: int, L: int, E_real: int) -> dict:
 
 def check_tiled_kernels(torch) -> dict:
     """K6-K10 against their plain versions at the bench, engine and K=16384
-    shapes, on the whole row range and on rows [K/2, K); returns the engine
-    shape's whole-range numbers per kernel."""
+    shapes, on the whole row range and on rows [0, K/2) and [K/2, K): K6 + K7
+    as the loop calls them (the chain's own outputs and the linearization),
+    K6 alone, K8, K9 and K10 (the whole objective, and the chain's sum alone
+    with the observations' information zeroed), under robust
+    none/huber/dcs; returns the engine
+    shape's whole-range numbers per kernel (K7's device time the pair's less
+    K6 alone's)."""
     from semantic_slam_tpu_torch.solver import soa_dist as sd
     from semantic_slam_tpu_torch.solver import tiled_kernels as tk
 
@@ -540,29 +549,40 @@ def check_tiled_kernels(torch) -> dict:
         record = label.startswith("engine")
         x_full = torch.randn(6, K, generator=torch.Generator(device=DEVICE).manual_seed(2), device=DEVICE)
         xj_full = torch.cat([x_full[:, 1:], x_full[:, :1]], dim=1)
-        for where, off, Kl in (("rows [0, K)", 0, K), ("rows [K/2, K)", K // 2, K // 2)):
+        # the lower half's last row meets the upper half's first pose (its successor from the host) with real
+        # information; the whole range's last row wraps to pose 0
+        for where, off, Kl in (("rows [0, K)", 0, K), ("rows [0, K/2)", 0, K // 2), ("rows [K/2, K)", K // 2, K // 2)):
             rr = RowRange(torch, g, R, off, Kl)
             E_real = int(rr.de.lm_start[L])
             print(f"-- row-range kernels [{label}, {where}]: K={K} L={L} R={R}, {E_real} real slots of {Kl * R}")
             errs = {}
-            # K7
-            ck, cp = tk.tiled_chain_linearize(rr.pc, rr.pj, rr.de), sd.chain_plain(rr.pc, rr.pj, rr.de)
-            errs["tiled_chain_linearize"] = {n: _rel_err(torch, a, b) for n, a, b in zip(cp._fields, ck, cp)}
+            cp = sd.chain_plain(rr.pc, rr.pj, rr.de)
             for kind in ("none", "huber", "dcs"):
-                # K6 on the plain chain blocks, so that its own error shows; K10
-                lk = tk.tiled_obs_linearize(rr.pc, g.landmarks, rr.de, cp, kind, 1.0)
+                # K6 + K7 as the loop calls them: the chain's own outputs, then the linearization that folds
+                # their i-side in
+                lk, ck = tk.tiled_fused_linearize(rr.pc, rr.pj, g.landmarks, rr.de, kind, 1.0)
                 lp = sd.obs_plain(rr.pc, g.landmarks, rr.de, cp, kind, 1.0)
-                e6 = {n: _rel_err(torch, a, b) for n, a, b in zip(lp._fields, lk, lp)}
+                e7 = {n: _rel_err(torch, a, b) for n, a, b in zip(cp._fields, ck, cp)}
+                ep = {n: _rel_err(torch, a, b) for n, a, b in zip(lp._fields, lk, lp)}
+                # K6 alone on the plain chain blocks, so that its own error shows; K10
+                la = tk.tiled_obs_linearize(rr.pc, g.landmarks, rr.de, cp, kind, 1.0)
+                e6 = {n: _rel_err(torch, a, b) for n, a, b in zip(lp._fields, la, lp)}
                 xk = tk.tiled_chi2(rr.pc, rr.pj, g.landmarks, rr.de, kind, 1.0)
                 e10 = {"chi2": _rel_err(torch, xk, sd.chi2_plain(rr.pc, rr.pj, g.landmarks, rr.de, kind, 1.0))}
-                print(f"  [{kind}] tiled_obs_linearize (K6) max rel err "
-                      f"{max(e[1] for e in e6.values()):.3g}: " + ", ".join(f"{n} {e[1]:.2g}" for n, e in e6.items())
-                      + f"; tiled_chi2 (K10) {e10['chi2'][1]:.3g} (bound {LIN_RTOL:g})")
+                # the chain's sum alone (the observations' information zeroed): in the whole objective it is
+                # ~1e-5 of the observations' terms, below the bound
+                no_obs = rr.de._replace(info=torch.zeros_like(rr.de.info))
+                e10["chain chi2"] = _rel_err(torch, tk.tiled_chi2(rr.pc, rr.pj, g.landmarks, no_obs, kind, 1.0),
+                                             sd.chi2_plain(rr.pc, rr.pj, g.landmarks, no_obs, kind, 1.0))
+                for what, e in (("tiled_fused_linearize (K6 + K7) chain (K7)", e7),
+                                ("tiled_fused_linearize (K6 + K7) linearization", ep),
+                                ("tiled_obs_linearize (K6 alone)", e6), ("tiled_chi2 (K10)", e10)):
+                    worst = max(v[1] for v in e.values())
+                    print(f"  [{kind}] {what}: max rel err {worst:.3g} (bound {LIN_RTOL:g}) "
+                          + ", ".join(f"{n} {v[1]:.2g}" for n, v in e.items()))
+                    require(worst <= LIN_RTOL, f"{label} {where} {kind}: {what} disagrees with its plain version: {e}")
                 if kind == "none":
-                    errs["tiled_obs_linearize"], errs["tiled_chi2"] = e6, e10
-                for name, e in (("K6", e6), ("K10", e10)):
-                    require(max(v[1] for v in e.values()) <= LIN_RTOL,
-                            f"{label} {where} {kind}: {name} disagrees with its plain version: {e}")
+                    errs["tiled_chain_linearize"], errs["tiled_obs_linearize"], errs["tiled_chi2"] = e7, e6, e10
             # K8 and K9 on the same inputs: the plain linearization, a seeded
             # direction, z = (Hll + I)^-1 T and the plain Oa
             lp = sd.obs_plain(rr.pc, g.landmarks, rr.de, cp)
@@ -574,19 +594,23 @@ def check_tiled_kernels(torch) -> dict:
             uk, vk = tk.tiled_mv_bwd(lp, rr.de, Op, z, x, xj)
             up, vp = sd.mv_bwd_plain(lp, rr.de, Op, z, x, xj)
             errs["tiled_mv_bwd"] = {"u": _rel_err(torch, uk, up), "vj": _rel_err(torch, vk, vp)}
-            for name in ("tiled_chain_linearize", "tiled_mv_fwd", "tiled_mv_bwd"):
+            for name in ("tiled_mv_fwd", "tiled_mv_bwd"):
                 e = errs[name]
                 print(f"  {name}: max rel err {max(v[1] for v in e.values()):.3g} (bound {LIN_RTOL:g}) "
                       + ", ".join(f"{n} {v[1]:.2g}" for n, v in e.items()))
                 require(max(v[1] for v in e.values()) <= LIN_RTOL,
                         f"{label} {where}: {name} disagrees with its plain version: {e}")
-            if not (record and off == 0):
+            if not (record and Kl == K):
                 continue
-            # times at the session's shape, whole range: CUDA events after warm-up
+            # times at the session's shape, whole range: CUDA events after warm-up. K7 has no launch of its own:
+            # its device time is the pair's less K6 alone's, its event time the pair's call, its plain time the
+            # chain's own
             bf = _tiled_bytes_flops(K, R, L, E_real)
+            bf["tiled_fused_linearize"] = tuple(a + b for a, b in zip(bf["tiled_obs_linearize"],
+                                                                      bf["tiled_chain_linearize"]))
             fns = {
-                "tiled_chain_linearize": (lambda: tk.tiled_chain_linearize(rr.pc, rr.pj, rr.de),
-                                          lambda: sd.chain_plain(rr.pc, rr.pj, rr.de)),
+                "tiled_fused_linearize": (lambda: tk.tiled_fused_linearize(rr.pc, rr.pj, g.landmarks, rr.de),
+                                          lambda: sd.PLAIN_OPS.linearize(rr.pc, rr.pj, g.landmarks, rr.de)),
                 "tiled_obs_linearize": (lambda: tk.tiled_obs_linearize(rr.pc, g.landmarks, rr.de, cp),
                                         lambda: sd.obs_plain(rr.pc, g.landmarks, rr.de, cp)),
                 "tiled_mv_fwd": (lambda: tk.tiled_mv_fwd(lp, rr.de, x), lambda: sd.mv_fwd_plain(lp, rr.de, x)),
@@ -595,15 +619,27 @@ def check_tiled_kernels(torch) -> dict:
                 "tiled_chi2": (lambda: tk.tiled_chi2(rr.pc, rr.pj, g.landmarks, rr.de),
                                lambda: sd.chi2_plain(rr.pc, rr.pj, g.landmarks, rr.de)),
             }
+            times = {}
             for name, (kern, plain) in fns.items():
                 ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
                 dev_ms = _device_ms(torch, kern, name)
+                times[name] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms}
                 b = bound(*bf[name])
                 print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of 20), "
                       f"kernel device time {dev_ms:.4f} ms (profiler); bound {b['bound_ms']:.4f} ms by "
                       f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e6:.1f} Mflop)")
-                out[name] = {"max_abs_err": max(v[0] for v in errs[name].values()), "ms": ms, "plain_ms": plain_ms,
-                             "device_ms": dev_ms, **b}
+                if name != "tiled_fused_linearize":
+                    out[name] = {"max_abs_err": max(v[0] for v in errs[name].values()), **times[name], **b}
+            pair, k6 = times["tiled_fused_linearize"], times["tiled_obs_linearize"]
+            k7 = {"ms": pair["ms"], "device_ms": pair["device_ms"] - k6["device_ms"],
+                  "plain_ms": _time_ms(torch, lambda: sd.chain_plain(rr.pc, rr.pj, rr.de)),
+                  "pair_device_ms": pair["device_ms"]}
+            b = bound(*bf["tiled_chain_linearize"])
+            print(f"  tiled_chain_linearize (K7 in K6's launches) [{label}]: device time {k7['device_ms']:.4f} ms "
+                  f"(the pair's less K6 alone's), the pair's call {k7['ms']:.4f} ms (CUDA events); plain "
+                  f"{k7['plain_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+            out["tiled_chain_linearize"] = {"max_abs_err": max(v[0] for v in errs["tiled_chain_linearize"].values()),
+                                            **k7, **b}
     return out
 
 
@@ -857,7 +893,7 @@ WRAPPERS = (
     ("resident_chi2", "semantic_slam_tpu_torch.solver.kernels"),
     ("resident_solve", "semantic_slam_tpu_torch.solver.kernels"),
     ("score_hypotheses", "semantic_slam_tpu_torch.frontend.kernels"),
-    ("tiled_chain_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_fused_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
     ("tiled_obs_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
     ("tiled_mv_fwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
     ("tiled_mv_bwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
@@ -865,7 +901,8 @@ WRAPPERS = (
 )
 RESIDENT = ("fused_linearize", "resident_chi2", "resident_solve")
 PAIR = ("obs_linearize", "chain_linearize")  # K1 and K2, the kernels line's names of the pair
-TILED = ("tiled_chain_linearize", "tiled_obs_linearize", "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
+TILED = ("tiled_fused_linearize", "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
+TILED_PAIR = ("tiled_obs_linearize", "tiled_chain_linearize")  # K6 and K7, the kernels line's names of the pair
 
 
 def _wrappers():
@@ -989,15 +1026,16 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
                 "obs_linearize": 0,
                 "resident_solve": sum(ran),
                 "resident_chi2": sum(ran) + skipped,
+                "tiled_obs_linearize": 0,
                 **{name: 0 for name in TILED},
             }
             formula = ("K1 + K2 = sum(it + 2) over solves, K1 alone = 0, K4 = sum(it), K3 = sum(it) + skipped solves, "
-                       "K6-K10 = 0")
+                       "K6-K10 (K6 + K7 one call, K6 alone) = 0")
         else:
             steps = cfg.solver.pcg_iters
             expect = {
-                "tiled_chain_linearize": sum(ran),
-                "tiled_obs_linearize": sum(ran),
+                "tiled_fused_linearize": sum(ran),
+                "tiled_obs_linearize": 0,
                 "tiled_mv_fwd": sum(it * (steps + 1) for it in ran),
                 "tiled_mv_bwd": sum(it * (steps + 1) for it in ran),
                 "tiled_chi2": sum(ran) + skipped,
@@ -1006,7 +1044,8 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
                 "resident_solve": 0,
                 "resident_chi2": 0,
             }
-            formula = (f"K6/K7 = sum(it) over solves, K8/K9 = sum(it x ({steps} CG steps + 1)), "
+            formula = (f"K6 + K7 = sum(it) over solves (one call of two launches each), K6 alone = 0, K8/K9 = "
+                       f"sum(it x ({steps} CG steps + 1)), "
                        "K10 = sum(it) + skipped solves, K1 + K2 = one marginals linearization per solve, K1 alone, "
                        "K3, K4 = 0")
         print(f"[{label}] {loop} LM calls (iterations): {calls[loop]}; expected launches: {formula} = {expect}")
@@ -1021,7 +1060,7 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
             require(launches[name] > 0, f"[{label}] {name} was launched no time on its path")
     else:
         require(not calls["resident"] and not calls["tiled"]
-                and all(launches[n] == 0 for n in RESIDENT + TILED),
+                and all(launches[n] == 0 for n in RESIDENT + TILED + ("tiled_obs_linearize",)),
                 f"[{label}] the dense path ran SoA kernels: {launches}")
 
     tick_ms = [1e3 * s["solve_seconds"] for s in engine.stats_history]
@@ -1150,8 +1189,9 @@ def main() -> int:
     kernels_line = {"kernels": [
         {
             "name": name, "route": "cuda", "source": f"semantic_slam_tpu_torch/csrc/{src}", "replaces": rep,
-            # K1 and K2 launch only through the one wrapper of the pair on the path
-            "launches": session["launches"]["fused_linearize" if name in PAIR else name],
+            # K1 and K2, and K6 and K7, launch only through the one wrapper of their pair on the path
+            "launches": session["launches"]["fused_linearize" if name in PAIR else
+                                            "tiled_fused_linearize" if name in TILED_PAIR else name],
             **{k: numbers[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             **{k: numbers[name][k] for k in ("device_ms", "device_us_per_step", "pair_device_ms")

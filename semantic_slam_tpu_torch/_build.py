@@ -48,18 +48,16 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
         "soa_solve_launch": ([_P] * 18 + [_I, _F, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P], ctypes.c_int),
     },
     "tiled_linearize": {
-        "tiled_chain_lin_scratch": ([_I], ctypes.c_longlong),
-        "tiled_chain_lin_launch": ([_P] * 4 + [_I] + [_P] * 8, ctypes.c_int),
-        "tiled_obs_lin_scratch": ([_I] * 3, ctypes.c_longlong),
-        "tiled_obs_lin_launch": ([_P] * 10 + [_I] * 6 + [_F] + [_P] * 10, ctypes.c_int),
+        "tiled_lin_scratch": ([_I] * 4, ctypes.c_longlong),
+        "tiled_lin_launch": ([_P] * 10 + [_I] * 7 + [_F] + [_P] * 16, ctypes.c_int),
     },
     "tiled_matvec": {
         "tiled_mv_fwd_launch": ([_P] * 6 + [_I, _I, _I] + [_P] * 3, ctypes.c_int),
         "tiled_mv_bwd_launch": ([_P] * 11 + [_I, _I] + [_P] * 3, ctypes.c_int),
     },
     "tiled_chi2": {
-        "tiled_chi2_scratch": ([_I], ctypes.c_longlong),
-        "tiled_chi2_launch": ([_P] * 8 + [_I, _I, _I, _F, _P, _P, _P], ctypes.c_int),
+        "tiled_chi2_scratch": ([_I] * 3, ctypes.c_longlong),
+        "tiled_chi2_launch": ([_P] * 8 + [_I] * 5 + [_F] + [_P] * 3, ctypes.c_int),
     },
 }
 

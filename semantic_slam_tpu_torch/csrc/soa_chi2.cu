@@ -11,8 +11,9 @@
 // measurement and information (50 floats). ~60 flops per slot and ~400 per
 // chain edge are far below the card's rate.
 //
-// Design: two launches. The first spreads the slots as K1 does
-// (soa_linearize.cu lin_slots_kernel): a grid of (pose ranges of 32, slot
+// Design: two launches. The first (soa_common.cuh chi2_slots_block, which
+// K10 shares) spreads the slots as K1 does (soa_linearize.cu
+// lin_slots_kernel): a grid of (pose ranges of 32, slot
 // chunks of RB) with G warps a block, thread (lane, g) walking its pose's
 // slots r = r0 + g, r0 + g + G, ... of the block's chunk (solver/kernels.py
 // `lin_split` picks RB and G), so that the grid fills the card at K=512 as at
@@ -34,29 +35,7 @@ chi2_slots_kernel(const float* __restrict__ pose, const float* __restrict__ lm, 
                   const float* __restrict__ o_info, int K, int R, int RB, int kind, float delta,
                   float* __restrict__ part) {
   __shared__ float red[64];
-  const int G = blockDim.x >> 5, lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  const int k = blockIdx.x * POSE_GROUP + lane, c = blockIdx.y;
-  const int r0 = c * RB, r1 = min(R, r0 + RB);
-  float s[2] = {0.f, 0.f};  // observations, chain
-  if (k < K) {
-    V3 t;
-    Q4 q;
-    load_pose(pose, K, k, t, q);
-    s[0] = obs_slot_group_chi2(rotmat(qconj(q)), t, lm, meas, info, ll_rk, K, R * K, k, r0, r1, g, G, kind, delta);
-    if (c == 0 && g == 0) {
-      V3 tj, mt;
-      Q4 qj, mq;
-      load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
-      load_pose(o_meas, K, k, mt, mq);
-      s[1] = chain_chi(chain_residual(t, q, tj, qj, mt, mq), load_info6(o_info, K, k));
-    }
-  }
-  block_sum<2>(s, red);
-  if (threadIdx.x == 0) {
-    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
-    part[b] = s[0];
-    part[nb + b] = s[1];
-  }
+  chi2_slots_block(pose, nullptr, lm, meas, info, ll_rk, o_meas, o_info, K, R, RB, kind, delta, part, red);
 }
 
 }  // namespace

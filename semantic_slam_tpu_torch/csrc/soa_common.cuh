@@ -13,11 +13,14 @@
 // mv_fwd_* and mv_bwd_slot_group with m66_row, are the math of the TPU
 // kernels _mv_fwd_kernel / _mv_bwd_kernel (solver/pallas_tiled.py): K4 runs
 // them inside its one launch, K8 and K9 as launches of their own. The two
-// launches of the linearization's observation half (lin_slots_block,
-// lin_fold_block) are K1's on the whole graph and K6's on a row range.
+// launches of the linearization (chain_block and lin_slots_block, then
+// lin_fold_block) are K1's with K2's chain blocks on the whole graph and
+// K6's with K7's on a row range; the objective's slot pass
+// (chi2_slots_block) is K3's and K10's.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -284,24 +287,6 @@ __device__ __forceinline__ float chain_chi(const ChainRes& c, const Info6& O) {
   return dot(c.rv, Orv) + dot(c.rw, Orw);
 }
 
-// Store H = T J (T = J'^T O quadrants, J = [[X, Y], [0, X]]) into [6,6,K].
-__device__ __forceinline__ void store_TJ(float* H, int K, int k, const M3& T11, const M3& T12, const M3& T21,
-                                         const M3& T22, const M3& X, const M3& Y) {
-  const M3 H11 = mul(T11, X);
-  const M3 H12 = madd(mul(T11, Y), mul(T12, X));
-  const M3 H21 = mul(T21, X);
-  const M3 H22 = madd(mul(T21, Y), mul(T22, X));
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      H[(i * 6 + j) * K + k] = H11.m[i][j];
-      H[(i * 6 + j + 3) * K + k] = H12.m[i][j];
-      H[((i + 3) * 6 + j) * K + k] = H21.m[i][j];
-      H[((i + 3) * 6 + j + 3) * K + k] = H22.m[i][j];
-    }
-}
-
 // ---------------------------------------------------------------------------
 // poses and the observation slot (solver/ellk_soa.py soa_linearize)
 // ---------------------------------------------------------------------------
@@ -470,8 +455,8 @@ __device__ __forceinline__ float group_total(const float* part, int G, int i, in
 }
 
 // ---------------------------------------------------------------------------
-// the chain's linearization: one thread a row (K7), or a row's outputs
-// spread over a group of warps (K2, as a block role of K1's first launch)
+// the chain's linearization: a row's outputs spread over a group of warps
+// (K2 and K7, as a block role of K1's and K6's first launch, chain_block)
 // ---------------------------------------------------------------------------
 
 // The residual of row k's chain edge, from pose (ti, qi) to its successor
@@ -495,30 +480,6 @@ __device__ __forceinline__ ChainJac chain_jacobians(const V3& ti, const Q4& qi, 
   return J;
 }
 
-// Chain edge of row k, one thread: writes Hii/Hij/Hjj [6,6,K] and g_i/g_j
-// [6,K] of row k; returns the row's chi2.
-__device__ __forceinline__ float chain_linearize_row(const V3& ti, const Q4& qi, const V3& tj, const Q4& qj,
-                                                     const float* o_meas, const float* o_info, int K, int k,
-                                                     float* Hii, float* Hij, float* Hjj, float* gi, float* gj) {
-  const Info6 O = load_info6(o_info, K, k);
-  const ChainJac J = chain_jacobians(ti, qi, tj, qj, o_meas, K, k);
-  const ChainRes& c = J.c;
-  const M3 &Xi = J.Xi, &Yi = J.Yi, &Xj = J.Xj, &Yj = J.Yj;
-  // T = J^T O quadrants
-  const M3 Ti11 = mulT(Xi, O.O11), Ti12 = mulT(Xi, O.O12);
-  const M3 Ti21 = madd(mulT(Yi, O.O11), mulT(Xi, O.O21)), Ti22 = madd(mulT(Yi, O.O12), mulT(Xi, O.O22));
-  const M3 Tj11 = mulT(Xj, O.O11), Tj12 = mulT(Xj, O.O12);
-  const M3 Tj21 = madd(mulT(Yj, O.O11), mulT(Xj, O.O21)), Tj22 = madd(mulT(Yj, O.O12), mulT(Xj, O.O22));
-  store_TJ(Hii, K, k, Ti11, Ti12, Ti21, Ti22, Xi, Yi);
-  store_TJ(Hij, K, k, Ti11, Ti12, Ti21, Ti22, Xj, Yj);
-  store_TJ(Hjj, K, k, Tj11, Tj12, Tj21, Tj22, Xj, Yj);
-  store_v3(gi, K, k, add(mv(Ti11, c.rv), mv(Ti12, c.rw)));
-  store_v3(gi + 3 * K, K, k, add(mv(Ti21, c.rv), mv(Ti22, c.rw)));
-  store_v3(gj, K, k, add(mv(Tj11, c.rv), mv(Tj12, c.rw)));
-  store_v3(gj + 3 * K, K, k, add(mv(Tj21, c.rv), mv(Tj22, c.rw)));
-  return chain_chi(c, O);
-}
-
 // quadrant (a, b) of a [6,6,n] channel array at column i
 __device__ __forceinline__ M3 load_quad(const float* O, int n, int i, int a, int b) { M3 r;
 #pragma unroll
@@ -529,7 +490,8 @@ __device__ __forceinline__ M3 load_quad(const float* O, int n, int i, int a, int
 }
 
 // The top (T11, T12) or bottom (T21, T22) quadrant row of T = J^T O for J =
-// [[X, Y], [0, X]], as chain_linearize_row forms it; O is [6,6,n] at column i.
+// [[X, Y], [0, X]] (T11 = X^T O11, T21 = Y^T O11 + X^T O21, ...); O is
+// [6,6,n] at column i.
 __device__ __forceinline__ void chain_T_row(const M3& X, const M3& Y, const float* O, int n, int i, bool bottom,
                                             M3& Ta, M3& Tb) {
   const M3 O11 = load_quad(O, n, i, 0, 0), O12 = load_quad(O, n, i, 0, 1);
@@ -557,14 +519,14 @@ __device__ __forceinline__ M3 msel(bool p, const M3& A, const M3& B) { M3 r;
 // t = 16 the chi2.
 constexpr int CHAIN_TASKS = 17;
 
-// K2's body after the serial part (chain_jacobians, which every warp of a
-// group computes for its rows, recomputed rather than exchanged): warp g of
-// a group of G warps that holds 32 consecutive rows (one a lane) computes
-// only the tasks t = g, g + G, ... < CHAIN_TASKS of row k, each with the T
-// quadrants it needs, in chain_linearize_row's op order, so that a warp's
-// store of one channel is 32 consecutive floats. The row's information is O
-// [6,6,n] at column i. Returns the row's chi2 in the warp that has task 16,
-// else 0.
+// K2's and K7's body after the serial part (chain_jacobians, which every
+// warp of a group computes for its rows, recomputed rather than exchanged):
+// warp g of a group of G warps that holds 32 consecutive rows (one a lane)
+// computes only the tasks t = g, g + G, ... < CHAIN_TASKS of row k, each
+// with the T quadrants it needs (H = T J by quadrants: T11 X, T11 Y + T12 X,
+// ...), so that a warp's store of one channel is 32 consecutive floats. The
+// row's information is O [6,6,n] at column i. Returns the row's chi2 in the
+// warp that has task 16, else 0.
 __device__ __forceinline__ float chain_row_group_linearize(const ChainJac& J, const float* O, int n, int i, int K,
                                                            int k, int g, int G, float* Hii, float* Hij, float* Hjj,
                                                            float* gi, float* gj) {
@@ -596,8 +558,7 @@ __device__ __forceinline__ float chain_row_group_linearize(const ChainJac& J, co
 }
 
 // ---------------------------------------------------------------------------
-// the observation slot's linearization and a pose's sums over its slots, and
-// the one-thread-a-row objective of the row-range kernel K10
+// the observation slot's linearization and a pose's sums over its slots
 // ---------------------------------------------------------------------------
 
 // Slot e's linearization: the residual, its robust rho and IRLS weight, and
@@ -636,35 +597,15 @@ __device__ __forceinline__ void pose_accumulate(ObsPose& o, const SlotLin& s) {
   o.BR = msub(o.BR, hat_mul(s.v, OB));
 }
 
-// The objective of pose k (K10): the robust chi2 of its R slots added to
-// chi[0], the chain chi2 of row k against the successor (tj, qj) to chi[1].
-__device__ __forceinline__ void pose_chi2(const float* pose, const V3& tj, const Q4& qj, const float* lm,
-                                          const float* meas, const float* info, const int* ll_rk,
-                                          const float* o_meas, const float* o_info, int K, int R, int k, int kind,
-                                          float delta, float* chi) {
-  V3 ti, mt;
-  Q4 qi, mq;
-  load_pose(pose, K, k, ti, qi);
-  load_pose(o_meas, K, k, mt, mq);
-  chi[1] += chain_chi(chain_residual(ti, qi, tj, qj, mt, mq), load_info6(o_info, K, k));
-  const M3 Rt = rotmat(qconj(qi));
-  const int E = R * K;
-  for (int r = 0; r < R; ++r) {
-    float rho, w;
-    robust_rho_w(obs_slot(Rt, ti, lm, ll_rk, meas, info, E, r * K + k).chi, kind, delta, rho, w);
-    chi[0] += rho;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K1's, K3's and K6's bodies: a pose's slots spread over the grid. A block
+// K1's, K3's, K6's and K10's bodies: a pose's slots spread over the grid. A block
 // holds POSE_GROUP consecutive poses (one a lane) times G slot groups (one a
 // warp) and one chunk [r0, r1) of their slots; the chunks of a pose range are
 // blocks of their own. Warp g walks r = r0 + g, r0 + g + G, ... < r1, every
 // load coalesced over the 32 poses (slot (r, k) at e = r*K + k).
 // ---------------------------------------------------------------------------
 
-// slot groups (warps) a block of K1's, K3's or K6's slot pass at most
+// slot groups (warps) a block of K1's, K3's, K6's or K10's slot pass at most
 constexpr int MAX_SLOT_GROUPS = 8;
 
 // a pose's partial sums as floats: g_top, g_bot, then TL, TR, BR row-major
@@ -739,7 +680,8 @@ __device__ __forceinline__ void landmark_lin_warp(const float* pose, const float
     for (int off = 16; off > 0; off >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
 }
 
-// K3, thread (lane, g): the robust chi2 of pose k's slots r = r0 + g, ... < r1
+// K3 and K10, thread (lane, g): the robust chi2 of pose k's slots r = r0 +
+// g, ... < r1
 __device__ __forceinline__ float obs_slot_group_chi2(const M3& Rt, const V3& t, const float* lm, const float* meas,
                                                      const float* info, const int* ll_rk, int K, int E, int k,
                                                      int r0, int r1, int g, int G, int kind, float delta) {
@@ -777,10 +719,63 @@ __device__ __forceinline__ void block_sum(float* vals, float* smem /* [32 * NV] 
   }
 }
 
+// The objective's slot pass, K3's on the whole graph (soa_chi2.cu) and K10's
+// on a row range (tiled_chi2.cu, K = Kl rows): block (blockIdx.x, blockIdx.y)
+// of a grid of ceil(K / 32) pose ranges x ceil(R / RB) slot chunks, thread
+// (lane, g) walking its pose's slots of the chunk (obs_slot_group_chi2). Warp
+// 0 of each pose range's first chunk also evaluates the chain edges of its 32
+// rows: against pose (k + 1) mod K where succ is nullptr (K3: row K-1 wraps
+// to pose 0 and carries zero information), else against succ[:, k] for every
+// row (K10: the range's last row meets the next range's first pose, with its
+// real information). The block's two partials, observations then chain, go
+// to part[b] and part[nb + b] (b = blockIdx.y * gridDim.x + blockIdx.x, nb
+// blocks), for reduce2_kernel to add in a fixed order. red [64] is the
+// kernel's shared memory.
+__device__ __forceinline__ void chi2_slots_block(const float* pose, const float* succ, const float* lm,
+                                                 const float* meas, const float* info, const int* ll_rk,
+                                                 const float* o_meas, const float* o_info, int K, int R, int RB,
+                                                 int kind, float delta, float* part, float* red) {
+  const int G = blockDim.x >> 5, lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int k = blockIdx.x * POSE_GROUP + lane, c = blockIdx.y;
+  const int r0 = c * RB, r1 = min(R, r0 + RB);
+  float s[2] = {0.f, 0.f};  // observations, chain
+  if (k < K) {
+    V3 t;
+    Q4 q;
+    load_pose(pose, K, k, t, q);
+    s[0] = obs_slot_group_chi2(rotmat(qconj(q)), t, lm, meas, info, ll_rk, K, R * K, k, r0, r1, g, G, kind, delta);
+    if (c == 0 && g == 0) {
+      V3 tj, mt;
+      Q4 qj, mq;
+      if (succ) {
+        load_pose(succ, K, k, tj, qj);
+      } else {
+        load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
+      }
+      load_pose(o_meas, K, k, mt, mq);
+      s[1] = chain_chi(chain_residual(t, q, tj, qj, mt, mq), load_info6(o_info, K, k));
+    }
+  }
+  block_sum<2>(s, red);
+  if (threadIdx.x == 0) {
+    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
+    part[b] = s[0];
+    part[nb + b] = s[1];
+  }
+}
+
 // ---------------------------------------------------------------------------
-// The two launches of the observation half of the linearization, K1's on the
-// whole graph (soa_linearize.cu) and K6's on a row range (tiled_linearize.cu,
-// whose arrays are the range's own with K = Kl rows):
+// The two launches of the linearization, K1's (with K2's chain blocks) on the
+// whole graph (soa_linearize.cu) and K6's (with K7's) on a row range
+// (tiled_linearize.cu, whose arrays are the range's own with K = Kl rows):
+//   chain blocks (chain_block), where the chain is in the launch: ceil(K / 32)
+//      blocks of 32 consecutive rows (one a lane), in front of the slot
+//      blocks so that their longer serial part overlaps them. The rows'
+//      information is copied into shared memory (cp.async) while each of the
+//      G warps computes the rows' residual and Jacobians (chain_jacobians);
+//      then each warp takes its share of a row's 17 output tasks
+//      (chain_row_group_linearize), and the block's chain chi2 partial goes
+//      after the slot blocks' partials.
 //   slot pass, C x ceil(K / 32) slot blocks: block b takes pose range b % n
 //      (n = ceil(K / 32)) and slot chunk c = b / n of RB slots. Thread (lane,
 //      g) walks its pose's slots of the chunk (obs_slot_group_linearize): v
@@ -794,9 +789,9 @@ __device__ __forceinline__ void block_sum(float* vals, float* smem /* [32 * NV] 
 //      0..C-1 and the chain's i-side of pose k (gi, Hii), and with fold_j the
 //      j-side of pose k-1 (the TPU wrapper's gi + shift_down(gj)); the K6 row
 //      range leaves the j-side to the host. The last block adds the chi2
-//      partials in index order: the n_slot slot blocks' and then, with K2 in
-//      the same launch, its n_chain blocks' that follow them, or else the
-//      chain's given chi2.
+//      partials in index order: the n_slot slot blocks' and then, with the
+//      chain in the same launch, its n_chain blocks' that follow them, or else
+//      the chain's given chi2.
 // Every sum has a fixed order, so a repeat gives the same bits. Empty slots
 // have zero information, so everything they add is exactly 0.
 // ---------------------------------------------------------------------------
@@ -848,6 +843,47 @@ __device__ __forceinline__ void lin_slots_block(int b, const float* pose, const 
     pose_part[(static_cast<long long>(c) * POSE_PART + ch) * K + k0 + qq] = s;
   }
   if (threadIdx.x == 0) chi_part[b] = chi[0];
+}
+
+// chain block b (rows [32 b, 32 b + 32), one a lane) of the slot pass's
+// launch: the chain edge of row k against pose (k + 1) mod K where succ is
+// nullptr (K2: row K-1 wraps to pose 0 and carries zero information), else
+// against succ[:, k] for every row (K7: the range's last row meets the next
+// range's first pose). Writes Hii, Hij, Hjj, gi, gj of its rows and its chi2
+// partial to chi_part[lin_slot_blocks(K, R, RB) + b]. The rows' information
+// [36, 32] goes to O (the slot blocks' part[], at least 36 * 32 floats) while
+// the warps compute the serial part; red [32] is the kernel's shared memory.
+__device__ __forceinline__ void chain_block(int b, const float* pose, const float* succ, const float* o_meas,
+                                            const float* o_info, int K, int R, int RB, float* Hii, float* Hij,
+                                            float* Hjj, float* gi, float* gj, float* chi_part, float* O,
+                                            float* red) {
+  const int lane = threadIdx.x & 31, k0 = b * POSE_GROUP, k = k0 + lane;
+  for (int i = threadIdx.x; i < 36 * POSE_GROUP; i += blockDim.x) {
+    const int c = i / POSE_GROUP, q = i % POSE_GROUP;
+    if (k0 + q < K) __pipeline_memcpy_async(O + i, o_info + static_cast<long long>(c) * K + k0 + q, sizeof(float));
+  }
+  __pipeline_commit();
+  ChainJac J;
+  if (k < K) {
+    V3 ti, tj;
+    Q4 qi, qj;
+    load_pose(pose, K, k, ti, qi);
+    if (succ) {
+      load_pose(succ, K, k, tj, qj);
+    } else {
+      load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
+    }
+    J = chain_jacobians(ti, qi, tj, qj, o_meas, K, k);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  float chi[1] = {0.f};
+  if (k < K) {
+    chi[0] = chain_row_group_linearize(J, O, POSE_GROUP, lane, K, k, threadIdx.x >> 5, blockDim.x >> 5, Hii, Hij,
+                                       Hjj, gi, gj);
+  }
+  block_sum<1>(chi, red);
+  if (threadIdx.x == 0) chi_part[lin_slot_blocks(K, R, RB) + b] = chi[0];
 }
 
 // block b of the fold launch (FOLD_BLOCK threads): blocks [0, n_lm) landmark

@@ -16,7 +16,8 @@
 // one launch: K2 comes near it only by having no launch of its own.
 //
 // Design, no float atomics, no host sync: the two launches of soa_common.cuh
-// (lin_slots_block, lin_fold_block), with K2 as a block role of the first.
+// (chain_block and lin_slots_block, then lin_fold_block), with K2 as a block
+// role of the first.
 //   lin_slots_kernel: ceil(K / 32) chain blocks, then the slot blocks, G
 //      warps a block (solver/kernels.py `lin_split` picks RB and G from K, R
 //      and the card's SM count, counting the chain blocks). A chain block
@@ -35,8 +36,6 @@
 // Without the chain blocks the first launch is K1's slot pass alone, and the
 // fold takes given chain blocks and chain chi2 (K1 alone, as the timing of
 // K1 and the tests use it).
-
-#include <cuda_pipeline.h>
 
 #include "soa_common.cuh"
 
@@ -57,35 +56,9 @@ lin_slots_kernel(const float* __restrict__ pose, const float* __restrict__ lm, c
   if (b >= n_chain) {
     lin_slots_block(b - n_chain, pose, lm, meas, info, ll_rk, K, R, RB, kind, delta, v_out, Ow_out, Rt_out,
                     pose_part, chi_part, part, red);
-    return;
+  } else {
+    chain_block(b, pose, nullptr, o_meas, o_info, K, R, RB, Hii, Hij, Hjj, gi, gj, chi_part, part, red);
   }
-  // chain block b: rows [32 b, 32 b + 32), one a lane; the rows' information
-  // [36, 32] goes to shared memory (part[], unused here) while the warps
-  // compute the serial part
-  const int lane = threadIdx.x & 31, k0 = b * POSE_GROUP, k = k0 + lane;
-  float* O = part;
-  for (int i = threadIdx.x; i < 36 * POSE_GROUP; i += blockDim.x) {
-    const int c = i / POSE_GROUP, q = i % POSE_GROUP;
-    if (k0 + q < K) __pipeline_memcpy_async(O + i, o_info + static_cast<long long>(c) * K + k0 + q, sizeof(float));
-  }
-  __pipeline_commit();
-  ChainJac J;
-  if (k < K) {
-    V3 ti, tj;
-    Q4 qi, qj;
-    load_pose(pose, K, k, ti, qi);
-    load_pose(pose, K, k + 1 < K ? k + 1 : 0, tj, qj);
-    J = chain_jacobians(ti, qi, tj, qj, o_meas, K, k);
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  float chi[1] = {0.f};
-  if (k < K) {
-    chi[0] = chain_row_group_linearize(J, O, POSE_GROUP, lane, K, k, threadIdx.x >> 5, blockDim.x >> 5, Hii, Hij,
-                                       Hjj, gi, gj);
-  }
-  block_sum<1>(chi, red);
-  if (threadIdx.x == 0) chi_part[lin_slot_blocks(K, R, RB) + b] = chi[0];
 }
 
 __global__ void __launch_bounds__(FOLD_BLOCK)

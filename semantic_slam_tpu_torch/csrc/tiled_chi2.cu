@@ -11,10 +11,15 @@
 // measurement and information (57 floats). ~60 flops per slot and ~400 per
 // chain edge are far below the card's rate.
 //
-// Design: one thread per row evaluates chain edge k -> k+1 and its R slots
-// (robust rho), a block sums its threads in a fixed tree, and one more block
-// adds the per-block partials in a fixed order into a device scalar. No
-// atomics, no host sync.
+// Design: K3's two launches, the first under a name of its own so that a
+// trace tells K10 from K3. rows_chi2_slots (soa_common.cuh chi2_slots_block)
+// spreads each row's R slots over the grid: (row ranges of 32, slot chunks of
+// RB) with G warps a block (solver/kernels.py `lin_split` picks RB and G);
+// warp 0 of each row range's first chunk also evaluates the chain edges of
+// its 32 rows against succ[:, k], the range's last row included. A block
+// sums its threads in a fixed tree and writes its two partials;
+// reduce2_kernel then adds them in a fixed order into the device scalar, so a
+// repeat gives the same bits. No atomics, no host sync.
 
 #include "soa_common.cuh"
 
@@ -22,43 +27,37 @@ using namespace soa;
 
 namespace {
 
-constexpr int BLOCK = 128;
-
-__global__ void __launch_bounds__(BLOCK)
-rows_chi2(const float* __restrict__ pose, const float* __restrict__ succ, const float* __restrict__ lm,
-          const float* __restrict__ meas, const float* __restrict__ info, const int* __restrict__ ll_rk,
-          const float* __restrict__ o_meas, const float* __restrict__ o_info, int Kl, int R, int kind, float delta,
-          float* __restrict__ part_obs, float* __restrict__ part_chain) {
-  __shared__ float smem[64];
-  const int k = blockIdx.x * BLOCK + threadIdx.x;
-  float chi[2] = {0.f, 0.f};
-  if (k < Kl) {
-    V3 tj;
-    Q4 qj;
-    load_pose(succ, Kl, k, tj, qj);
-    pose_chi2(pose, tj, qj, lm, meas, info, ll_rk, o_meas, o_info, Kl, R, k, kind, delta, chi);
-  }
-  block_sum<2>(chi, smem);
-  if (threadIdx.x == 0) {
-    part_obs[blockIdx.x] = chi[0];
-    part_chain[blockIdx.x] = chi[1];
-  }
+__global__ void __launch_bounds__(POSE_GROUP * MAX_SLOT_GROUPS)
+rows_chi2_slots(const float* __restrict__ pose, const float* __restrict__ succ, const float* __restrict__ lm,
+                const float* __restrict__ meas, const float* __restrict__ info, const int* __restrict__ ll_rk,
+                const float* __restrict__ o_meas, const float* __restrict__ o_info, int Kl, int R, int RB, int kind,
+                float delta, float* __restrict__ part) {
+  __shared__ float red[64];
+  chi2_slots_block(pose, succ, lm, meas, info, ll_rk, o_meas, o_info, Kl, R, RB, kind, delta, part, red);
 }
 
 }  // namespace
 
-extern "C" long long tiled_chi2_scratch(int Kl) { return 2LL * ((Kl + BLOCK - 1) / BLOCK); }
+// Scratch floats: two partials a block, C = ceil(R / RB) chunks of
+// ceil(Kl / 32) row ranges.
+extern "C" long long tiled_chi2_scratch(int Kl, int R, int RB) {
+  return 2LL * ((R + RB - 1) / RB) * ((Kl + POSE_GROUP - 1) / POSE_GROUP);
+}
 
-// Launches on `stream`; returns cudaGetLastError() of the launches (0 = ok).
+// RB slots a block in G slot groups (warps). Two launches on `stream`;
+// returns cudaGetLastError() (0 = ok).
 extern "C" int tiled_chi2_launch(const float* pose, const float* succ, const float* lm, const float* meas,
                                  const float* info, const int* ll_rk, const float* o_meas, const float* o_info, int Kl,
-                                 int R, int robust_kind, float robust_delta, float* chi, float* scratch,
+                                 int R, int RB, int G, int robust_kind, float robust_delta, float* chi, float* scratch,
                                  void* stream_ptr) {
-  if (Kl <= 0 || R <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int nb = (Kl + BLOCK - 1) / BLOCK;
-  rows_chi2<<<nb, BLOCK, 0, stream>>>(pose, succ, lm, meas, info, ll_rk, o_meas, o_info, Kl, R, robust_kind,
-                                      robust_delta, scratch, scratch + nb);
+  if (Kl <= 0 || R <= 0 || RB <= 0 || G <= 0 || G > MAX_SLOT_GROUPS || !succ) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((Kl + POSE_GROUP - 1) / POSE_GROUP, (R + RB - 1) / RB);
+  const int nb = grid.x * grid.y;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  rows_chi2_slots<<<grid, POSE_GROUP * G, 0, stream>>>(pose, succ, lm, meas, info, ll_rk, o_meas, o_info, Kl, R, RB,
+                                                       robust_kind, robust_delta, scratch);
   reduce2_kernel<<<1, 256, 0, stream>>>(scratch, nb, scratch + nb, nb, chi);
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,8 +66,7 @@ LAYERS = (
     ("semantic_slam_tpu_torch.solver.ellk_soa", "landmark_marginals_mf_ellk", "landmark_marginals_mf"),
     ("semantic_slam_tpu_torch.solver.soa_dist", "lm_optimize_soa_tiled", "lm_optimize_soa_tiled"),
     ("semantic_slam_tpu_torch.solver.soa_dist", "build_dist_edges", "build_dist_edges"),
-    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_chain_linearize", "tiled_chain_linearize"),
-    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_obs_linearize", "tiled_obs_linearize"),
+    ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_fused_linearize", "tiled_fused_linearize"),
     ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_mv_fwd", "tiled_mv_fwd"),
     ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_mv_bwd", "tiled_mv_bwd"),
     ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_chi2", "tiled_chi2"),
@@ -86,25 +85,26 @@ LAYERS = (
     ("semantic_slam_tpu_torch.assoc.association", "associate", "associate"),
 )
 # wrapper label -> the names of the kernels it launches through ctypes (K1
-# with K2's blocks, and K1 alone, launch the same two kernels; K6 launches
-# their bodies under names of its own)
+# with K2's blocks, and K1 alone, launch the same two kernels; K6 with K7's
+# blocks, and K6 alone, launch their bodies under names of their own, as K10
+# launches K3's slot pass)
 CTYPES_KERNELS = {
     "score_hypotheses": ("score_kernel",),
     "resident_linearize": ("lin_slots_kernel", "lin_fold_kernel"),
     "obs_linearize": ("lin_slots_kernel", "lin_fold_kernel"),
     "resident_chi2": ("chi2_slots_kernel",),
     "resident_solve": ("solve_cluster_kernel", "solve_grid_kernel"),
-    "tiled_chain_linearize": ("rows_chain",),
+    "tiled_fused_linearize": ("rows_lin_slots", "rows_lin_fold"),
     "tiled_obs_linearize": ("rows_lin_slots", "rows_lin_fold"),
     "tiled_mv_fwd": ("rows_mvf_slot", "rows_mvf_lm"),
     "tiled_mv_bwd": ("rows_mvb_pose",),
-    "tiled_chi2": ("rows_chi2",),
+    "tiled_chi2": ("rows_chi2_slots",),
 }
 
 
 # wrappers that also launch the shared one-block sum ``reduce2_kernel``
 # (soa_common.cuh), which a session trace cannot assign to one of them
-REDUCE2_LAUNCHERS = ("resident_chi2", "tiled_chain_linearize", "tiled_chi2")
+REDUCE2_LAUNCHERS = ("resident_chi2", "tiled_chi2")
 
 
 # traces kernel_device_ms takes at most: CUPTI now and then hands back a

@@ -6,7 +6,7 @@
     ``fused_linearize`` also returns the chain's own outputs, and
     ``obs_linearize`` runs K1 alone on given chain blocks
   * ``resident_chi2``      -- K3, ``csrc/soa_chi2.cu``; ``lin_split`` spreads
-    K1's, K3's (and the row-range K6's) slots over the grid
+    K1's, K3's (and the row-range K6's and K10's) slots over the grid
   * ``resident_solve``     -- K4, ``csrc/soa_solve.cu``, with the fixed-lag
     prior's dense boundary block when one is given; ``solve_shape`` picks
     its launch shape (one thread-block cluster or the cooperative grid)
@@ -42,32 +42,44 @@ SOLVE_CLUSTER_CTAS = 16
 SOLVE_STATIC_SMEM = 17764
 
 
-# K1's, K3's and K6's blocks (csrc/soa_common.cuh): 32 consecutive poses, one
-# a lane, times up to 8 slot groups (warps); K2's chain blocks beside K1's are
-# 32 rows with the same warps
+# K1's, K3's, K6's and K10's blocks (csrc/soa_common.cuh): 32 consecutive
+# poses, one a lane, times up to 8 slot groups (warps); K2's chain blocks
+# beside K1's, and K7's beside K6's, are 32 rows with the same warps
 LIN_POSES = 32
 LIN_MAX_GROUPS = 8
-# blocks of the slot pass an SM holds at once: 256 threads at the 128
-# registers that its launch bounds allow
-LIN_BLOCKS_PER_SM = 2
+# warps of the slot pass an SM holds at once: 16 at the 128 registers a
+# thread that its launch bounds allow (65,536 an SM), so 2 blocks of 8 slot
+# groups or 4 of 4 (a block's 33,920 bytes of shared memory fit 4 times)
+LIN_WARPS_PER_SM = 16
 
 
 def lin_split(K: int, R: int, sms: int, chain: bool = True) -> tuple[int, int]:
-    """The launch split ``(RB, G)`` of K1's, K3's and K6's slot pass: a
-    slot block takes 32 poses and a chunk of RB of their R slots, walked by
-    G = min(RB, 8) slot groups (warps); the chunks of a pose range are blocks
-    of their own. RB is the smallest of min(8, R), doubled up to R, whose
-    grid, ceil(K / 32) pose ranges x ceil(R / RB) chunks, plus with ``chain``
-    the ceil(K / 32) chain blocks of K2 in the same launch, fits one wave of
-    2 blocks an SM (``sms`` SMs); R where none does. Fitted to the sweep of
-    ``tools/kernel_times.py --sweep`` on an H100 (PERF.md): at each swept
-    shape of K1 + K2, K3 and K6 its split is the fastest tried or within
-    2.5% of it. Nothing else picks or forces a split."""
+    """The launch split ``(RB, G)`` of K1's, K3's, K6's and K10's slot pass: a
+    slot block takes 32 poses and a chunk of RB of their R slots, walked by G
+    slot groups (warps); the chunks of a pose range are blocks of their own.
+    A grid of blocks of G warps fits one wave where it holds at most
+    16 // G blocks an SM (``sms`` SMs). The grid is ceil(K / 32) pose ranges
+    x ceil(R / RB) chunks, plus with ``chain`` the ceil(K / 32) chain blocks
+    of K2 (or K7) in the same launch. RB is the smallest of min(8, R),
+    doubled up to R, whose grid fits one wave at G = min(RB, 8); R where none
+    does. G is min(RB, 8), or 4 where 8 spills a wave and 4 fits one. On an
+    H100 (the sweep of ``tools/kernel_times.py --sweep``, PERF.md) this is
+    the fastest split tried for K6 + K7 on all and on half of the tiled
+    session's rows, and within 5% of the fastest for K1 + K2 and K3 at the
+    fixed-lag pcg and pcg sessions' graphs; K6 alone takes the pair's split.
+    Nothing else picks or forces a split."""
     ranges = -(-K // LIN_POSES)
+
+    def fits(RB: int, G: int) -> bool:
+        return ranges * -(-R // RB) + (ranges if chain else 0) <= LIN_WARPS_PER_SM // G * sms
+
     RB = min(LIN_MAX_GROUPS, R)
-    while RB < R and ranges * -(-R // RB) + (ranges if chain else 0) > LIN_BLOCKS_PER_SM * sms:
+    while RB < R and not fits(RB, min(RB, LIN_MAX_GROUPS)):
         RB = min(2 * RB, R)
-    return RB, min(RB, LIN_MAX_GROUPS)
+    G = min(RB, LIN_MAX_GROUPS)
+    if G == LIN_MAX_GROUPS and not fits(RB, G) and fits(RB, G // 2):
+        G //= 2
+    return RB, G
 
 
 def _lin_split_on(dev: torch.device, K: int, R: int, chain: bool = True) -> tuple[int, int]:

@@ -8,10 +8,11 @@ and the edge primitives cover one contiguous run of pose rows
 per-range step hands partial results to the host, which inserts
 ``allreduce`` (the identity here; an all-reduce across devices later):
 
-  * the linearization (kernels K7 then K6, ``tiled_linearize``): the
-    per-pose gradient and diagonal with the chain's i-side folded in and its
-    j-side ``gj``/``Hjj`` left unshifted, and the landmark tables gl/Hll and
-    chi2 summed over the range's slots only;
+  * the linearization (kernels K6 + K7, ``tiled_linearize``: one call of
+    two launches, the chain as blocks of the first): the per-pose gradient
+    and diagonal with the chain's i-side folded in and its j-side
+    ``gj``/``Hjj`` left unshifted, and the landmark tables gl/Hll and chi2
+    summed over the range's slots only;
   * the matvec's first half (K8, ``tiled_mv_fwd``): Oa per slot and the
     landmark table T = sum Rt^T Oa over the range;
   * its second half (K9, ``tiled_mv_bwd``): u and the chain's j-column vj,
@@ -234,7 +235,7 @@ def run_lm_loop_soa_dist(
     one device). ``ops`` defaults to the kernels' wrappers; ``PLAIN_OPS``
     runs the plain versions on any device.
 
-    Per LM iteration: one linearization (K7+K6; the first iteration reuses
+    Per LM iteration: one linearization (K6 + K7; the first iteration reuses
     the damping seed's, built at the same state), the right-hand side (K9),
     ``max_cg_iters`` CG steps (K8 and K9 each), the back-substitution (K8)
     and the trial objective (K10); a fixed-lag ``prior`` adds no launch.

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device times of K1-K3 (the resident loop's linearization and objective),
-K4 (the resident Schur-PCG solve), K6 (the row-range linearization's
-observation half) and K9 (the row-range matvec's per-pose half) on one
-NVIDIA GPU, for this checkout or another one.
+K4 (the resident Schur-PCG solve), K6 and K7 (the row-range linearization),
+K9 (the row-range matvec's per-pose half) and K10 (the row-range objective)
+on one NVIDIA GPU, for this checkout or another one.
 
     python semantic_slam_tpu_torch/tools/kernel_times.py [--root DIR] [--split] [--sweep] --out FILE
     python semantic_slam_tpu_torch/tools/kernel_times.py --baseline DIR --out FILE
@@ -18,8 +18,14 @@ session (K=4096, L=1024, R=32), under robust none, huber and dcs; K4 with
 the marginalized fixed-lag prior at the fixed-lag session's graph (K=512,
 L=128, R=32) and at the pcg session's (K=4096, L=1024, R=32), also without
 the prior, at 128 and at 0 fixed CG steps (the difference over 128 is the
-time of a step); K6 on all rows of the tiled session's graph (K=8192,
-L=2048, R=32) and on rows [K/2, K) (Kl=4096), and K9 on all its rows.
+time of a step); the pair K6 + K7 as the row-range loop calls it
+(``tiled_kernels.tiled_linearize``: one entry point of two launches, or in
+older checkouts K7's launches and then K6's), K6 alone on given chain
+blocks, K7 as the pair less K6 alone (and by its own launches where a
+checkout still has them), on all rows of the tiled session's graph (K=8192,
+L=2048, R=32) and on rows [K/2, K) (Kl=4096); K9 on all its rows; and K10
+on all rows of that graph and of the bench graph (R=4), under robust none,
+huber and dcs.
 Device time is the sum of the kernels' own intervals in a
 ``torch.profiler`` trace of ``--reps`` calls; event time is CUDA events
 around the same calls (the wrapper's host work between launches included).
@@ -28,9 +34,10 @@ around the same calls (the wrapper's host work between launches included).
 (the early exit off, so that every copy runs all steps): what a step spends
 per phase, and in barriers and reductions alone (every body emptied).
 
-``--sweep`` also times the pair K1 + K2, K3 and K6 under other launch splits
-(slots a block RB, slot groups a block G) than ``kernels.lin_split`` picks,
-where the checkout runs K2 in K1's launches.
+``--sweep`` also times the pair K1 + K2, K3, K6 alone and the pair K6 + K7
+under other launch splits (slots a block RB, slot groups a block G) than
+``kernels.lin_split`` picks, where the checkout runs K2 in K1's launches (and
+K7 in K6's, for the pair K6 + K7).
 
 ``--sessions`` also replays the fixed-lag pcg session (chip_smoke.py's
 ``FL_LOG`` with ``--fixed-lag 64 --solver pcg``) and the tiled one (the
@@ -63,9 +70,14 @@ K2_NAMES = ("chain_kernel", "reduce2_kernel")
 PAIR_NAMES = tuple(dict.fromkeys(K1_NAMES + K2_NAMES))
 K3_NAMES = ("chi2_kernel", "reduce2_kernel", "chi2_slots_kernel")
 K6_NAMES = ("rows_obs_pose", "rows_obs_lm", "reduce2_kernel", "rows_lin_slots", "rows_lin_fold")
+K7_NAMES = ("rows_chain", "reduce2_kernel")
+TILED_PAIR_NAMES = tuple(dict.fromkeys(K6_NAMES + K7_NAMES))
+K10_NAMES = ("rows_chi2", "rows_chi2_slots", "reduce2_kernel")
 LIN_SHAPES = (("K=512 L=128 R=32", "FL_ENGINE"), ("K=4096 L=1024 R=32", "BENCH"))
 # the tiled session's graph: all rows, and rows [K/2, K)
 K6_SHAPES = (("Kl=8192 L=2048 R=32", 0), ("Kl=4096 L=2048 R=32 rows [K/2, K)", 1))
+# K10 on all rows of the tiled session's graph (R=32) and of the bench graph (R=4)
+K10_SHAPES = (("Kl=8192 L=2048 R=32", 32), ("Kl=8192 L=2048 R=4", 4))
 # splits (RB slots a block, G slot groups a block) tried by --sweep: the pair
 # and K3 at each of LIN_SHAPES, K6 at each of K6_SHAPES
 SWEEP = {
@@ -248,29 +260,53 @@ def measure_lin(torch, cs, kernels, reps: int, sweep: bool, smi: str) -> dict:
     return out
 
 
-def measure_k6(torch, cs, kernels, tk, sd, reps: int, sweep: bool, smi: str) -> dict:
-    """K6 at K6_SHAPES on the plain chain blocks (and, with ``sweep``, under
-    other launch splits)."""
+def measure_tiled(torch, cs, kernels, tk, sd, reps: int, sweep: bool, smi: str) -> dict:
+    """The pair K6 + K7 as the row-range loop calls it (``tiled_linearize``:
+    one entry point of two launches, or in older checkouts K7's launches and
+    then K6's), K6 alone on the plain chain blocks, K7 (the pair less K6
+    alone; and its own launches where a checkout still has them) at
+    K6_SHAPES, and K10 at K10_SHAPES under robust none, huber and dcs (and,
+    with ``sweep``, K6 alone and the pair under other launch splits)."""
     out = {}
+    fused = hasattr(tk, "tiled_fused_linearize")
     g, _, _, _, R = cs._soa_case(torch, **cs.TILED_BENCH, R=cs.ENGINE_R, perturb=True)
     K = cs.TILED_BENCH["K"]
     for label, half in K6_SHAPES:
         rr = cs.RowRange(torch, g, R, K // 2 if half else 0, K // 2 if half else K)
         cp = sd.chain_plain(rr.pc, rr.pj, rr.de)
         fn = lambda: tk.tiled_obs_linearize(rr.pc, g.landmarks, rr.de, cp)  # noqa: E731
-        fused = hasattr(kernels, "fused_linearize")
-        split = list(kernels.lin_split(rr.Kl, R, _sms(torch), chain=False)) if fused else None
-        _timed(torch, out, f"K6 none [{label}]", fn, K6_NAMES, reps, smi, split=split)
-        if sweep and split:
+        # this checkout's K6 alone takes the pair's split; the parent's took the split without chain blocks
+        split = list(kernels.lin_split(rr.Kl, R, _sms(torch), chain=fused))
+        pair = _timed(torch, out, f"K6+K7 none [{label}]",
+                      lambda: tk.tiled_linearize(rr.pc, rr.pj, g.landmarks, rr.de), TILED_PAIR_NAMES, reps, smi,
+                      split=split)
+        k6 = _timed(torch, out, f"K6 none [{label}]", fn, K6_NAMES, reps, smi, split=split)
+        k7 = out[f"K7 none [{label}]"] = {"device_ms": pair["device_ms"] - k6["device_ms"],
+                                          "event_ms": pair["event_ms"] - k6["event_ms"]}
+        print(f"K7 none [{label}]: the pair less K6 alone, device {k7['device_ms']:.5f} ms ({smi})", flush=True)
+        if not fused:
+            _timed(torch, out, f"K7 own launches [{label}]", lambda: tk.tiled_chain_linearize(rr.pc, rr.pj, rr.de),
+                   K7_NAMES, reps, smi)
+        if sweep:
             for sp in SWEEP[label]:
                 with _with_split(kernels, sp):
                     _timed(torch, out, f"K6 none [{label}] split {sp}", fn, K6_NAMES, reps, smi)
+                    if fused:
+                        _timed(torch, out, f"K6+K7 none [{label}] split {sp}",
+                               lambda: tk.tiled_linearize(rr.pc, rr.pj, g.landmarks, rr.de), TILED_PAIR_NAMES, reps,
+                               smi)
+    for label, R10 in K10_SHAPES:
+        g10, _, _, _, _ = cs._soa_case(torch, **cs.TILED_BENCH, R=R10, perturb=True)
+        rr = cs.RowRange(torch, g10, R10, 0, K)
+        for kind in ("none", "huber", "dcs"):
+            _timed(torch, out, f"K10 {kind} [{label}]",
+                   lambda kind=kind: tk.tiled_chi2(rr.pc, rr.pj, g10.landmarks, rr.de, kind), K10_NAMES, reps, smi)
     return out
 
 
 # every hand-written kernel of either version of the sources, for --sessions
-SESSION_NAMES = tuple(dict.fromkeys(K1_NAMES + K2_NAMES + K3_NAMES + K4_NAMES + K6_NAMES + (
-    "rows_chain", "rows_mvf_slot", "rows_mvf_lm", "rows_mvb_pose", "rows_chi2", "score_kernel")))
+SESSION_NAMES = tuple(dict.fromkeys(K1_NAMES + K2_NAMES + K3_NAMES + K4_NAMES + TILED_PAIR_NAMES + K10_NAMES + (
+    "rows_mvf_slot", "rows_mvf_lm", "rows_mvb_pose", "score_kernel")))
 
 
 def measure_sessions(torch, cs, smi: str) -> dict:
@@ -328,7 +364,7 @@ def measure(root: str, reps: int, split: bool, sweep: bool, sessions: bool = Fal
     _build.build()
     out = {"root": root, "card": card(), "k4": {}, "k9": {}}
     out["lin"] = measure_lin(torch, cs, kernels, reps, sweep, out["card"])
-    out["k6"] = measure_k6(torch, cs, kernels, tk, sd, reps, sweep, out["card"])
+    out["tiled"] = measure_tiled(torch, cs, kernels, tk, sd, reps, sweep, out["card"])
     cases = {}
     for label, shape in (("K=512 L=128 R=32", cs.FL_ENGINE), ("K=4096 L=1024 R=32", cs.BENCH)):
         g, se, pf, lf, prior, _, R = cs._prior_case(torch, **shape, R=cs.ENGINE_R)
@@ -384,7 +420,7 @@ def main() -> int:
     ap.add_argument("--root", default=THIS_ROOT, help="checkout whose package is measured")
     ap.add_argument("--baseline", help="another checkout, measured in turns with this one")
     ap.add_argument("--split", action="store_true", help="also the per-phase split of a K4 step")
-    ap.add_argument("--sweep", action="store_true", help="also K1 + K2, K3 and K6 under other launch splits")
+    ap.add_argument("--sweep", action="store_true", help="also K1 + K2, K3, K6 and K6 + K7 under other launch splits")
     ap.add_argument("--sessions", action="store_true",
                     help="also each kernel's launches and device ms in the fixed-lag pcg and tiled sessions")
     ap.add_argument("--reps", type=int, default=20)

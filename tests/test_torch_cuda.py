@@ -2,9 +2,10 @@
 the RANSAC scoring kernel; K1-K4, the resident SoA Schur-PCG solver's
 kernels, K1 + K2 in their one call and K1 alone also at the sessions' and
 ragged graphs, K1 and K3 with empty parts, K4 also with a fixed-lag prior and
-in both of its launch shapes; K6-K10, the row-range solver's, K6 also at the
-tiled session's graph; K1 + K2, K1, K3, K4, K6 and K9 also bit for bit on a
-repeat),
+in both of its launch shapes; K6-K10, the row-range solver's, K6 + K7 in
+their one call and K10 also at the tiled session's and ragged graphs on each
+row range, K6 alone also at the tiled session's graph; K1 + K2, K1, K3, K4,
+K6, K6 + K7, K9 and K10 also bit for bit on a repeat),
 and small sessions on the card (dense, ``--solver pcg`` and ``--solver pcg``
 on the row-range loop; dense and pcg with fixed-lag smoothing) against the
 same sessions on the CPU.
@@ -454,9 +455,9 @@ def test_soa_wrappers_reject_bad_inputs(cuda):
 @pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
 @pytest.mark.parametrize("rows", ["whole", "upper-half"])
 def test_tiled_kernels_match_plain(cuda, robust, rows):
-    """K7, K6, K8, K9 and K10 against their plain versions on the card, on
-    all rows and on rows [K/2, K): each output within 1e-4 of its own scale;
-    one launch each."""
+    """K6 + K7 (one call), K6 alone, K8, K9 and K10 against their plain
+    versions on the card, on all rows and on rows [K/2, K): each output
+    within 1e-4 of its own scale; one call each."""
     from semantic_slam_tpu_torch.solver import chain_soa as chs
     from semantic_slam_tpu_torch.solver import soa_dist as sd
     from semantic_slam_tpu_torch.solver import tiled_kernels as tk
@@ -468,14 +469,16 @@ def test_tiled_kernels_match_plain(cuda, robust, rows):
     de = sd.build_dist_edges(_edge_args(g), K, 16, L, off)
     pc_all = g.poses.T
     pc, pj = pc_all[:, off:].contiguous(), chs.roll_up_pose_ch(pc_all)[:, off:].contiguous()
-    wrappers = (tk.tiled_chain_linearize, tk.tiled_obs_linearize, tk.tiled_mv_fwd, tk.tiled_mv_bwd, tk.tiled_chi2)
+    wrappers = (tk.tiled_fused_linearize, tk.tiled_obs_linearize, tk.tiled_mv_fwd, tk.tiled_mv_bwd, tk.tiled_chi2)
     counts = [w.launches for w in wrappers]
     cp = sd.chain_plain(pc, pj, de)
-    for a, b in zip(tk.tiled_chain_linearize(pc, pj, de), cp):
+    lf, cf = tk.tiled_fused_linearize(pc, pj, g.landmarks, de, robust)
+    for a, b in zip(cf, cp):
         assert rel_err(a, b) <= 1e-4
     lk, lp = tk.tiled_obs_linearize(pc, g.landmarks, de, cp, robust), sd.obs_plain(pc, g.landmarks, de, cp, robust)
     for name in lp._fields:
         assert rel_err(getattr(lk, name), getattr(lp, name)) <= 1e-4, name
+        assert rel_err(getattr(lf, name), getattr(lp, name)) <= 1e-4, name
     rng = np.random.default_rng(4)
     x, xj = (torch.as_tensor(rng.normal(size=(6, K - off)), dtype=torch.float32, device=cuda) for _ in range(2))
     (Ok, Tk), (Op, Tp) = tk.tiled_mv_fwd(lp, de, x), sd.mv_fwd_plain(lp, de, x)
@@ -512,6 +515,121 @@ def test_tiled_obs_linearize_session_graph(cuda, robust, rows):
     for name in lp._fields:
         assert rel_err(getattr(lk, name), getattr(lp, name)) <= 1e-4, name
         assert torch.equal(getattr(lk, name), getattr(again, name)), name
+
+
+# K6 + K7 and K10 (the chain as blocks of K6's first launch; K3's slot-group
+# objective) at the tiled session's graph and at ragged ones: id -> (K, L, E2, R)
+TILED_CASES = {
+    "session-K8192-R32": (8192, 2048, 32768, 32),
+    "ragged-K1000-R5": (1000, 250, 8 + 998 * 5, 5),
+    "ragged-K4999-R5": (4999, 1250, 8 + 4997 * 5, 5),
+}
+# row ranges of a case: (off, Kl) of K rows
+TILED_ROWS = {"whole": lambda K: (0, K), "lower-half": lambda K: (0, K // 2),
+              "upper-half": lambda K: (K // 2, K - K // 2)}
+
+
+def tiled_case(device, case, rows):
+    """The case's graph and the row range's pose channels, successors and
+    edge store."""
+    from semantic_slam_tpu_torch.solver import chain_soa as chs
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    K, L, E2, R = TILED_CASES[case]
+    g, _, _ = soa_case(device, K=K, L=L, E2=E2, R=R)
+    off, Kl = TILED_ROWS[rows](K)
+    de = sd.build_dist_edges(_edge_args(g), K, R, L, off, Kl)
+    pc_all = g.poses.T
+    pc = pc_all[:, off:off + Kl].contiguous()
+    pj = chs.roll_up_pose_ch(pc_all)[:, off:off + Kl].contiguous()
+    return g, pc, pj, de
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["none", "huber", "dcs"])
+@pytest.mark.parametrize("rows", sorted(TILED_ROWS))
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_tiled_pair_and_chi2_match_plain(cuda, case, rows, robust):
+    """K6 + K7 in their one call and K10 against the plain versions on each
+    row range: the chain's own blocks, gradients and chi2, the linearization
+    that folds its i-side in, the objective, and K10's chain sum alone (the
+    observations' information zeroed: in the whole objective it is below
+    1e-4 of the observations' terms), each finite and within 1e-4 of its
+    scale; one call each counted."""
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    g, pc, pj, de = tiled_case(cuda, case, rows)
+    counts = (tk.tiled_fused_linearize.launches, tk.tiled_chi2.launches)
+    lk, ck = tk.tiled_fused_linearize(pc, pj, g.landmarks, de, robust)
+    xk = tk.tiled_chi2(pc, pj, g.landmarks, de, robust)
+    cp = sd.chain_plain(pc, pj, de)
+    lp = sd.obs_plain(pc, g.landmarks, de, cp, robust)
+    xp = sd.chi2_plain(pc, pj, g.landmarks, de, robust)
+    torch.cuda.synchronize()
+    assert (tk.tiled_fused_linearize.launches, tk.tiled_chi2.launches) == tuple(c + 1 for c in counts)
+    no_obs = de._replace(info=torch.zeros_like(de.info))
+    xk_chain = tk.tiled_chi2(pc, pj, g.landmarks, no_obs, robust)
+    xp_chain = sd.chi2_plain(pc, pj, g.landmarks, no_obs, robust)
+    assert float(xp_chain) > 0
+    for name, got, want in zip(cp._fields + lp._fields + ("objective", "chain objective"), ck + lk + (xk, xk_chain),
+                               cp + lp + (xp, xp_chain)):
+        assert bool(torch.isfinite(got).all()) and rel_err(got, want) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged-K1000-R5", "session-K8192-R32"])
+def test_tiled_range_last_row_chain(cuda, case):
+    """The lower half's last row: its chain edge meets the upper half's first
+    pose (the host's successor) with real information. K7's outputs of that
+    row match the plain version within 1e-4 of their own scale; K10's chain
+    sum (the observations' information zeroed, so that its objective is the
+    chain's alone: the observations' chi2 is ~1e5 times the row's) matches
+    the plain version's within 1e-4 with and without that row's
+    information; and K7's and K10's chain chi2 move as the plain version's
+    when it is zeroed."""
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    g, pc, pj, de = tiled_case(cuda, case, "lower-half")
+    assert float(de.o_info_ch[..., -1].abs().max()) > 0
+    ck = tk.tiled_fused_linearize(pc, pj, g.landmarks, de)[1]
+    cp = sd.chain_plain(pc, pj, de)
+    for name, got, want in zip(cp._fields[:5], ck[:5], cp[:5]):
+        assert float(want[..., -1].abs().max()) > 0, name
+        assert rel_err(got[..., -1], want[..., -1]) <= 1e-4, name
+    info = de.o_info_ch.clone()
+    info[..., -1] = 0.0
+    cut = de._replace(o_info_ch=info)
+    row_plain = float(cp.chi2 - sd.chain_plain(pc, pj, cut).chi2)
+    assert row_plain > 0
+    row_k7 = float(ck.chi2 - tk.tiled_fused_linearize(pc, pj, g.landmarks, cut)[1].chi2)
+    no_obs = {"info": torch.zeros_like(de.info)}
+    chain_k10 = [tk.tiled_chi2(pc, pj, g.landmarks, e._replace(**no_obs)) for e in (de, cut)]
+    for got, e in zip(chain_k10, (de, cut)):
+        assert rel_err(got, sd.chi2_plain(pc, pj, g.landmarks, e._replace(**no_obs))) <= 1e-4
+    row_k10 = float(chain_k10[0] - chain_k10[1])
+    # 1e-4 of the chain chi2's scale, and at most a tenth of the row's term, so that a row left out fails
+    # (the rounding of two f32 sums of Kl terms is ~1e-6 of the scale)
+    tol = min(1e-4 * float(cp.chi2), 0.1 * row_plain)
+    assert abs(row_k7 - row_plain) <= tol and abs(row_k10 - row_plain) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["whole", "lower-half"])
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_tiled_pair_and_chi2_repeat_bit_for_bit(cuda, case, rows):
+    """K6 + K7 and K10 give the same bits on repeated calls (fixed summation
+    orders, no float atomics)."""
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    g, pc, pj, de = tiled_case(cuda, case, rows)
+    (la, ca), (lb, cb) = (tk.tiled_fused_linearize(pc, pj, g.landmarks, de, "huber") for _ in range(2))
+    for name, x, y in zip(la._fields + ca._fields, la + ca, lb + cb):
+        assert torch.equal(x, y), name
+    xs = [tk.tiled_chi2(pc, pj, g.landmarks, de, "dcs") for _ in range(3)]
+    assert torch.equal(xs[0], xs[1]) and torch.equal(xs[1], xs[2])
 
 
 @pytest.mark.cuda
@@ -553,6 +671,8 @@ def test_tiled_wrappers_reject_bad_inputs(cuda):
     pc = g.poses.T.contiguous()
     with pytest.raises(ValueError, match="is on"):
         tk.tiled_chi2(pc, pc.cpu(), g.landmarks, de)
+    with pytest.raises(ValueError, match="is on"):
+        tk.tiled_fused_linearize(pc, pc.cpu(), g.landmarks, de)
     lin = sd.obs_plain(pc, g.landmarks, de, sd.chain_plain(pc, pc, de))
     with pytest.raises(ValueError, match="is on"):
         tk.tiled_mv_fwd(lin._replace(Rt=lin.Rt.cpu()), de, torch.zeros((6, 40), device=cuda))

@@ -15,8 +15,8 @@ from semantic_slam_tpu_torch import profile_slice as ps
 # the row-range loop's
 PCG_LAYERS = ("lm_optimize_soa", "build_soa_edges", "resident_linearize", "resident_solve", "resident_chi2",
               "landmark_marginals_mf")
-TILED_LAYERS = ("lm_optimize_soa_tiled", "build_dist_edges", "tiled_chain_linearize", "tiled_obs_linearize",
-                "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
+TILED_LAYERS = ("lm_optimize_soa_tiled", "build_dist_edges", "tiled_fused_linearize", "tiled_mv_fwd",
+                "tiled_mv_bwd", "tiled_chi2")
 # the layers only fixed-lag smoothing runs
 PRIOR_LAYERS = ("marginalize", "lm_optimize_prior", "prior_fold", "prior_matvec", "prior_marginals")
 
@@ -72,10 +72,11 @@ def test_profile_session_pcg_counts_the_solver_layers():
 
 def test_profile_session_tiled_counts_the_solver_layers(monkeypatch):
     """The pcg session above the crossover (lowered here so that the tiny
-    graph crosses it): per solve, K7 and K6 once per LM iteration, K8 and K9
-    (CG steps + 1) times per iteration, K10 once per iteration and once per
-    solve skipped below the edge gate, and one K1 + K2 linearization for the
-    marginals; the resident loop's solve kernels never run."""
+    graph crosses it): per solve, K6 + K7 (one wrapper call) once per LM
+    iteration, K8 and K9 (CG steps + 1) times per iteration, K10 once per
+    iteration and once per solve skipped below the edge gate, and one K1 + K2
+    linearization for the marginals; the resident loop's solve kernels never
+    run."""
     from semantic_slam_tpu_torch.solver import soa_dist
 
     monkeypatch.setattr(soa_dist, "TILED_FROM_K", 4)
@@ -85,7 +86,7 @@ def test_profile_session_tiled_counts_the_solver_layers(monkeypatch):
     rows = {r["layer"]: r["calls"] for r in report["layers"]}
     ran = [it for it in traced["lm_iterations"] if it > 0]
     assert ran and rows["lm_optimize_soa_tiled"] == rows["_optimize_tick"] == rows["build_dist_edges"]
-    assert rows["tiled_chain_linearize"] == rows["tiled_obs_linearize"] == sum(ran)
+    assert rows["tiled_fused_linearize"] == sum(ran)
     assert rows["tiled_mv_fwd"] == rows["tiled_mv_bwd"] == sum(it * (2 + 1) for it in ran)
     assert rows["tiled_chi2"] == sum(ran) + rows["lm_optimize_soa_tiled"] - len(ran)
     assert rows["resident_linearize"] == rows["landmark_marginals_mf"] == len(ran)

@@ -407,30 +407,45 @@ H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def test_lin_split_rule():
-    """K1's, K3's and K6's launch split: a block takes 32 poses and a chunk of
-    RB slots in G = min(RB, 8) slot groups; the chunks cover R with none
-    empty; RB is min(8, R) doubled (capped at R), the smallest whose grid
-    (with the pair's ceil(K / 32) chain blocks where K2 shares the launch)
-    fits one wave of 2 blocks on each of an H100's SMs, and R where none
-    does."""
+    """K1's, K3's, K6's and K10's launch split: a block takes 32 poses and a
+    chunk of RB slots in G slot groups; the chunks cover R with none empty; a
+    grid of G-warp blocks fits one wave at 16 // G blocks on each of an
+    H100's SMs; RB is min(8, R) doubled (capped at R), the smallest whose grid
+    (with the pair's ceil(K / 32) chain blocks where K2 or K7 shares the
+    launch) fits one wave at G = min(RB, 8), and R where none does; G is
+    min(RB, 8), or 4 where 8 spills a wave and 4 fits one."""
     for K, R in ((512, 32), (4096, 32), (1000, 5), (4999, 5), (300, 16), (40, 3), (8192, 32), (1, 1), (16384, 32),
-                 (1000, 12)):
+                 (1000, 12), (16384, 4), (6000, 32)):
         for chain in (True, False):
             RB, G = tk.lin_split(K, R, H100_SMS, chain)
             ranges, chunks = -(-K // 32), -(-R // RB)
-            assert G == min(RB, 8) and (chunks - 1) * RB < R <= chunks * RB
+            assert (chunks - 1) * RB < R <= chunks * RB
             steps = [min(8, R)]
             while steps[-1] < R:
                 steps.append(min(2 * steps[-1], R))
             assert RB in steps
-            fits = [rb for rb in steps if ranges * -(-R // rb) + (ranges if chain else 0) <= 2 * H100_SMS]
-            assert RB == (fits[0] if fits else R), (K, R, chain)
+
+            def fits(rb, g):
+                return ranges * -(-R // rb) + (ranges if chain else 0) <= 16 // g * H100_SMS
+
+            first = [rb for rb in steps if fits(rb, min(rb, 8))]
+            assert RB == (first[0] if first else R), (K, R, chain)
+            G8 = min(RB, 8)
+            assert G == (4 if G8 == 8 and not fits(RB, 8) and fits(RB, 4) else G8), (K, R, chain)
     # the sessions' graphs, swept (PERF.md): the fixed-lag pcg session's K1 + K2 (16 pose ranges x 4 chunks
     # beside 16 chain blocks) and K3
     assert tk.lin_split(512, 32, H100_SMS) == tk.lin_split(512, 32, H100_SMS, chain=False) == (8, 8)
     # the pcg session's K1 + K2: 128 pose ranges x 1 chunk beside 128 chain blocks; its K3: 2 chunks of 16
     assert tk.lin_split(4096, 32, H100_SMS) == (32, 8)
     assert tk.lin_split(4096, 32, H100_SMS, chain=False) == (16, 8)
-    # the tiled session's K6 on all 8192 rows (256 ranges x 1 chunk) and on half of them
+    # the tiled session's K6 + K7 on all 8192 rows (256 ranges x 1 chunk beside 256 chain blocks: 512 blocks
+    # spill a wave of 2 an SM at 8 groups and fit one of 4 an SM at 4) and on half of them (128 x 1 beside
+    # 128: one wave at 8 groups), K6 alone taking the pair's split
+    assert tk.lin_split(8192, 32, H100_SMS) == (32, 4)
+    assert tk.lin_split(4096, 32, H100_SMS) == (32, 8)
+    # its K10 on the same rows, without chain blocks
     assert tk.lin_split(8192, 32, H100_SMS, chain=False) == (32, 8)
     assert tk.lin_split(4096, 32, H100_SMS, chain=False) == (16, 8)
+    # past one wave at 4 groups too (1024 blocks at K=16384), G stays 8; the bench's R=4 keeps G = R
+    assert tk.lin_split(16384, 32, H100_SMS) == (32, 8)
+    assert tk.lin_split(16384, 4, H100_SMS) == (4, 4)

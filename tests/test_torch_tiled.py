@@ -164,7 +164,7 @@ def xla_lin(rg, landmarks, kind):
     OB = jsoa._ob_product(Ow, v)
     diag_obs = jnp.sum(jsoa._assemble_h66(Ow, -OB, -jsoa._hat_mul(v, OB)), axis=2)
     return dict(v=v, Ow=Ow, Rt=Rt[:, :, 0], Hii=Hii, Hij=Hij, Hjj=Hjj, gp=gp_obs + gi, gj=gj, diag=diag_obs + Hii,
-                gl=gl, Hll=Hll.reshape(L, 3, 3), chi2=jnp.sum(chi_k) + chi_l)
+                gl=gl, Hll=Hll.reshape(L, 3, 3), chi2=jnp.sum(chi_k) + chi_l, chain_gi=gi, chain_chi2=jnp.sum(chi_k))
 
 
 def xla_mv(rg, lin, x, xj, z, Oa_in):
@@ -182,8 +182,10 @@ def xla_mv(rg, lin, x, xj, z, Oa_in):
 
 
 def port_lin(rg, landmarks, kind):
-    lin = ttk.tiled_linearize(rg.pc, rg.pj, landmarks, rg.de, kind, 1.0)
-    return {f: getattr(lin, f) for f in lin._fields}, lin
+    """The linearization of the fused wrapper (K6 + K7), with the chain's own
+    gradient gi and chi2 beside it."""
+    lin, chain = ttk.tiled_fused_linearize(rg.pc, rg.pj, landmarks, rg.de, kind, 1.0)
+    return {**{f: getattr(lin, f) for f in lin._fields}, "chain_gi": chain.gi, "chain_chi2": chain.chi2}, lin
 
 
 def port_mv(rg, lin, x, xj, z, Oa_in):
@@ -200,8 +202,9 @@ def port_mv(rg, lin, x, xj, z, Oa_in):
 @pytest.mark.parametrize("where", sorted(RANGES))
 @pytest.mark.parametrize("robust", ROBUST)
 def test_plain_matches_xla_f64(moved64, robust, where):
-    """K6+K7 (the linearization), K8 and K9 (the matvec halves, on shared
-    seeded inputs) and K10 (the objective) against the XLA branch."""
+    """K6+K7 (the linearization, and the chain's own gi and chi2), K8 and K9
+    (the matvec halves, on shared seeded inputs) and K10 (the objective)
+    against the XLA branch."""
     g, tg, rows = moved64
     rg = Range(g, tg, rows, *RANGES[where](g.poses.shape[0]), use_tiled=False)
     want_lin = xla_lin(rg, g.landmarks, robust)
@@ -418,7 +421,7 @@ def test_wrappers_refuse_other_devices_and_bad_shapes(f32):
     with pytest.raises(ValueError, match="unsupported device"):
         ttk.tiled_mv_fwd(lin._replace(v=lin.v.to("meta")), meta, x.to("meta"))
     with pytest.raises(ValueError, match="shape"):
-        ttk.tiled_chain_linearize(rg.pc, rg.pj[:, 1:], rg.de)
+        ttk.tiled_fused_linearize(rg.pc, rg.pj[:, 1:], tg.landmarks, rg.de)
     with pytest.raises(ValueError, match="shape"):
         ttk.tiled_obs_linearize(rg.pc, tg.landmarks[:-1], rg.de, tsd.chain_plain(rg.pc, rg.pj, rg.de))
     with pytest.raises(ValueError, match="shape"):
