@@ -62,7 +62,27 @@ before the result line:
              (resident loop at K=512): at least 3 marginalizations, fewer than
              80 active poses, every keyframe exported, chi2 never rising, ATE
              no worse than raw VIO's, and every K4 launch carrying the prior;
-             the pcg one's K1-K4 launch counts are printed.
+             the pcg one's K1-K4 launch counts are printed;
+10. session lifecycle -- the dense slice's log through ``cli run --solver pcg``
+             at the profile's capacities (K=512, the resident loop, K4 in its
+             cluster shape): split at its middle odometry stamp, the first half
+             with --checkpoint --save-graph --dump-keyframes, the second half
+             with --resume from that checkpoint, and the whole log unbroken
+             (with --checkpoint); the resumed session's keyframes, landmarks,
+             ATE and median optimizing tick printed beside the unbroken one's;
+             the checkpoint loaded into a fresh engine on the card (every
+             tensor bit for bit) and the .g2o read back (the saved graph's
+             active rows); a --robust dcs --optimize-every 3 session ending in
+             its finalize pass; and ``cli merge`` of the first half's
+             checkpoint with the unbroken session's (chi2 not rising, no more
+             landmarks than the sessions'); its wall time printed;
+11. fixed-lag session lifecycle -- the fixed-lag pcg session's log split at
+             three quarters (after its first marginalization): the first part
+             with --checkpoint (LM-optimized state and a non-empty prior),
+             that checkpoint loaded into a fresh engine on the card (every
+             tensor bit for bit), the rest resumed from it; its keyframes,
+             ATE and median optimizing tick printed beside the fixed-lag pcg
+             slice's.
 The counters are reset just before each session and checked against the LM's
 iteration counts just after.
 
@@ -911,7 +931,16 @@ def _wrappers():
     return {name: getattr(importlib.import_module(mod), name) for name, mod in WRAPPERS}
 
 
-def run_slice(torch, log, extra: list[str], label: str) -> dict:
+def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = True, min_margs: int = 3) -> dict:
+    """``cli run`` with ``extra`` on ``log`` through ``cli.run_from_args`` (the
+    replay, then the shutdown work), the launch counters set to 0 just before
+    it and read just after. Checks this run's own ticks (a resumed engine also
+    holds its checkpoint's): chi2 finite and never rising, at least one
+    optimizing tick unless ``must_optimize`` is False, the kernels' launches
+    as the LM iterations imply, and under a fixed-lag window at least
+    ``min_margs`` marginalizations in this run."""
+    import numpy as np
+
     from semantic_slam_tpu_torch import cli
     from semantic_slam_tpu_torch.runtime.engine import _is_det
     from semantic_slam_tpu_torch.solver import ellk_soa
@@ -922,9 +951,11 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
     )
     cfg = cli.make_config(args)
     cap = cfg.capacity
-    print(f"[{label}] capacities K={cap.max_keyframes} L={cap.max_landmarks} E2={cap.max_landmark_edges} "
-          f"D={cap.max_detections_per_frame}; crop {cfg.segmentation.crop_height}x{cfg.segmentation.crop_width}, "
-          f"S={cfg.segmentation.num_hypotheses}; solver {cfg.solver.linear_solver}")
+    print(f"[{label}] flags {extra}; capacities K={cap.max_keyframes} L={cap.max_landmarks} "
+          f"E2={cap.max_landmark_edges} D={cap.max_detections_per_frame}; crop {cfg.segmentation.crop_height}x"
+          f"{cfg.segmentation.crop_width}, S={cfg.segmentation.num_hypotheses}; solver {cfg.solver.linear_solver}")
+    # a resumed engine's stats_history begins with the checkpoint's entries
+    n_before = len(json.loads(str(np.load(args.resume)["meta"]))["stats_history"]) if args.resume else 0
 
     # each PCG loop's iterations per call, to check the launch counts against
     from semantic_slam_tpu_torch.solver import soa_dist
@@ -965,7 +996,7 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         wrappers["resident_solve"].prior_launches = 0
         wrappers["resident_solve"].shapes = {"cluster": 0, "grid": 0}
         t0 = time.perf_counter()
-        engine = cli.run_session(log, cfg, args.device)
+        engine, summary = cli.run_from_args(args, log)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
@@ -975,7 +1006,6 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         for loop, (mod, fn) in entries.items():
             setattr(mod, fn, origs[loop])
         fixed_lag.marginalize = orig_marginalize
-    summary = cli.write_outputs(args.out, args.profile, cfg, engine, log)
     print(f"[{label}] summary:", json.dumps(summary))
 
     g, t = engine.graph, engine.table
@@ -984,8 +1014,9 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
     require(g.poses.shape[0] == cap.max_keyframes, f"[{label}] graph capacity {g.poses.shape[0]} != K")
     require(summary["keyframes"] > 0, f"[{label}] no keyframes")
     require(summary["landmarks"] > 0, f"[{label}] no landmarks mapped")
-    opt = [s for s in engine.stats_history if s["iterations"] > 0]
-    require(len(opt) > 0, f"[{label}] no optimizing tick")
+    own = engine.stats_history[n_before:]
+    opt = [s for s in own if s["iterations"] > 0]
+    require(len(opt) > 0 or not must_optimize, f"[{label}] no optimizing tick")
     for s in opt:
         require(math.isfinite(s["chi2_final"]) and s["chi2_final"] <= s["chi2_initial"],
                 f"[{label}] LM tick went uphill or non-finite: {s}")
@@ -997,21 +1028,24 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
         print(f"[{label}] fixed-lag window {window}: {len(marg_ms)} marginalizations, _kf_base {engine._kf_base}, "
               f"{engine._n_poses} active + {len(engine.archived_poses)} archived poses = {len(poses)} keyframes; "
               f"ATE optimized {summary['ate_rmse_optimized']:.6g} m, raw VIO {summary['ate_rmse_vio']:.6g} m")
-        require(len(marg_ms) >= 3 and engine._kf_base >= 48, f"[{label}] fewer than 3 marginalizations")
-        require(engine._n_poses < 80, f"[{label}] {engine._n_poses} active poses: the window is not bounded")
+        chunk = max(8, window // 4)
+        require(len(marg_ms) >= min_margs and engine._kf_base >= chunk * min_margs,
+                f"[{label}] fewer than {min_margs} marginalizations")
+        require(engine._n_poses < window + chunk,
+                f"[{label}] {engine._n_poses} active poses: the window is not bounded")
         require(engine._n_poses + len(engine.archived_poses) == len(engine.keyframes) == len(poses),
                 f"[{label}] archived + active poses do not cover the keyframes")
         require(summary["ate_rmse_optimized"] <= summary["ate_rmse_vio"], f"[{label}] ATE worse than raw VIO's")
     else:
         require(not marg_ms, f"[{label}] marginalized without a fixed-lag window")
 
-    n_det_kf = sum(1 for kf in engine.keyframes if _is_det(kf))
+    n_det_kf = sum(1 for kf in engine.keyframes if _is_det(kf))  # restored keyframes carry no cloud
     rounds = cfg.segmentation.max_planes_per_detection
     print(f"[{label}] launches: {launches}; score_hypotheses expected {n_det_kf} detection keyframes x {rounds} "
           f"extraction rounds = {n_det_kf * rounds}")
     require(launches["score_hypotheses"] > 0 and launches["score_hypotheses"] == n_det_kf * rounds,
             f"[{label}] K5 launches do not match the extraction rounds")
-    iters = [s["iterations"] for s in engine.stats_history]
+    iters = [s["iterations"] for s in own]
     loop = None
     if cfg.solver.linear_solver == "pcg":
         loop = "tiled" if cap.max_keyframes > soa_dist.TILED_FROM_K else "resident"
@@ -1056,14 +1090,14 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
               f"launches per shape {k4_shapes}")
         require(prior_launches == want_prior, f"[{label}] K4 took the prior on {prior_launches} launches, "
                                               f"expected {want_prior}")
-        for name in (RESIDENT if loop == "resident" else TILED + ("fused_linearize",)):
+        for name in (RESIDENT if loop == "resident" else TILED + ("fused_linearize",)) if ran else ():
             require(launches[name] > 0, f"[{label}] {name} was launched no time on its path")
     else:
         require(not calls["resident"] and not calls["tiled"]
                 and all(launches[n] == 0 for n in RESIDENT + TILED + ("tiled_obs_linearize",)),
                 f"[{label}] the dense path ran SoA kernels: {launches}")
 
-    tick_ms = [1e3 * s["solve_seconds"] for s in engine.stats_history]
+    tick_ms = [1e3 * s["solve_seconds"] for s in own]
 
     def steady_median(ticks):
         """Median after the first tick, which carries lazy CUDA / cuBLAS /
@@ -1076,14 +1110,191 @@ def run_slice(torch, log, extra: list[str], label: str) -> dict:
           f"all = {[round(x, 2) for x in tick_ms]}")
     print(f"[{label}] median ms per tick after the first of its kind: frontend-only "
           f"{steady_median([x for x, it in zip(tick_ms, iters) if it == 0])}, optimizing {steady_median(opt_ms)}")
-    print(f"[{label}] LM iterations per tick: {iters}; session wall {wall:.2f} s; "
+    print(f"[{label}] LM iterations per tick: {iters}; session wall (replay and shutdown work) {wall:.2f} s; "
           f"optimizing-tick ms per LM iteration {sum(opt_ms) / max(sum(iters), 1):.3f}")
     if window:
         print(f"[{label}] median optimizing tick ms over the first 30 {statistics.median(opt_ms[:30]):.2f} and the "
               f"last 30 {statistics.median(opt_ms[-30:]):.2f} (of {len(opt_ms)}); ms per marginalization "
               f"{[round(x, 2) for x in marg_ms]}, median {statistics.median(marg_ms):.2f}")
     return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop,
-            "k4_shapes": k4_shapes}
+            "k4_shapes": k4_shapes, "engine": engine, "out": args.out,
+            "median_opt_ms": statistics.median(opt_ms[1:] or opt_ms) if opt_ms else float("nan")}
+
+
+# ---------------------------------------------------------------------------
+# 10. the session lifecycle
+# ---------------------------------------------------------------------------
+
+
+def _split_log(log, frac: float = 0.5):
+    """The log's two parts at the odometry stamp a share ``frac`` of the way
+    in (0.5: the middle, the split of ``tests/test_components.py``)."""
+    import dataclasses
+
+    t_split = log.odom[int(len(log.odom) * frac)].t
+
+    def part(keep):
+        return dataclasses.replace(log, **{f: [e for e in getattr(log, f) if keep(e.t)]
+                                           for f in ("odom", "clouds", "depths", "detections", "gt")})
+
+    return part(lambda t: t < t_split), part(lambda t: t >= t_split)
+
+
+def _check_checkpoint(torch, ckpt: str, src, label: str) -> int:
+    """The checkpoint ``ckpt`` of the engine ``src``, loaded into a fresh
+    engine on the card: every tensor bit for bit (graph, table, fixed-lag
+    prior, marginals) and the host state (keyframes without clouds, archived
+    poses, ``_kf_base``). Returns the number of tensors compared."""
+    import numpy as np
+
+    from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
+    from semantic_slam_tpu_torch.runtime.engine import SlamEngine
+
+    fresh = SlamEngine(src.cfg, device=DEVICE)
+    load_checkpoint(ckpt, fresh)
+    pairs = [(f"graph.{f}", getattr(fresh.graph, f), getattr(src.graph, f)) for f in fresh.graph.__dataclass_fields__]
+    pairs += [(f"table.{f}", getattr(fresh.table, f), getattr(src.table, f)) for f in fresh.table.__dataclass_fields__]
+    pairs += [(f"prior.{f}", getattr(fresh.prior, f), getattr(src.prior, f)) for f in fresh.prior._fields]
+    pairs.append(("marginals", fresh.marginals, src.marginals))
+    for name, a, b in pairs:
+        require(a.device.type == DEVICE and a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b)),
+                f"[{label}] checkpoint round trip on the card: {name} differs")
+    require(np.array_equal(fresh.get_keyframe_poses(), src.get_keyframe_poses())
+            and fresh._n_poses == src._n_poses and len(fresh.keyframes) == len(src.keyframes)
+            and fresh._kf_base == src._kf_base and len(fresh.archived_poses) == len(src.archived_poses)
+            and all(k.cloud is None for k in fresh.keyframes), f"[{label}] checkpoint round trip: host state differs")
+    print(f"[{label}] checkpoint round trip on the card bit for bit ({len(pairs)} tensors; {src._n_poses} active + "
+          f"{len(src.archived_poses)} archived poses, prior num_p {int(src.prior.num_p)})")
+    return len(pairs)
+
+
+def _resumed_against_unbroken(resumed: dict, whole: dict, later_log, label: str) -> None:
+    """Prints, without asserting a value, the resumed session's counts, ATE
+    and median optimizing tick beside the unbroken one's: sensor data pending
+    at the split is not checkpointed, so the two may differ. ATE over the
+    later part's ground truth for both (the resumed summary's covers only
+    that part)."""
+    import numpy as np
+
+    from semantic_slam_tpu_torch.eval import ate as ate_mod
+
+    gt_t = np.array([e.t for e in later_log.gt])
+    gt_xyz = np.stack([e.pose7[:3] for e in later_log.gt])
+    kf = {name: (np.array([k.stamp for k in r["engine"].keyframes]), r["engine"].get_keyframe_poses())
+          for name, r in (("resumed", resumed), ("unbroken", whole))}
+    ate2 = {name: ate_mod.ate_rmse(t, p[:, :3], gt_t, gt_xyz, align=False) for name, (t, p) in kf.items()}
+    same_stamps = np.array_equal(kf["resumed"][0], kf["unbroken"][0])
+    dpos = (float(np.linalg.norm(kf["resumed"][1][:, :3] - kf["unbroken"][1][:, :3], axis=1).max())
+            if same_stamps else float("nan"))
+    print(f"{label}: resumed against unbroken: " + ", ".join(
+        f"{k} {resumed['summary'][k]} / {whole['summary'][k]}" for k in ("keyframes", "landmarks", "edges"))
+          + f"; ATE over the later part's ground truth {ate2['resumed']:.6g} / {ate2['unbroken']:.6g} m; "
+          f"keyframe stamps equal: {same_stamps}, largest keyframe position gap {dpos:.6g} m; median optimizing "
+          f"tick {resumed['median_opt_ms']:.2f} / {whole['median_opt_ms']:.2f} ms")
+
+
+def check_lifecycle(torch, log) -> dict:
+    """The session lifecycle on the card, at the profile's own capacities
+    (K=512: the resident loop, K4 in its cluster shape): the log split at its
+    middle odometry stamp, its first half run with --checkpoint --save-graph
+    --dump-keyframes and its second half resumed from that checkpoint, beside
+    the whole log unbroken (with --checkpoint); the checkpoint and the .g2o
+    read back on the card; a --robust dcs --optimize-every 3 session; and
+    ``cli merge`` of the first half's checkpoint with the unbroken
+    session's."""
+    import numpy as np
+
+    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.io.g2o_io import load_g2o
+
+    t0 = time.perf_counter()
+    first_log, second_log = _split_log(log)
+    pcg = ["--solver", "pcg"]
+    # the first half ends below the optimize gate (10 edges): K3 and K5 only
+    first = run_slice(torch, first_log, pcg + ["--checkpoint", "--save-graph", "--dump-keyframes"], "life_first",
+                      must_optimize=False)
+    ckpt = os.path.join(first["out"], "checkpoint.npz")
+    resumed = run_slice(torch, second_log, pcg + ["--resume", ckpt], "life_resumed")
+    whole = run_slice(torch, log, pcg + ["--checkpoint"], "life_unbroken")
+    for r in (first, resumed, whole):
+        require(r["engine"].graph.max_poses == FL_ENGINE["K"] and r["k4_shapes"]["grid"] == 0,
+                f"lifecycle: a session left K=512 or K4's cluster shape: {r['k4_shapes']}")
+    n1 = first["summary"]["keyframes"]
+    require(resumed["summary"]["keyframes"] > n1 > 0, "the resumed session lost or added no keyframes")
+    _resumed_against_unbroken(resumed, whole, second_log, "lifecycle")
+    ckpt_bytes = os.path.getsize(ckpt)
+    print(f"lifecycle: checkpoint at K={first['engine'].graph.max_poses} ({n1} keyframes): {ckpt_bytes} bytes, "
+          "compressed npz")
+
+    n_tensors = _check_checkpoint(torch, ckpt, first["engine"], "life_first")
+    # the .g2o read back: the saved graph's active rows
+    g2 = load_g2o(os.path.join(first["out"], "semantic_graph.g2o"), device=DEVICE)
+    g = first["engine"].graph
+    counts = {f: int(getattr(g, f)) for f in ("num_poses", "num_landmarks", "num_odom", "num_lme")}
+    require(all(int(getattr(g2, f)) == n for f, n in counts.items()), "g2o read back: counts differ")
+    for f, n in (("poses", "num_poses"), ("landmarks", "num_landmarks"), ("odom_i", "num_odom"), ("odom_j", "num_odom"),
+                 ("odom_meas", "num_odom"), ("odom_info", "num_odom"), ("lme_k", "num_lme"), ("lme_l", "num_lme"),
+                 ("lme_meas", "num_lme"), ("lme_info", "num_lme")):
+        a, b = getattr(g2, f)[: counts[n]], getattr(g, f)[: counts[n]]
+        require(bool(torch.equal(a, b.to(a.dtype))), f"g2o read back: {f} differs from the saved graph's rows")
+    n_dumps = len(os.listdir(os.path.join(first["out"], "keyframes")))
+    require(n_dumps == n1, f"{n_dumps} keyframe dumps for {n1} keyframes")
+    print(f"lifecycle: .g2o read back equal ({counts}); {n_dumps} keyframe dumps")
+
+    flags = run_slice(torch, log, pcg + ["--robust", "dcs", "--optimize-every", "3"], "life_flags")
+    eng = flags["engine"]
+    last = eng.stats_history[-1]
+    require(len(eng.stats_history) == eng._ticks_done + 1 and last["iterations"] > 0
+            and math.isfinite(last["chi2_final"]), f"--optimize-every 3: the last entry is not a finalize pass: {last}")
+    require(any(s["iterations"] == 0 for s in eng.stats_history), "--optimize-every 3 skipped no tick")
+
+    merge_out = os.path.join(OUT_DIR, "life_merge")
+    merged = cli.cmd_merge(cli.build_parser().parse_args(
+        ["merge", ckpt, os.path.join(whole["out"], "checkpoint.npz"), "--out", merge_out, "--profile",
+         "yolo_detector", "--device", DEVICE]))
+    require(merged["chi2_final"] <= merged["chi2_initial"] and math.isfinite(merged["chi2_final"]),
+            f"merge: chi2 rose or is not finite: {merged}")
+    require(merged["landmarks"] <= sum(merged["landmarks_per_session"]), f"merge: too many landmarks: {merged}")
+    require(merged["poses"] == n1 + whole["summary"]["keyframes"], f"merge: poses {merged['poses']}")
+    wall = time.perf_counter() - t0
+    print(f"lifecycle: phase wall {wall:.2f} s")
+    return {"wall_s": wall, "checkpoint_bytes": ckpt_bytes, "tensors": n_tensors}
+
+
+FL_SPLIT = 0.75  # ~90 of FL_LOG's 120 keyframes: a marginalization (at the 81st) before the split, two after
+
+
+def check_lifecycle_fixed_lag(torch, fl_log, whole: dict) -> dict:
+    """A checkpoint that carries LM-optimized state and a fixed-lag prior:
+    the fixed-lag pcg session's log split after its first marginalization,
+    the first part run with --checkpoint, that checkpoint held bit for bit
+    on the card, and the rest resumed from it, beside the unbroken session
+    ``whole`` (the fixed-lag pcg slice)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    first_log, second_log = _split_log(fl_log, FL_SPLIT)
+    flags = ["--fixed-lag", str(FL_WINDOW), "--solver", "pcg"]
+    first = run_slice(torch, first_log, flags + ["--checkpoint"], "fl_life_first", min_margs=1)
+    ckpt = os.path.join(first["out"], "checkpoint.npz")
+    z = np.load(ckpt)
+    require(int(z["fl_num_p"]) > 0 and len(z["fl_archived"]) == first["engine"]._kf_base > 0
+            and float(np.abs(z["fl_Hp"]).sum() + np.abs(z["fl_Hl"]).sum()) > 0,
+            "fl_life_first: the checkpoint holds no fixed-lag prior")
+    n_tensors = _check_checkpoint(torch, ckpt, first["engine"], "fl_life_first")
+    resumed = run_slice(torch, second_log, flags + ["--resume", ckpt], "fl_life_resumed", min_margs=1)
+    for r in (first, resumed):
+        require(r["engine"].graph.max_poses == FL_ENGINE["K"] and r["k4_shapes"]["grid"] == 0,
+                f"fixed-lag lifecycle: a session left K=512 or K4's cluster shape: {r['k4_shapes']}")
+    require(resumed["summary"]["keyframes"] > first["summary"]["keyframes"],
+            "fl_life_resumed: the resumed session lost or added no keyframes")
+    _resumed_against_unbroken(resumed, whole, second_log, "fixed-lag lifecycle")
+    ckpt_bytes = os.path.getsize(ckpt)
+    wall = time.perf_counter() - t0
+    eng = first["engine"]
+    print(f"fixed-lag lifecycle: checkpoint at K={eng.graph.max_poses} ({first['summary']['keyframes']} keyframes, "
+          f"{eng._kf_base} archived): {ckpt_bytes} bytes; phase wall {wall:.2f} s")
+    return {"wall_s": wall, "checkpoint_bytes": ckpt_bytes, "tensors": n_tensors}
 
 
 def check_isolation() -> None:
@@ -1147,6 +1358,10 @@ def main() -> int:
         tiled = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "8192"], "tiled")
         require(tiled["keyframes"] == dense["keyframes"] and tiled["loop"] == "tiled",
                 f"keyframes: tiled {tiled['keyframes']} != dense {dense['keyframes']}")
+        for r in (dense, pcg, tiled):  # free each engine before the next session
+            del r["engine"]
+        phase("session lifecycle on the card")
+        check_lifecycle(torch, log)
         del log
 
         t0 = time.perf_counter()
@@ -1155,12 +1370,16 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s on the host)")
         phase("fixed-lag dense slice on the card")
         fl_dense = run_slice(torch, fl_log, ["--fixed-lag", str(FL_WINDOW)], "fixed_lag_dense")
+        del fl_dense["engine"]
         phase("fixed-lag pcg slice on the card")
         fl_pcg = run_slice(torch, fl_log, ["--fixed-lag", str(FL_WINDOW), "--solver", "pcg"], "fixed_lag_pcg")
         require(fl_pcg["keyframes"] == fl_dense["keyframes"] and fl_pcg["loop"] == "resident",
                 f"keyframes: fixed-lag pcg {fl_pcg['keyframes']} != dense {fl_dense['keyframes']}")
         require(fl_pcg["k4_shapes"]["grid"] == 0,
                 f"fixed-lag pcg slice (K=512): K4 left the cluster shape: {fl_pcg['k4_shapes']}")
+        phase("fixed-lag session lifecycle on the card")
+        check_lifecycle_fixed_lag(torch, fl_log, fl_pcg)
+        del fl_pcg["engine"]
         n = fl_pcg["launches"]
         print(f"fixed-lag pcg session launches: K1 + K2 fused_linearize {n['fused_linearize']} (two kernel launches "
               f"each), K3 resident_chi2 {n['resident_chi2']}, K4 resident_solve {n['resident_solve']}")

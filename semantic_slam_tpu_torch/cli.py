@@ -5,6 +5,9 @@
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 4096 --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 8192 --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --fixed-lag 64 [--solver pcg] --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log a.npz --out a/ --checkpoint --save-graph --dump-keyframes
+  python -m semantic_slam_tpu_torch.cli run --log b.npz --out b/ --resume a/checkpoint.npz
+  python -m semantic_slam_tpu_torch.cli merge a/checkpoint.npz b/checkpoint.npz --out merged/
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
@@ -15,8 +18,17 @@ the SoA Schur-PCG solver: up to 4096 keyframes of capacity its resident loop
 for the marginals). ``--fixed-lag N`` marginalizes keyframes beyond the
 last N into a prior (on the dense LM and both PCG loops; the pcg resident
 loop applies the prior's boundary block inside K4); the trajectory files and
-the summary still cover every keyframe. ``synth`` writes the same ``.npz``
-log as the JAX package's command.
+the summary still cover every keyframe. ``--robust``, ``--optimize-every``
+(with the closing ``finalize()`` pass) and ``--plane-gate`` map onto the
+config as the JAX CLI maps them. ``--save-graph`` writes
+``semantic_graph.g2o``, ``--checkpoint`` ``checkpoint.npz`` (the JAX
+package's format: each package loads the other's), ``--dump-keyframes`` the
+``keyframes/`` text dumps, and ``--resume PATH`` restores a checkpoint into
+the fresh engine before the replay. ``merge`` joins session checkpoints into
+one map (landmarks unified by class, plane type and radius) and runs the
+joint dense LM over it, writing ``merged_pose.txt``, ``merged_graph.g2o`` and
+``summary.json``. ``synth`` writes the same ``.npz`` log as the JAX
+package's command.
 """
 
 from __future__ import annotations
@@ -61,8 +73,17 @@ def make_config(args):
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, linear_solver=args.solver))
     if args.precond:
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, pcg_precond=args.precond))
+    if args.plane_gate:
+        cfg = cfg.replace(association=dataclasses.replace(cfg.association, use_plane_gate=True))
+    solver_kw = {}
+    if args.robust != "none":
+        solver_kw["robust_kernel"] = args.robust
+    if args.optimize_every > 1:
+        solver_kw["optimize_every_n_ticks"] = args.optimize_every
     if args.fixed_lag > 0:
-        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, fixed_lag_window=args.fixed_lag))
+        solver_kw["fixed_lag_window"] = args.fixed_lag
+    if solver_kw:
+        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, **solver_kw))
     return cfg
 
 
@@ -81,19 +102,29 @@ def make_synthetic_log(**kwargs):
     return synth_mod.make_synthetic_log(**kwargs)
 
 
-def run_session(log, cfg, device: str):
-    """Replay ``log`` through a fresh engine; returns the engine."""
+def run_session(log, cfg, device: str, resume: str = "", finalize: bool = False):
+    """Replay ``log`` through a fresh engine, restored from the checkpoint
+    ``resume`` first if given, and with a closing ``finalize()`` pass if
+    asked; returns the engine."""
     from semantic_slam_tpu_torch.io import replay as replay_mod
     from semantic_slam_tpu_torch.runtime.engine import SlamEngine
 
     engine = SlamEngine(cfg, device=device)
+    if resume:
+        from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
+
+        load_checkpoint(resume, engine)
     replay_mod.replay(log, engine)
+    if finalize:
+        engine.finalize()
     return engine
 
 
-def write_outputs(out_dir: str, profile: str, cfg, engine, log) -> dict:
-    """The shutdown work of ``semantic_slam_tpu.cli run``: TUM dumps, viz
-    exports, summary.json and stats.jsonl. Returns the summary."""
+def write_outputs(out_dir: str, profile: str, cfg, engine, log, save_graph: bool = False,
+                  checkpoint: bool = False, dump_keyframes: bool = False) -> dict:
+    """The shutdown work of ``semantic_slam_tpu.cli run``, in its order: TUM
+    dumps, the g2o graph, the checkpoint, the keyframe dumps, viz exports,
+    summary.json and stats.jsonl. Returns the summary."""
     from semantic_slam_tpu_torch.eval import ate as ate_mod
     from semantic_slam_tpu_torch.io import tum as tum_mod
     from semantic_slam_tpu_torch.viz.markers import export_session
@@ -110,6 +141,19 @@ def write_outputs(out_dir: str, profile: str, cfg, engine, log) -> dict:
             gt_t = np.array([e.t for e in log.gt])
             gt_p = np.stack([e.pose7 for e in log.gt])
             tum_mod.write_tum(os.path.join(out_dir, "gt_pose.txt"), gt_t, gt_p)
+
+    if cfg.save_graph or save_graph:
+        from semantic_slam_tpu_torch.io.g2o_io import save_g2o
+
+        save_g2o(os.path.join(out_dir, "semantic_graph.g2o"), engine.graph)
+    if checkpoint:
+        from semantic_slam_tpu_torch.io.checkpoint import save_checkpoint
+
+        save_checkpoint(os.path.join(out_dir, "checkpoint.npz"), engine)
+    if dump_keyframes:
+        from semantic_slam_tpu_torch.io.dump import dump_keyframes as dump
+
+        dump(os.path.join(out_dir, "keyframes"), engine)
 
     export_session(out_dir, engine)
 
@@ -164,11 +208,63 @@ def cmd_synth(args) -> None:
     )
 
 
-def cmd_run(args) -> dict:
+def run_from_args(args, log):
+    """``run`` on a log already in memory: the session, then its shutdown
+    work. Returns (engine, summary)."""
     cfg = make_config(args)
-    log = load_replay_log(args.log)
-    engine = run_session(log, cfg, args.device)
-    summary = write_outputs(args.out, args.profile, cfg, engine, log)
+    engine = run_session(log, cfg, args.device, resume=args.resume, finalize=args.optimize_every > 1)
+    summary = write_outputs(args.out, args.profile, cfg, engine, log, save_graph=args.save_graph,
+                            checkpoint=args.checkpoint, dump_keyframes=args.dump_keyframes)
+    return engine, summary
+
+
+def cmd_run(args) -> dict:
+    _, summary = run_from_args(args, load_replay_log(args.log))
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def cmd_merge(args) -> dict:
+    """Merge session checkpoints into one map and run the joint dense LM over
+    it (``semantic_slam_tpu.cli merge`` in point-landmark mode)."""
+    from semantic_slam_tpu_torch.config import PROFILES
+    from semantic_slam_tpu_torch.io import tum as tum_mod
+    from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
+    from semantic_slam_tpu_torch.io.g2o_io import save_g2o
+    from semantic_slam_tpu_torch.runtime import multisession as ms
+    from semantic_slam_tpu_torch.runtime.engine import SlamEngine
+
+    if args.profile not in PROFILES:
+        sys.exit(f"unknown profile {args.profile!r}; have {sorted(PROFILES)}")
+    if args.plane_landmarks:
+        raise NotImplementedError(ms.PLANES_UNPORTED)
+    cfg = PROFILES[args.profile]
+    engines = []
+    for path in args.checkpoints:
+        eng = SlamEngine(cfg, device=args.device)
+        load_checkpoint(path, eng)
+        engines.append(eng)
+    merged, _ = ms.merge_graphs([e.graph for e in engines], [e.table for e in engines],
+                                merge_radius=args.merge_radius)
+    g, stats = ms.joint_bundle_adjust(merged, max_iterations=args.max_iterations)
+
+    os.makedirs(args.out, exist_ok=True)
+    n_act = int(g.num_poses)
+    tum_mod.write_tum(os.path.join(args.out, "merged_pose.txt"), np.arange(n_act, dtype=np.float64),
+                      g.poses[:n_act].cpu().numpy().astype(np.float64))
+    save_g2o(os.path.join(args.out, "merged_graph.g2o"), g)
+    summary = {
+        "sessions": len(engines),
+        "poses": n_act,
+        "landmarks": int(g.num_landmarks),
+        "edges": int(g.num_edges()),
+        "landmarks_per_session": [int(e.table.count) for e in engines],
+        "chi2_initial": float(stats.chi2_initial),
+        "chi2_final": float(stats.chi2_final),
+        "lm_iterations": int(stats.iterations),
+    }
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
     print(json.dumps(summary, indent=1))
     return summary
 
@@ -205,15 +301,31 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--fixed-lag", type=int, default=0,
                    help="fixed-lag smoothing window: marginalize keyframes beyond the last N into a prior "
                         "(0 = the reference's full-history behavior)")
+    r.add_argument("--robust", default="none", choices=["none", "huber", "dcs"],
+                   help="robust kernel on the observation edges")
+    r.add_argument("--optimize-every", type=int, default=1,
+                   help="run the LM every Nth tick (1 = the reference's every tick); a finalize pass runs at the end")
+    r.add_argument("--plane-gate", action="store_true", help="plane-aware association gate (normal angle + offset)")
+    r.add_argument("--save-graph", action="store_true", help="write <out>/semantic_graph.g2o")
+    r.add_argument("--checkpoint", action="store_true", help="write <out>/checkpoint.npz")
+    r.add_argument("--dump-keyframes", action="store_true",
+                   help="per-keyframe text dumps in the KeyFrame::dump format under <out>/keyframes/")
+    r.add_argument("--resume", default="", help="engine checkpoint .npz to restore before the replay")
+
+    m = sub.add_parser("merge", help="merge session checkpoints into one map + joint BA")
+    m.add_argument("checkpoints", nargs="+", help="engine checkpoint .npz files")
+    m.add_argument("--out", required=True)
+    m.add_argument("--profile", default="bucket_detector_workspace")
+    m.add_argument("--merge-radius", type=float, default=1.0)
+    m.add_argument("--max-iterations", type=int, default=64)
+    m.add_argument("--plane-landmarks", action="store_true", help="not ported: plane landmarks")
+    m.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.cmd == "synth":
-        cmd_synth(args)
-    else:
-        cmd_run(args)
+    {"synth": cmd_synth, "run": cmd_run, "merge": cmd_merge}[args.cmd](args)
 
 
 if __name__ == "__main__":

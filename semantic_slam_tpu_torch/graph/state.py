@@ -142,6 +142,15 @@ def graph_to_numpy(g: GraphState) -> dict[str, np.ndarray]:
     return {name: getattr(g, name).detach().cpu().numpy() for name in FIELDS}
 
 
+def pow2_capacity(n: int, lo: int = 16) -> int:
+    """The least power-of-two multiple of ``lo`` that holds ``n`` rows: the
+    capacities of graphs built whole (a loaded .g2o file, a merge)."""
+    c = lo
+    while c < n:
+        c *= 2
+    return c
+
+
 # ---------------------------------------------------------------------------
 # mutation ops (functional; return new state + assigned index)
 # ---------------------------------------------------------------------------

@@ -21,7 +21,10 @@ work runs eagerly on ``device``:
     graph compacts; their optimized poses go to ``archived_poses`` and
     ``_kf_base`` counts them, so ``KeyframeMeta.node_idx`` stays the
     keyframe's number in the session. The prior goes to every optimize while
-    the window is set, even while it is still empty.
+    the window is set, even while it is still empty;
+  * autosave -- every ``autosave_every_n_ticks`` ticks the tick ends in
+    ``io.checkpoint.save_checkpoint`` to ``cfg.autosave_path``. A restored
+    session's keyframes carry no cloud (``cloud=None``).
 
 Host traffic per tick: two flags per LM iteration and the ``info`` vector,
 and one small fetch per marginalization.
@@ -97,10 +100,6 @@ def _unported(cfg: SlamConfig) -> list[str]:
         missing.append("use_const_inf_matrix=False (fitness information)")
     if cfg.segmentation.adaptive_normals:
         missing.append("adaptive_normals (adaptive-window normals)")
-    if cfg.autosave_every_n_ticks > 0:
-        missing.append("autosave_every_n_ticks > 0 (checkpoint I/O)")
-    if cfg.save_graph:
-        missing.append("save_graph (g2o export)")
     return missing
 
 
@@ -300,6 +299,8 @@ class SlamEngine:
 
         self._export_marg = None
         self._export_marg_tick = -1
+        # ticks run by this engine; not checkpointed (nor in the JAX package),
+        # so optimize_every_n_ticks counts from 0 again after a resume
         self._ticks_done = 0
         self._last_lambda = 0.0
 
@@ -513,6 +514,11 @@ class SlamEngine:
         self._record_stats(iters, info, solve_s)
         self.first_key_added = True
         self._maybe_marginalize()
+        n_auto = self.cfg.autosave_every_n_ticks
+        if n_auto > 0 and self._ticks_done % n_auto == 0:
+            from semantic_slam_tpu_torch.io.checkpoint import save_checkpoint
+
+            save_checkpoint(self.cfg.autosave_path, self)
         return True
 
     def _absorb_info(self, info: np.ndarray, iters: int) -> None:
@@ -714,7 +720,9 @@ class SlamEngine:
         gi = kf.node_idx - self._kf_base
         if gi >= 0:
             return self.graph.poses[gi].cpu().numpy().astype(np.float64)
-        return np.asarray(self.archived_poses[kf.node_idx], np.float64)
+        if kf.node_idx < len(self.archived_poses):
+            return np.asarray(self.archived_poses[kf.node_idx], np.float64)
+        return None
 
     def get_mapped_landmarks(self):
         n = int(self.table.count)

@@ -1,0 +1,141 @@
+"""Multi-session map merging and joint bundle adjustment (port of
+``semantic_slam_tpu.runtime.multisession``, point landmarks on one device).
+
+Sessions are engine checkpoints; merging
+
+  1. concatenates pose nodes and odometry edges with index offsets (each
+     session keeps its own gauge chain; session 0's first pose stays the
+     global gauge anchor),
+  2. cross-associates landmarks between sessions (same class + plane type +
+     within the Euclidean merge radius -> unified landmark id), which is
+     what ties the sessions into one frame,
+  3. re-targets observation edges to the unified landmark ids,
+  4. runs joint BA: the dense Schur LM (``solver/lm.py``), as the JAX
+     package's single-device merge does.
+
+The merge with plane landmarks and the sharded joint BA are not ported and
+raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from semantic_slam_tpu_torch.assoc.association import table_to_numpy
+from semantic_slam_tpu_torch.graph import state as gs
+from semantic_slam_tpu_torch.solver import lm as lm_mod
+
+PLANES_UNPORTED = "not ported to semantic_slam_tpu_torch yet: the merge with plane landmarks (P7a)"
+MESH_UNPORTED = "not ported to semantic_slam_tpu_torch yet: the sharded joint BA over a mesh (P8, several GPUs)"
+
+
+def merge_graphs(graphs: list[gs.GraphState], tables: list, merge_radius: float = 1.0,
+                 dtype=None) -> tuple[gs.GraphState, np.ndarray]:
+    """Merge session graphs; returns (merged graph, landmark_owner), where
+    landmark_owner[i] is the session that contributed merged landmark i.
+    The surgery runs on the host (numpy); the merged graph lives on the first
+    graph's device."""
+    merged, owner, _, _, _ = _merge_core(graphs, tables, merge_radius, dtype)
+    return merged, owner
+
+
+def _merge_core(graphs: list[gs.GraphState], tables: list, merge_radius: float = 1.0, dtype=None):
+    """merge_graphs internals; also returns the per-session landmark remaps,
+    the owners' local ids and the pose offsets."""
+    dtype = dtype or graphs[0].poses.dtype
+    device = graphs[0].poses.device
+
+    sessions = []
+    for g, t in zip(graphs, tables):
+        a, ta = gs.graph_to_numpy(g), table_to_numpy(t)
+        K, L, E1, E2 = (int(a[n]) for n in ("num_poses", "num_landmarks", "num_odom", "num_lme"))
+        sessions.append(
+            {
+                "poses": a["poses"][:K].astype(np.float64),
+                "lms": a["landmarks"][:L].astype(np.float64),
+                "lm_class": ta["class_id"][:L],
+                "lm_ptype": ta["plane_type"][:L],
+                "oi": a["odom_i"][:E1],
+                "oj": a["odom_j"][:E1],
+                "om": a["odom_meas"][:E1].astype(np.float64),
+                "oinfo": a["odom_info"][:E1].astype(np.float64),
+                "lk": a["lme_k"][:E2],
+                "ll": a["lme_l"][:E2],
+                "lmeas": a["lme_meas"][:E2].astype(np.float64),
+                "linfo": a["lme_info"][:E2].astype(np.float64),
+            }
+        )
+
+    # cross-session landmark unification: the nearest earlier unified
+    # landmark of the same class and plane type within the radius
+    uni_pos: list[np.ndarray] = []
+    uni_class: list[int] = []
+    uni_ptype: list[int] = []
+    owner: list[int] = []
+    owner_local: list[int] = []  # owner's local landmark id per unified id
+    lm_map: list[np.ndarray] = []  # per session: local id -> unified id
+    for si, s in enumerate(sessions):
+        mapping = np.zeros(len(s["lms"]), np.int64)
+        for li in range(len(s["lms"])):
+            pos = s["lms"][li]
+            cid = int(s["lm_class"][li])
+            pt = int(s["lm_ptype"][li])
+            best, bestd = -1, merge_radius
+            for ui in range(len(uni_pos)):
+                if uni_class[ui] == cid and uni_ptype[ui] == pt:
+                    d = float(np.linalg.norm(uni_pos[ui] - pos))
+                    if d < bestd:
+                        best, bestd = ui, d
+            if best < 0:
+                best = len(uni_pos)
+                uni_pos.append(pos.copy())
+                uni_class.append(cid)
+                uni_ptype.append(pt)
+                owner.append(si)
+                owner_local.append(li)
+            mapping[li] = best
+        lm_map.append(mapping)
+
+    pose_off = np.cumsum([0] + [len(s["poses"]) for s in sessions[:-1]])
+    cat = {
+        "poses": np.concatenate([s["poses"] for s in sessions]),
+        "landmarks": np.stack(uni_pos) if uni_pos else np.zeros((0, 3)),
+        "odom_i": np.concatenate([s["oi"] + pose_off[i] for i, s in enumerate(sessions)]),
+        "odom_j": np.concatenate([s["oj"] + pose_off[i] for i, s in enumerate(sessions)]),
+        "odom_meas": np.concatenate([s["om"] for s in sessions]),
+        "odom_info": np.concatenate([s["oinfo"] for s in sessions]),
+        "lme_k": np.concatenate([s["lk"] + pose_off[i] for i, s in enumerate(sessions)]),
+        "lme_l": np.concatenate([lm_map[i][s["ll"]] for i, s in enumerate(sessions)]),
+        "lme_meas": np.concatenate([s["lmeas"] for s in sessions]),
+        "lme_info": np.concatenate([s["linfo"] for s in sessions]),
+    }
+
+    cap, n = gs.pow2_capacity, {k: len(v) for k, v in cat.items()}
+    merged = gs.make_graph(cap(n["poses"]), cap(max(n["landmarks"], 1)), cap(max(n["odom_i"], 1)),
+                           cap(max(n["lme_k"], 1)), dtype=dtype, device=device)
+    out = {}
+    for name, vals in cat.items():
+        dst = getattr(merged, name).clone()
+        dst[: len(vals)] = torch.as_tensor(vals, device=device).to(dst.dtype)
+        out[name] = dst
+    for name, key in (("num_poses", "poses"), ("num_landmarks", "landmarks"), ("num_odom", "odom_i"),
+                      ("num_lme", "lme_k")):
+        out[name] = torch.tensor(n[key], dtype=torch.int32, device=device)
+    return gs.GraphState(**out), np.asarray(owner, np.int64), lm_map, np.asarray(owner_local, np.int64), pose_off
+
+
+def merge_graphs_planes(*args, **kwargs):
+    raise NotImplementedError(PLANES_UNPORTED)
+
+
+def joint_bundle_adjust_planes(*args, **kwargs):
+    raise NotImplementedError(PLANES_UNPORTED)
+
+
+def joint_bundle_adjust(merged: gs.GraphState, mesh=None, max_iterations: int = 64):
+    """Joint BA over the merged graph: the dense Schur LM. Returns (graph,
+    LMStats)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_UNPORTED)
+    return lm_mod.lm_optimize(merged, max_iterations=max_iterations)

@@ -41,7 +41,7 @@ from semantic_slam_tpu_torch.solver import kernels as tk
 from semantic_slam_tpu_torch.solver import soa_dist as tsd
 from semantic_slam_tpu_torch.solver.lm import _free_masks as tfree
 from semantic_slam_tpu_torch.solver.pcg import _edge_args, apply_prior_blocks
-from torch_cases import moved_prior, row_err
+from torch_cases import moved_prior, one_torch_thread, row_err  # noqa: F401 (a fixture)
 
 K, L, E2 = 32, 16, 128
 ROWS = _ell_rows_for(K, E2)
@@ -78,13 +78,23 @@ def _perturbed(jg, seed):
     return jg._replace(poses=jnp.asarray(p), landmarks=jnp.asarray(lm))
 
 
+def _count_i32(jp):
+    """The JAX prior with its boundary count as int32. In x64 the JAX
+    ``marginalize`` returns ``num_p`` as int64 where ``empty_prior`` and the
+    port's priors hold int32; one dtype lets each JAX program of this file
+    compile once for every prior it is given (the values are the same)."""
+    return jp._replace(num_p=jp.num_p.astype(jnp.int32))
+
+
 @pytest.fixture(scope="module")
 def marg():
     """The graph, once and twice marginalized by 4 keyframes in both
     packages: (graphs, priors, boundary counts) per package."""
     jg = _build_graph(K=K, L=L, E2=E2, dtype=jnp.float64, noise=0.02, seed=7)
     jg1, jp1, jb1 = jfl.marginalize(jg, jfl.empty_prior(L, Pl=0, dtype=jnp.float64), drop=4)
+    jp1 = _count_i32(jp1)
     jg2, jp2, jb2 = jfl.marginalize(jg1, jp1, drop=4)
+    jp2 = _count_i32(jp2)
     tg = to_torch(jg)
     tg1, tp1, tb1 = tfl.marginalize(tg, tfl.empty_prior(L, dtype=torch.float64), 4)
     tg2, tp2, tb2 = tfl.marginalize(tg1, tp1, 4)

@@ -23,6 +23,7 @@ from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
 from semantic_slam_tpu_torch.runtime.engine import SlamEngine as TorchEngine
 from semantic_slam_tpu_torch.solver import soa_dist as tsd
 from test_e2e import e2e_config
+from torch_cases import one_torch_thread  # noqa: F401 (a module fixture)
 
 
 WINDOW, CHUNK = 8, 8

@@ -5,8 +5,8 @@ imports ``jax``, the JAX package ``semantic_slam_tpu`` or ``__graft_entry__``
 (an ``ast`` scan of every import statement and every
 ``importlib.import_module`` call with a literal name). And the port's copies
 of the JAX package's jax-free modules (``config``, ``core/np_geometry``,
-``runtime/keyframe_gate``, ``io/{replay,synthetic,tum}``, ``eval/ate``) give
-what their originals give on the same inputs, exactly.
+``runtime/keyframe_gate``, ``io/{replay,synthetic,tum,dump}``, ``eval/ate``)
+give what their originals give on the same inputs, exactly.
 """
 
 import ast
@@ -18,6 +18,7 @@ import numpy as np
 from semantic_slam_tpu import config as jcfg
 from semantic_slam_tpu.core import np_geometry as jnpg
 from semantic_slam_tpu.eval import ate as jate
+from semantic_slam_tpu.io import dump as jdump
 from semantic_slam_tpu.io import replay as jreplay
 from semantic_slam_tpu.io import synthetic as jsyn
 from semantic_slam_tpu.io import tum as jtum
@@ -25,6 +26,7 @@ from semantic_slam_tpu.runtime.keyframe_gate import KeyframeGate as JGate
 from semantic_slam_tpu_torch import config as tcfg
 from semantic_slam_tpu_torch.core import np_geometry as tnpg
 from semantic_slam_tpu_torch.eval import ate as tate
+from semantic_slam_tpu_torch.io import dump as tdump
 from semantic_slam_tpu_torch.io import replay as treplay
 from semantic_slam_tpu_torch.io import synthetic as tsyn
 from semantic_slam_tpu_torch.io import tum as ttum
@@ -116,3 +118,25 @@ def test_ate_tum_and_geometry_equal(tmp_path):
     tg, jg = TGate(), JGate()
     for k in range(200):
         assert tg.update(poses[k], float(t[k])) == jg.update(poses[k], float(t[k])), k
+
+
+def test_keyframe_dumps_equal(tmp_path):
+    """``dump_keyframes``: the same files, byte for byte, for keyframes with
+    and without a graph node (``node_idx`` None) and fractional stamps."""
+    import types
+
+    rng = np.random.default_rng(2)
+    kfs = []
+    for i in range(5):
+        q = rng.normal(size=4)
+        kfs.append(types.SimpleNamespace(
+            stamp=float(rng.uniform(0, 1e4)), odom=np.r_[rng.normal(size=3) * 50, q / np.linalg.norm(q)],
+            accum_distance=float(rng.uniform(0, 30)), node_idx=None if i == 3 else i))
+    engine = types.SimpleNamespace(keyframes=kfs)
+    tdump.dump_keyframes(str(tmp_path / "t"), engine)
+    jdump.dump_keyframes(str(tmp_path / "j"), engine)
+    files = sorted(p.relative_to(tmp_path / "j") for p in (tmp_path / "j").rglob("data"))
+    assert len(files) == 5
+    assert sorted(p.relative_to(tmp_path / "t") for p in (tmp_path / "t").rglob("data")) == files
+    for f in files:
+        assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes(), f

@@ -122,8 +122,6 @@ UNPORTED = {
     "ingest_window": _with("solver", ingest_window=4),
     "use_const_inf_matrix": _with("information", use_const_inf_matrix=False),
     "adaptive_normals": _with("segmentation", adaptive_normals=True),
-    "autosave_every_n_ticks": lambda cfg: cfg.replace(autosave_every_n_ticks=10),
-    "save_graph": lambda cfg: cfg.replace(save_graph=True),
     "fixed_lag_window with use_plane_landmarks": lambda cfg: cfg.replace(
         use_plane_landmarks=True, solver=dataclasses.replace(cfg.solver, fixed_lag_window=24)),
     # the row-range (tiled) PCG loop that --max-keyframes above 4096 takes

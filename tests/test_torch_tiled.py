@@ -48,6 +48,7 @@ from semantic_slam_tpu_torch.solver.lm import _free_masks
 from semantic_slam_tpu_torch.solver.pcg import _edge_args
 from tests.test_pcg import _sort_obs_edges
 from tests.test_solver import build_chain_graph
+from torch_cases import one_torch_thread  # noqa: F401 (a module fixture)
 
 ROBUST = ["none", "huber", "dcs"]
 RANGES = {"whole": lambda K: (0, K), "upper-half": lambda K: (K // 2, K // 2)}
