@@ -28,9 +28,10 @@ before the result line:
              one call the loop makes, its chain outputs and its linearization
              each against the plain version, and K6 alone on given chain
              blocks) at the bench shape K=8192/L=2048/E2=32768 (R=4), at the
-             engine's ``--max-keyframes 8192`` shape (R=32) and at
-             K=16384/L=4096, each on the whole row range and on rows
-             [0, K/2) and [K/2, K);
+             engine's ``--max-keyframes 8192`` shape (R=32), at
+             K=16384/L=4096 and at the plane fixed-lag session's
+             K=512/L=128/E2=2048 (R=32), each on the whole row range and on
+             rows [0, K/2) and [K/2, K);
 4. two halves -- K6+K7 and K8 -> K9 on rows [0, K/2) and [K/2, K), summed,
              embedded and shifted, against the whole range (the row-range
              contract of a multi-device loop);
@@ -82,7 +83,26 @@ before the result line:
              that checkpoint loaded into a fresh engine on the card (every
              tensor bit for bit), the rest resumed from it; its keyframes,
              ATE and median optimizing tick printed beside the fixed-lag pcg
-             slice's.
+             slice's;
+12. plane slices -- plane landmarks (``--plane-landmarks``) at full width:
+             A, the dense slice's log on the dense plane LM (K=512); B, the
+             same with ``--solver pcg --max-keyframes 4096`` (K=4096,
+             L = Pl = 1024: the row-range loop with its plane half, K6-K10,
+             and the marginals over L + Pl blocks through K1 + K2); C, the
+             fixed-lag log with ``--fixed-lag 64 --solver pcg`` (K=512: K6-K10
+             at Kl=512 with a prior that has a plane part), with
+             --checkpoint --save-graph. Each: a plane per landmark, a plane
+             edge per observation edge (C: at least 8; the dense log holds
+             fewer observations), unit normals, chi2 never rising, ATE no worse
+             than raw VIO's (the point session's printed beside), K5-K10
+             and K1 + K2 launched as the ticks imply; A and B with the point
+             sessions' keyframes; C with 2+ marginalizations, a non-zero
+             plane prior, its checkpoint bit for bit on the card and its
+             .g2o (plane records too) read back equal. At B's and C's final
+             states, what a CG step costs with the plane half and without
+             it (K8/K9 launches from their counters, one call of each a
+             step; device events and ms from a trace that holds every one
+             of those launches; host ms).
 The counters are reset just before each session and checked against the LM's
 iteration counts just after.
 
@@ -157,6 +177,9 @@ FL_WINDOW = 64  # --fixed-lag of the fixed-lag sessions (chunk max(8, 64 // 4) =
 # the fixed-lag sessions' log: benchmarks/pipeline_bench.py's deployment (seed 1, loops = steps / 240), cut from
 # 1800 steps with sensor_every=3 to 1920 with 6: ~120 keyframes, so that the window of 64 marginalizes 3 times
 FL_LOG = dict(seed=1, n_steps=1920, sensor_every=6, loops=8.0, H=480, W=640)
+# plane sessions A and B: the dense session's log (seed 0, a loop of 240 steps) run three times round, 45
+# keyframes and 11 observations (5 on the dense log's one loop), so that at least 8 plane edges are checked
+PLANE_LOG = dict(seed=0, n_steps=720, sensor_every=6, loops=3.0, H=480, W=640)
 DEVICE = "cuda"  # every tensor of the phases lives here
 
 
@@ -546,8 +569,9 @@ def _tiled_bytes_flops(K: int, R: int, L: int, E_real: int) -> dict:
 
 
 def check_tiled_kernels(torch) -> dict:
-    """K6-K10 against their plain versions at the bench, engine and K=16384
-    shapes, on the whole row range and on rows [0, K/2) and [K/2, K): K6 + K7
+    """K6-K10 against their plain versions at the bench, engine, K=16384 and
+    plane fixed-lag session (K=512, L=128, R=32) shapes, on the whole row
+    range and on rows [0, K/2) and [K/2, K): K6 + K7
     as the loop calls them (the chain's own outputs and the linearization),
     K6 alone, K8, K9 and K10 (the whole objective, and the chain's sum alone
     with the observations' information zeroed), under robust
@@ -562,6 +586,8 @@ def check_tiled_kernels(torch) -> dict:
         ("bench R=4", TILED_BENCH, None),
         (f"engine R={ENGINE_R}", TILED_BENCH, ENGINE_R),
         ("K=16384", TILED_LARGE, None),
+        # the plane fixed-lag pcg session's shape: the row-range loop at Kl=512
+        (f"plane fixed-lag K={FL_ENGINE['K']} R={ENGINE_R}", FL_ENGINE, ENGINE_R),
     )
     for label, shape, R_arg in cases:
         g, _, _, _, R = _soa_case(torch, **shape, R=R_arg, perturb=True)
@@ -960,14 +986,17 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
     # each PCG loop's iterations per call, to check the launch counts against
     from semantic_slam_tpu_torch.solver import soa_dist
 
+    # (the plane LM, lm_optimize_soa_planes, is the row-range loop with its
+    # plane half: its iterations join the row-range entry's)
     calls = {"resident": [], "tiled": []}
-    entries = {"resident": (ellk_soa, "lm_optimize_soa"), "tiled": (soa_dist, "lm_optimize_soa_tiled")}
-    origs = {loop: getattr(mod, fn) for loop, (mod, fn) in entries.items()}
+    entries = {("resident", 1): (ellk_soa, "lm_optimize_soa"), ("tiled", 1): (soa_dist, "lm_optimize_soa_tiled"),
+               ("tiled", 2): (soa_dist, "lm_optimize_soa_planes")}
+    origs = {key: getattr(mod, fn) for key, (mod, fn) in entries.items()}
 
-    def recording(loop):
+    def recording(key):
         def call(*a, **kw):
-            res = origs[loop](*a, **kw)
-            calls[loop].append(res[1].iterations)
+            res = origs[key](*a, **kw)
+            calls[key[0]].append(res[key[1]].iterations)
             return res
 
         return call
@@ -976,20 +1005,25 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
     # fetches its counts right after it anyway)
     from semantic_slam_tpu_torch.solver import fixed_lag
 
-    marg_ms, orig_marginalize = [], fixed_lag.marginalize
+    marg_ms = []
+    orig_margs = {fn: getattr(fixed_lag, fn) for fn in ("marginalize", "marginalize_planes")}
 
-    def timed_marginalize(*a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = orig_marginalize(*a, **kw)
-        torch.cuda.synchronize()
-        marg_ms.append(1e3 * (time.perf_counter() - t))
-        return out
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig_margs[fn](*a, **kw)
+            torch.cuda.synchronize()
+            marg_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        return call
 
     wrappers = _wrappers()
-    for loop, (mod, fn) in entries.items():
-        setattr(mod, fn, recording(loop))
-    fixed_lag.marginalize = timed_marginalize
+    for key, (mod, fn) in entries.items():
+        setattr(mod, fn, recording(key))
+    for fn in orig_margs:
+        setattr(fixed_lag, fn, timed(fn))
     try:
         for w in wrappers.values():
             w.launches = 0
@@ -1003,9 +1037,10 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
         prior_launches = wrappers["resident_solve"].prior_launches
         k4_shapes = dict(wrappers["resident_solve"].shapes)
     finally:
-        for loop, (mod, fn) in entries.items():
-            setattr(mod, fn, origs[loop])
-        fixed_lag.marginalize = orig_marginalize
+        for key, (mod, fn) in entries.items():
+            setattr(mod, fn, origs[key])
+        for fn, orig in orig_margs.items():
+            setattr(fixed_lag, fn, orig)
     print(f"[{label}] summary:", json.dumps(summary))
 
     g, t = engine.graph, engine.table
@@ -1047,8 +1082,10 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
             f"[{label}] K5 launches do not match the extraction rounds")
     iters = [s["iterations"] for s in own]
     loop = None
+    planes = cfg.use_plane_landmarks
     if cfg.solver.linear_solver == "pcg":
-        loop = "tiled" if cap.max_keyframes > soa_dist.TILED_FROM_K else "resident"
+        # plane landmarks take the row-range loop at every K
+        loop = "tiled" if planes or cap.max_keyframes > soa_dist.TILED_FROM_K else "resident"
         other = "resident" if loop == "tiled" else "tiled"
         ran = [it for it in calls[loop] if it > 0]
         skipped = sum(1 for it in calls[loop] if it == 0)
@@ -1080,8 +1117,8 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
             }
             formula = (f"K6 + K7 = sum(it) over solves (one call of two launches each), K6 alone = 0, K8/K9 = "
                        f"sum(it x ({steps} CG steps + 1)), "
-                       "K10 = sum(it) + skipped solves, K1 + K2 = one marginals linearization per solve, K1 alone, "
-                       "K3, K4 = 0")
+                       "K10 = sum(it) + skipped solves, K1 + K2 = one marginals linearization "
+                       "per solve, K1 alone, K3, K4 = 0")
         print(f"[{label}] {loop} LM calls (iterations): {calls[loop]}; expected launches: {formula} = {expect}")
         for name, n in expect.items():
             require(launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
@@ -1117,7 +1154,8 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
               f"last 30 {statistics.median(opt_ms[-30:]):.2f} (of {len(opt_ms)}); ms per marginalization "
               f"{[round(x, 2) for x in marg_ms]}, median {statistics.median(marg_ms):.2f}")
     return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop,
-            "k4_shapes": k4_shapes, "engine": engine, "out": args.out,
+            "k4_shapes": k4_shapes, "engine": engine, "out": args.out, "iterations": iters, "marg_ms": marg_ms,
+            "opt_ms_per_iteration": sum(opt_ms) / max(sum(iters), 1),
             "median_opt_ms": statistics.median(opt_ms[1:] or opt_ms) if opt_ms else float("nan")}
 
 
@@ -1142,9 +1180,10 @@ def _split_log(log, frac: float = 0.5):
 
 def _check_checkpoint(torch, ckpt: str, src, label: str) -> int:
     """The checkpoint ``ckpt`` of the engine ``src``, loaded into a fresh
-    engine on the card: every tensor bit for bit (graph, table, fixed-lag
-    prior, marginals) and the host state (keyframes without clouds, archived
-    poses, ``_kf_base``). Returns the number of tensors compared."""
+    engine on the card: every tensor bit for bit (graph, table, plane nodes
+    of a plane-landmark session, fixed-lag prior, marginals) and the host
+    state (keyframes without clouds, archived poses, ``_kf_base``). Returns
+    the number of tensors compared."""
     import numpy as np
 
     from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
@@ -1155,6 +1194,9 @@ def _check_checkpoint(torch, ckpt: str, src, label: str) -> int:
     pairs = [(f"graph.{f}", getattr(fresh.graph, f), getattr(src.graph, f)) for f in fresh.graph.__dataclass_fields__]
     pairs += [(f"table.{f}", getattr(fresh.table, f), getattr(src.table, f)) for f in fresh.table.__dataclass_fields__]
     pairs += [(f"prior.{f}", getattr(fresh.prior, f), getattr(src.prior, f)) for f in fresh.prior._fields]
+    if src.plane_nodes is not None:
+        pairs += [(f"plane_nodes.{f}", getattr(fresh.plane_nodes, f), getattr(src.plane_nodes, f))
+                  for f in src.plane_nodes.__dataclass_fields__]
     pairs.append(("marginals", fresh.marginals, src.marginals))
     for name, a, b in pairs:
         require(a.device.type == DEVICE and a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b)),
@@ -1193,6 +1235,36 @@ def _resumed_against_unbroken(resumed: dict, whole: dict, later_log, label: str)
           f"tick {resumed['median_opt_ms']:.2f} / {whole['median_opt_ms']:.2f} ms")
 
 
+def _check_g2o(torch, path: str, src, label: str) -> dict:
+    """The .g2o file ``path`` that the engine ``src`` saved, read back on the
+    card: the graph's active rows, and a plane-landmark session's plane
+    nodes and plane edges, equal to the engine's (as f64 of its values).
+    Returns the counts."""
+    from semantic_slam_tpu_torch.io.g2o_io import load_g2o
+
+    planes = src.plane_nodes is not None and src.cfg.use_plane_landmarks
+    loaded = load_g2o(path, with_planes=planes, device=DEVICE)
+    g2, pn2 = loaded if planes else (loaded, None)
+    g = src.graph
+    counts = {f: int(getattr(g, f)) for f in ("num_poses", "num_landmarks", "num_odom", "num_lme")}
+    rows = [(g2, g, f, n) for f, n in (
+        ("poses", "num_poses"), ("landmarks", "num_landmarks"), ("odom_i", "num_odom"), ("odom_j", "num_odom"),
+        ("odom_meas", "num_odom"), ("odom_info", "num_odom"), ("lme_k", "num_lme"), ("lme_l", "num_lme"),
+        ("lme_meas", "num_lme"), ("lme_info", "num_lme"))]
+    if planes:
+        pn = src.plane_nodes
+        counts.update({f: int(getattr(pn, f)) for f in ("num_planes", "num_pe")})
+        rows += [(pn2, pn, f, n) for f, n in (("planes", "num_planes"), ("pe_k", "num_pe"), ("pe_p", "num_pe"),
+                                              ("pe_meas", "num_pe"), ("pe_info", "num_pe"))]
+    require(all(int(getattr(pn2 if f in ("num_planes", "num_pe") else g2, f)) == n for f, n in counts.items()),
+            f"[{label}] g2o read back: counts differ")
+    for new, old, f, n in rows:
+        a, b = getattr(new, f)[: counts[n]], getattr(old, f)[: counts[n]]
+        require(bool(torch.equal(a, b.to(a.dtype))), f"[{label}] g2o read back: {f} differs from the saved rows")
+    print(f"[{label}] .g2o read back equal ({counts})")
+    return counts
+
+
 def check_lifecycle(torch, log) -> dict:
     """The session lifecycle on the card, at the profile's own capacities
     (K=512: the resident loop, K4 in its cluster shape): the log split at its
@@ -1205,7 +1277,6 @@ def check_lifecycle(torch, log) -> dict:
     import numpy as np
 
     from semantic_slam_tpu_torch import cli
-    from semantic_slam_tpu_torch.io.g2o_io import load_g2o
 
     t0 = time.perf_counter()
     first_log, second_log = _split_log(log)
@@ -1227,19 +1298,10 @@ def check_lifecycle(torch, log) -> dict:
           "compressed npz")
 
     n_tensors = _check_checkpoint(torch, ckpt, first["engine"], "life_first")
-    # the .g2o read back: the saved graph's active rows
-    g2 = load_g2o(os.path.join(first["out"], "semantic_graph.g2o"), device=DEVICE)
-    g = first["engine"].graph
-    counts = {f: int(getattr(g, f)) for f in ("num_poses", "num_landmarks", "num_odom", "num_lme")}
-    require(all(int(getattr(g2, f)) == n for f, n in counts.items()), "g2o read back: counts differ")
-    for f, n in (("poses", "num_poses"), ("landmarks", "num_landmarks"), ("odom_i", "num_odom"), ("odom_j", "num_odom"),
-                 ("odom_meas", "num_odom"), ("odom_info", "num_odom"), ("lme_k", "num_lme"), ("lme_l", "num_lme"),
-                 ("lme_meas", "num_lme"), ("lme_info", "num_lme")):
-        a, b = getattr(g2, f)[: counts[n]], getattr(g, f)[: counts[n]]
-        require(bool(torch.equal(a, b.to(a.dtype))), f"g2o read back: {f} differs from the saved graph's rows")
+    _check_g2o(torch, os.path.join(first["out"], "semantic_graph.g2o"), first["engine"], "life_first")
     n_dumps = len(os.listdir(os.path.join(first["out"], "keyframes")))
     require(n_dumps == n1, f"{n_dumps} keyframe dumps for {n1} keyframes")
-    print(f"lifecycle: .g2o read back equal ({counts}); {n_dumps} keyframe dumps")
+    print(f"lifecycle: {n_dumps} keyframe dumps")
 
     flags = run_slice(torch, log, pcg + ["--robust", "dcs", "--optimize-every", "3"], "life_flags")
     eng = flags["engine"]
@@ -1295,6 +1357,185 @@ def check_lifecycle_fixed_lag(torch, fl_log, whole: dict) -> dict:
     print(f"fixed-lag lifecycle: checkpoint at K={eng.graph.max_poses} ({first['summary']['keyframes']} keyframes, "
           f"{eng._kf_base} archived): {ckpt_bytes} bytes; phase wall {wall:.2f} s")
     return {"wall_s": wall, "checkpoint_bytes": ckpt_bytes, "tensors": n_tensors}
+
+
+# ---------------------------------------------------------------------------
+# 12. plane landmarks
+# ---------------------------------------------------------------------------
+
+PLANE_STEPS = (8, 40)  # CG steps of the two fixed-work LM iterations whose difference is a step's cost
+PLANE_TRACES = 3  # traces of one run taken at most until one holds every K8/K9 launch the counters saw
+
+
+def plane_cg_step_cost(torch, engine, label: str) -> dict:
+    """What a CG step of the row-range loop costs with the plane half and
+    without it, at ``engine``'s final state: one LM iteration at
+    ``PLANE_STEPS`` fixed CG steps each, the difference over the steps'
+    count. K8's and K9's launches a step come from their wrappers' counters
+    (K8's call launches two kernels, K9's one) and must be one call of each,
+    with the plane half as without it. The device numbers come from a
+    ``torch.profiler`` trace of the run: device events (kernels, and the
+    copies and fills the eager ops launch), the device ms of all of them and
+    of K8 and K9. A trace whose K8/K9 kernel events differ from the counters'
+    launches missed or repeated events and is taken again, at most
+    ``PLANE_TRACES`` times; if none agrees, the device numbers are None (not
+    measured). The host ms is the synced host clock's median of 3."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_slam_tpu_torch.profile_slice import CTYPES_KERNELS
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    g, pn = engine.graph, engine.plane_nodes
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    rows = engine._ell_rows(planes=True)
+    pf, lf = _free_masks(g)
+    de = sd.build_dist_edges(_edge_args(g), K, rows[2], L)
+    pe = sd.build_plane_dist(sd.plane_args(pn), K, rows[3])
+    fwd, bwd = CTYPES_KERNELS["tiled_mv_fwd"], CTYPES_KERNELS["tiled_mv_bwd"]
+    mv = fwd + bwd
+
+    def lm(steps, planes):
+        kw = dict(pe=pe, planes=pn.planes, plane_free=pn.plane_mask()) if planes else {}
+        sd.run_lm_loop_soa_dist(g.poses, g.landmarks, pf, lf, de, 1, 0.0, steps, cg_tol=0.0, **kw)
+        torch.cuda.synchronize()
+
+    def counted(steps, planes):
+        """The K8 and K9 wrapper calls of one run."""
+        f0, b0 = tk.tiled_mv_fwd.launches, tk.tiled_mv_bwd.launches
+        lm(steps, planes)
+        return tk.tiled_mv_fwd.launches - f0, tk.tiled_mv_bwd.launches - b0
+
+    def traced(steps, planes, want):
+        """(device events, device ms, K8/K9 device ms, traces taken) of a
+        trace holding ``want`` K8/K9 kernel events; the first three None if
+        no trace of ``PLANE_TRACES`` did."""
+        for n in range(1, PLANE_TRACES + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lm(steps, planes)
+            evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            hand = [e for e in evs if any(f"{k}(" in e.name for k in mv)]
+            if len(hand) == want:
+                return (len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3,
+                        sum(e.time_range.elapsed_us() for e in hand) / 1e3, n)
+            print(f"[{label}] trace {n} of {steps} steps ({'planes' if planes else 'points'}) held {len(hand)} "
+                  f"K8/K9 kernel events for {want} launches; taken again")
+        return None, None, None, PLANE_TRACES
+
+    out = {}
+    for planes in (True, False):
+        per = {}
+        for steps in PLANE_STEPS:
+            lm(steps, planes)  # warm-up
+            hosts = []
+            for _ in range(3):
+                t = time.perf_counter()
+                lm(steps, planes)
+                hosts.append(time.perf_counter() - t)
+            calls = counted(steps, planes)
+            want = len(fwd) * calls[0] + len(bwd) * calls[1]
+            n_ev, dev, hand_ms, tries = traced(steps, planes, want)
+            per[steps] = dict(calls=calls, launches=want, events=n_ev, device=dev, hand=hand_ms, tries=tries,
+                              host=1e3 * statistics.median(hosts))
+        a, b = per[PLANE_STEPS[0]], per[PLANE_STEPS[1]]
+        n = PLANE_STEPS[1] - PLANE_STEPS[0]
+
+        def step(key):
+            return None if a[key] is None or b[key] is None else (b[key] - a[key]) / n
+
+        out["planes" if planes else "points"] = {
+            "k8_calls": (b["calls"][0] - a["calls"][0]) / n, "k9_calls": (b["calls"][1] - a["calls"][1]) / n,
+            "k8_k9_launches": step("launches"), "device_events": step("events"), "device_ms": step("device"),
+            "k8_k9_device_ms": step("hand"), "host_ms": step("host"), "traces": a["tries"] + b["tries"]}
+    p_, q_ = out["planes"], out["points"]
+
+    def f(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    def diff(key):
+        return None if p_[key] is None or q_[key] is None else p_[key] - q_[key]
+
+    print(f"[{label}] a CG step at K={K}, L={L}, Pl={pn.max_planes} (difference of {PLANE_STEPS} fixed steps): with "
+          f"planes {f(p_['device_events'], '.1f')} device events ({p_['k8_k9_launches']:.1f} K8/K9 launches), "
+          f"device {f(p_['device_ms'], '.4f')} ms (K8/K9 {f(p_['k8_k9_device_ms'], '.4f')}), host "
+          f"{p_['host_ms']:.4f} ms; without {f(q_['device_events'], '.1f')} events ({q_['k8_k9_launches']:.1f}), "
+          f"device {f(q_['device_ms'], '.4f')} ms (K8/K9 {f(q_['k8_k9_device_ms'], '.4f')}), host "
+          f"{q_['host_ms']:.4f} ms; the plane half: {f(diff('device_events'), '.1f')} launches, "
+          f"{f(diff('device_ms'), '.4f')} ms of device and {diff('host_ms'):.4f} ms of host a step "
+          f"(traces taken {p_['traces']} + {q_['traces']} for 4 runs)")
+    for k, v in (("planes", p_), ("points", q_)):
+        require(v["k8_calls"] == 1.0 and v["k9_calls"] == 1.0,
+                f"[{label}] a CG step ({k}) called K8 {v['k8_calls']} and K9 {v['k9_calls']} times, expected once each")
+    return out
+
+
+MIN_PLANE_EDGES = 8  # each plane session's least plane edges
+
+
+def _check_plane_session(r: dict, point: dict, label: str, same_keyframes: bool) -> None:
+    """A plane-landmark session against its point-landmark twin ``point``:
+    a plane per landmark, a plane edge per observation edge and at least
+    ``MIN_PLANE_EDGES`` of them, unit normals, ATE no worse than raw VIO's (the
+    twin's printed beside it, not bounded) and, with ``same_keyframes``, the
+    twin's keyframes."""
+    eng, s = r["engine"], r["summary"]
+    pn = eng.plane_nodes
+    P, E3 = int(pn.num_planes), int(pn.num_pe)
+    norms = pn.planes[:P, :3].double().norm(dim=-1)
+    print(f"[{label}] {P} planes, {E3} plane edges, {s['landmarks']} landmarks; normals' |n| - 1 within "
+          f"{float((norms - 1).abs().max()):.3g}; ATE {s['ate_rmse_optimized']:.6g} m (raw VIO "
+          f"{s['ate_rmse_vio']:.6g}, "
+          f"point landmarks {point['summary']['ate_rmse_optimized']:.6g}); keyframes {r['keyframes']} (point "
+          f"{point['keyframes']}); median optimizing tick {r['median_opt_ms']:.2f} ms, LM iterations "
+          f"{sum(r['iterations'])}, {r['opt_ms_per_iteration']:.3f} ms an LM iteration")
+    require(P == int(eng.table.count) == s["landmarks"] > 0, f"[{label}] {P} planes for {s['landmarks']} landmarks")
+    require(E3 == int(eng.graph.num_lme) and E3 >= MIN_PLANE_EDGES,
+            f"[{label}] {E3} plane edges for {int(eng.graph.num_lme)} observations (at least {MIN_PLANE_EDGES} "
+            "asked)")
+    require(float((norms - 1).abs().max()) <= 1e-5, f"[{label}] plane normals are not unit")
+    require(s["ate_rmse_optimized"] <= s["ate_rmse_vio"], f"[{label}] ATE worse than raw VIO's")
+    if same_keyframes:
+        require(r["keyframes"] == point["keyframes"], f"[{label}] keyframes {r['keyframes']} != {point['keyframes']}")
+
+
+def check_plane_slices(torch, plane_log, fl_log, fl_point: dict) -> dict:
+    """The plane-landmark sessions at full width: A, ``PLANE_LOG`` with
+    --plane-landmarks (K=512, the dense plane LM); B, the same with
+    --solver pcg --max-keyframes 4096 (K=4096, L = Pl = 1024: the row-range
+    loop with its plane half, K6-K10, the marginals over L + Pl blocks); C,
+    the fixed-lag log with --plane-landmarks --fixed-lag 64 --solver pcg
+    (K=512: K6-K10 at Kl=512 with a prior that has a plane part), its
+    checkpoint and .g2o read back. A and B are held to the point-landmark
+    dense session on their log, run here first; C to ``fl_point``."""
+    t0 = time.perf_counter()
+    twin = run_slice(torch, plane_log, [], "plane_log_point_dense")
+    del twin["engine"]
+    a = run_slice(torch, plane_log, ["--plane-landmarks"], "plane_dense")
+    _check_plane_session(a, twin, "plane_dense", same_keyframes=True)
+    del a["engine"]
+    b = run_slice(torch, plane_log, ["--plane-landmarks", "--solver", "pcg", "--max-keyframes", "4096"], "plane_pcg")
+    require(b["loop"] == "tiled" and b["engine"].graph.max_poses == BENCH["K"]
+            and b["engine"].plane_nodes.max_planes == BENCH["L"], f"plane_pcg: not the K=4096 row-range loop")
+    _check_plane_session(b, twin, "plane_pcg", same_keyframes=True)
+    step_b = plane_cg_step_cost(torch, b["engine"], "plane_pcg")
+    del b["engine"]
+    c_flags = ["--plane-landmarks", "--fixed-lag", str(FL_WINDOW), "--solver", "pcg", "--checkpoint", "--save-graph"]
+    c = run_slice(torch, fl_log, c_flags, "plane_fixed_lag_pcg", min_margs=2)
+    eng = c["engine"]
+    require(c["loop"] == "tiled" and eng.graph.max_poses == FL_ENGINE["K"], "plane_fixed_lag_pcg: not K=512 tiled")
+    _check_plane_session(c, fl_point, "plane_fixed_lag_pcg", same_keyframes=False)
+    require(float(eng.prior.Hpl.abs().sum()) > 0, "plane_fixed_lag_pcg: the prior's plane part is zero")
+    _check_checkpoint(torch, os.path.join(c["out"], "checkpoint.npz"), eng, "plane_fixed_lag_pcg")
+    _check_g2o(torch, os.path.join(c["out"], "semantic_graph.g2o"), eng, "plane_fixed_lag_pcg")
+    step_c = plane_cg_step_cost(torch, eng, "plane_fixed_lag_pcg")
+    del c["engine"]
+    wall = time.perf_counter() - t0
+    print(f"plane slices: phase wall {wall:.2f} s")
+    return {"wall_s": wall, "step": {"plane_pcg": step_b, "plane_fixed_lag_pcg": step_c},
+            "launches": {"plane_pcg": b["launches"], "plane_fixed_lag_pcg": c["launches"]}}
 
 
 def check_isolation() -> None:
@@ -1362,7 +1603,6 @@ def main() -> int:
             del r["engine"]
         phase("session lifecycle on the card")
         check_lifecycle(torch, log)
-        del log
 
         t0 = time.perf_counter()
         fl_log = cli.make_synthetic_log(**FL_LOG)
@@ -1383,7 +1623,15 @@ def main() -> int:
         n = fl_pcg["launches"]
         print(f"fixed-lag pcg session launches: K1 + K2 fused_linearize {n['fused_linearize']} (two kernel launches "
               f"each), K3 resident_chi2 {n['resident_chi2']}, K4 resident_solve {n['resident_solve']}")
-        del fl_log
+
+        del log
+        t0 = time.perf_counter()
+        plane_log = cli.make_synthetic_log(**PLANE_LOG)
+        print(f"plane log {PLANE_LOG}: {len(plane_log.clouds)} clouds, {len(plane_log.detections)} detection frames "
+              f"({time.perf_counter() - t0:.1f} s on the host)")
+        phase("plane slices on the card")
+        check_plane_slices(torch, plane_log, fl_log, fl_pcg)
+        del plane_log, fl_log
 
         check_isolation()
     except SmokeFailure as e:

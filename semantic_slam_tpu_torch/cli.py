@@ -5,9 +5,10 @@
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 4096 --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --max-keyframes 8192 --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --fixed-lag 64 [--solver pcg] --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --plane-landmarks [--solver pcg] [--fixed-lag 64] --device cuda
   python -m semantic_slam_tpu_torch.cli run --log a.npz --out a/ --checkpoint --save-graph --dump-keyframes
   python -m semantic_slam_tpu_torch.cli run --log b.npz --out b/ --resume a/checkpoint.npz
-  python -m semantic_slam_tpu_torch.cli merge a/checkpoint.npz b/checkpoint.npz --out merged/
+  python -m semantic_slam_tpu_torch.cli merge a/checkpoint.npz b/checkpoint.npz --out merged/ [--plane-landmarks]
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
@@ -18,16 +19,20 @@ the SoA Schur-PCG solver: up to 4096 keyframes of capacity its resident loop
 for the marginals). ``--fixed-lag N`` marginalizes keyframes beyond the
 last N into a prior (on the dense LM and both PCG loops; the pcg resident
 loop applies the prior's boundary block inside K4); the trajectory files and
-the summary still cover every keyframe. ``--robust``, ``--optimize-every``
+the summary still cover every keyframe. ``--plane-landmarks`` makes each
+landmark a planar patch as well (an SE3-plane edge per observation, solved
+jointly: the dense plane LM, or with ``--solver pcg`` the row-range loop's
+plane half at every capacity, K6-K10 on the card). ``--robust``, ``--optimize-every``
 (with the closing ``finalize()`` pass) and ``--plane-gate`` map onto the
 config as the JAX CLI maps them. ``--save-graph`` writes
 ``semantic_graph.g2o``, ``--checkpoint`` ``checkpoint.npz`` (the JAX
 package's format: each package loads the other's), ``--dump-keyframes`` the
 ``keyframes/`` text dumps, and ``--resume PATH`` restores a checkpoint into
-the fresh engine before the replay. ``merge`` joins session checkpoints into
-one map (landmarks unified by class, plane type and radius) and runs the
-joint dense LM over it, writing ``merged_pose.txt``, ``merged_graph.g2o`` and
-``summary.json``. ``synth`` writes the same ``.npz`` log as the JAX
+the fresh engine before the replay; with plane landmarks the graph and the
+checkpoint carry the plane nodes. ``merge`` joins session checkpoints into
+one map (landmarks unified by class, plane type and radius; with
+``--plane-landmarks`` their planes too) and runs the joint dense LM over it,
+writing ``merged_pose.txt``, ``merged_graph.g2o`` and ``summary.json``. ``synth`` writes the same ``.npz`` log as the JAX
 package's command.
 """
 
@@ -73,6 +78,8 @@ def make_config(args):
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, linear_solver=args.solver))
     if args.precond:
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, pcg_precond=args.precond))
+    if args.plane_landmarks:
+        cfg = cfg.replace(use_plane_landmarks=True)
     if args.plane_gate:
         cfg = cfg.replace(association=dataclasses.replace(cfg.association, use_plane_gate=True))
     solver_kw = {}
@@ -145,7 +152,8 @@ def write_outputs(out_dir: str, profile: str, cfg, engine, log, save_graph: bool
     if cfg.save_graph or save_graph:
         from semantic_slam_tpu_torch.io.g2o_io import save_g2o
 
-        save_g2o(os.path.join(out_dir, "semantic_graph.g2o"), engine.graph)
+        pn = engine.plane_nodes if cfg.use_plane_landmarks else None
+        save_g2o(os.path.join(out_dir, "semantic_graph.g2o"), engine.graph, pn)
     if checkpoint:
         from semantic_slam_tpu_torch.io.checkpoint import save_checkpoint
 
@@ -226,7 +234,8 @@ def cmd_run(args) -> dict:
 
 def cmd_merge(args) -> dict:
     """Merge session checkpoints into one map and run the joint dense LM over
-    it (``semantic_slam_tpu.cli merge`` in point-landmark mode)."""
+    it (``semantic_slam_tpu.cli merge``; with ``--plane-landmarks`` the
+    plane LM over the merged plane nodes)."""
     from semantic_slam_tpu_torch.config import PROFILES
     from semantic_slam_tpu_torch.io import tum as tum_mod
     from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
@@ -236,28 +245,34 @@ def cmd_merge(args) -> dict:
 
     if args.profile not in PROFILES:
         sys.exit(f"unknown profile {args.profile!r}; have {sorted(PROFILES)}")
-    if args.plane_landmarks:
-        raise NotImplementedError(ms.PLANES_UNPORTED)
     cfg = PROFILES[args.profile]
+    if args.plane_landmarks:
+        cfg = cfg.replace(use_plane_landmarks=True)
     engines = []
     for path in args.checkpoints:
         eng = SlamEngine(cfg, device=args.device)
         load_checkpoint(path, eng)
         engines.append(eng)
-    merged, _ = ms.merge_graphs([e.graph for e in engines], [e.table for e in engines],
-                                merge_radius=args.merge_radius)
-    g, stats = ms.joint_bundle_adjust(merged, max_iterations=args.max_iterations)
+    graphs, tables = [e.graph for e in engines], [e.table for e in engines]
+    pn = None
+    if cfg.use_plane_landmarks:
+        merged, pn, _ = ms.merge_graphs_planes(graphs, tables, [e.plane_nodes for e in engines],
+                                               merge_radius=args.merge_radius)
+        g, pn, stats = ms.joint_bundle_adjust_planes(merged, pn, max_iterations=args.max_iterations)
+    else:
+        merged, _ = ms.merge_graphs(graphs, tables, merge_radius=args.merge_radius)
+        g, stats = ms.joint_bundle_adjust(merged, max_iterations=args.max_iterations)
 
     os.makedirs(args.out, exist_ok=True)
     n_act = int(g.num_poses)
     tum_mod.write_tum(os.path.join(args.out, "merged_pose.txt"), np.arange(n_act, dtype=np.float64),
                       g.poses[:n_act].cpu().numpy().astype(np.float64))
-    save_g2o(os.path.join(args.out, "merged_graph.g2o"), g)
+    save_g2o(os.path.join(args.out, "merged_graph.g2o"), g, pn)
     summary = {
         "sessions": len(engines),
         "poses": n_act,
         "landmarks": int(g.num_landmarks),
-        "edges": int(g.num_edges()),
+        "edges": int(g.num_edges()) + (int(pn.num_pe) if pn is not None else 0),
         "landmarks_per_session": [int(e.table.count) for e in engines],
         "chi2_initial": float(stats.chi2_initial),
         "chi2_final": float(stats.chi2_final),
@@ -306,6 +321,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--optimize-every", type=int, default=1,
                    help="run the LM every Nth tick (1 = the reference's every tick); a finalize pass runs at the end")
     r.add_argument("--plane-gate", action="store_true", help="plane-aware association gate (normal angle + offset)")
+    r.add_argument("--plane-landmarks", action="store_true",
+                   help="planar-patch landmarks: SE3-plane edges solved jointly with the points (the paper's planes)")
     r.add_argument("--save-graph", action="store_true", help="write <out>/semantic_graph.g2o")
     r.add_argument("--checkpoint", action="store_true", help="write <out>/checkpoint.npz")
     r.add_argument("--dump-keyframes", action="store_true",
@@ -318,7 +335,7 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--profile", default="bucket_detector_workspace")
     m.add_argument("--merge-radius", type=float, default=1.0)
     m.add_argument("--max-iterations", type=int, default=64)
-    m.add_argument("--plane-landmarks", action="store_true", help="not ported: plane landmarks")
+    m.add_argument("--plane-landmarks", action="store_true", help="merge the sessions' plane landmarks too")
     m.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 

@@ -1,20 +1,23 @@
 """Checkpoint / resume of the whole engine state (port of
-``semantic_slam_tpu.io.checkpoint``: its npz format, point landmarks only).
+``semantic_slam_tpu.io.checkpoint``: its npz format).
 
 The reference can only dump its graph at shutdown (``saveGraph``,
 ``graph_slam.cpp:236-239``) and has no load path (SURVEY.md §5). Here the
 solver, association and trajectory state round-trip through one compressed
 npz, in the JAX package's format: the same keys (``g_*`` graph, ``t_*``
-landmark table, ``fl_*`` fixed-lag prior, ``fl_archived``, the trajectories)
-and the same JSON ``meta`` (keyframes, gate, ``kf_base``, ``stats_history``).
-So a checkpoint written here loads in the JAX package, whose loader fills the
-plane nodes and the prior's plane part it does not find, and one written
-there loads here:
+landmark table, ``p_*`` plane nodes, ``fl_*`` fixed-lag prior with its
+plane part ``fl_Hpl``/``fl_pl_ref``/``fl_gpl0``, ``fl_archived``, the
+trajectories) and the same JSON ``meta`` (keyframes, gate, ``kf_base``,
+``stats_history``). So a checkpoint written here loads in the JAX package,
+and one written there loads here:
 
-* plane nodes (``p_*``) are dropped when the file holds none, and the
-  prior's plane part (``fl_Hpl``, ``fl_pl_ref``, ``fl_gpl0``) when its
-  information and gradient are zero; otherwise the load raises (plane
-  landmarks are not ported);
+* a point-landmark session writes no ``p_*`` keys and no plane prior (the
+  JAX loader fills both in); it drops the JAX package's plane nodes
+  when they hold no plane and edge, and the prior's plane part when its
+  information and gradient are zero, and keeps them otherwise;
+* a plane-landmark session writes and reads them all; a file without plane
+  nodes keeps the engine's fresh ones, and the prior's plane part grows with
+  the landmark capacity;
 * every float array is cast to the engine's dtype and device; integer
   arrays load as int32.
 
@@ -34,10 +37,11 @@ import numpy as np
 import torch
 
 from semantic_slam_tpu_torch.assoc.association import TABLE_FIELDS, LandmarkTable, table_to_numpy
+from semantic_slam_tpu_torch.graph import planes as gp
 from semantic_slam_tpu_torch.graph import state as gs
 from semantic_slam_tpu_torch.solver import fixed_lag as fl
 
-PLANES_UNPORTED = "not ported to semantic_slam_tpu_torch yet: a checkpoint with plane landmarks (P7a)"
+PLANE_PRIOR = ("Hpl", "pl_ref", "gpl0")  # the prior's plane part, empty (and not written) in point sessions
 
 
 def save_checkpoint(path: str, engine) -> None:
@@ -78,7 +82,10 @@ def save_checkpoint(path: str, engine) -> None:
         vio_traj_p=np.array([p for _, p in engine.vio_traj]).reshape(-1, 7),
         **{f"g_{k}": v for k, v in gs.graph_to_numpy(engine.graph).items()},
         **{f"t_{k}": v for k, v in table_to_numpy(engine.table).items()},
-        **{f"fl_{k}": v.detach().cpu().numpy() for k, v in engine.prior._asdict().items()},
+        **({} if engine.plane_nodes is None else
+           {f"p_{k}": v for k, v in gp.plane_nodes_to_numpy(engine.plane_nodes).items()}),
+        **{f"fl_{k}": v for k, v in fl.prior_to_numpy(engine.prior).items()
+           if engine.prior.Hpl.shape[0] or k not in PLANE_PRIOR},
         fl_archived=np.asarray(engine.archived_poses, np.float64).reshape(-1, 7),
     )
 
@@ -87,10 +94,7 @@ def load_checkpoint(path: str, engine) -> None:
     """Restore in place into a freshly constructed engine (same config)."""
     z = np.load(path, allow_pickle=False)
     meta = json.loads(str(z["meta"]))
-    if "p_planes" in z.files and (int(z["p_num_planes"]) or int(z["p_num_pe"])):
-        raise NotImplementedError(PLANES_UNPORTED)
-    if any(k in z.files and np.any(z[k] != 0) for k in ("fl_Hpl", "fl_gpl0")):
-        raise NotImplementedError(PLANES_UNPORTED)
+    planes = engine.cfg.use_plane_landmarks
 
     def arr(key: str) -> torch.Tensor:
         a = z[key]
@@ -99,12 +103,23 @@ def load_checkpoint(path: str, engine) -> None:
 
     engine.graph = gs.GraphState(**{k: arr(f"g_{k}") for k in gs.FIELDS})
     engine.table = LandmarkTable(**{k: arr(f"t_{k}") for k in TABLE_FIELDS})
+    if "p_planes" in z.files and (planes or int(z["p_num_planes"]) or int(z["p_num_pe"])):
+        engine.plane_nodes = gp.PlaneNodes(**{k: arr(f"p_{k}") for k in gp.FIELDS})
     if "fl_Hp" in z.files:
-        engine.prior = fl.MarginalPrior(**{k: arr(f"fl_{k}") for k in fl.MarginalPrior._fields})
+        # the file's plane part, or an empty one at the engine's plane capacity
+        plane_part = "fl_Hpl" in z.files and z["fl_Hpl"].shape[0] > 0 and (
+            planes or any(np.any(z[f"fl_{k}"] != 0) for k in ("Hpl", "gpl0")))
+        fresh = fl.empty_prior(z["fl_Hl"].shape[0], PB=z["fl_Hp"].shape[0] // 6,
+                               Pl=engine.plane_nodes.max_planes if planes else 0, dtype=engine.dtype,
+                               device=engine.device)
+        engine.prior = fl.MarginalPrior(**{
+            k: arr(f"fl_{k}") if (plane_part or k not in PLANE_PRIOR) else getattr(fresh, k)
+            for k in fl.MarginalPrior._fields
+        })
         engine.archived_poses = [p.copy() for p in z["fl_archived"]]
     if engine.cfg.solver.fixed_lag_window > 0:
-        # the prior's landmark part spans the graph's landmark capacity, which
-        # the next capacity doubling grows together with it
+        # the prior's landmark (and plane) part spans the graph's landmark
+        # capacity, which the next capacity doubling grows together with it
         engine.prior = fl.grow_prior(engine.prior, engine.graph.max_landmarks)
     engine.marginals = arr("marginals")
     engine.robot_pose = z["robot_pose"].astype(np.float64)

@@ -7,14 +7,18 @@
         --out <directory>
     python -m semantic_slam_tpu_torch.profile_slice --fixed-lag 64 [--solver pcg] --steps 1920 \
         --out <directory>
+    python -m semantic_slam_tpu_torch.profile_slice --plane-landmarks [--solver pcg --max-keyframes 4096] \
+        --out <directory>
 
 Replays one of the ``chip_smoke.py`` sessions (the 640x480 synthetic log,
 profile ``yolo_detector``: the dense session at its own capacities, with
 ``--solver pcg --max-keyframes 4096`` the pcg one on the resident loop, or
 with ``--max-keyframes 8192`` the tiled one on the row-range loop; with
 ``--fixed-lag N`` the fixed-lag session of that solver, whose marginalization,
-prior folds and prior part of the marginals are layers of their own) three
-times in one process:
+prior folds and prior part of the marginals are layers of their own; with
+``--plane-landmarks`` the plane-landmark session, whose row-range plane half
+is the layers ``plane_lin``, once per linearization, and ``plane_matvec``,
+twice per CG step) three times in one process:
 
 1. warm-up, which carries the lazy CUDA / cuBLAS / cuSOLVER set-up;
 2. plain: no profiler and no extra syncs; gives the session wall and the
@@ -53,6 +57,9 @@ import torch
 LAYERS = (
     ("semantic_slam_tpu_torch.runtime.engine", "_optimize_tick", "_optimize_tick"),
     ("semantic_slam_tpu_torch.runtime.engine", "_process_keyframe", "_process_keyframe"),
+    ("semantic_slam_tpu_torch.runtime.engine", "_optimize_tick_planes", "_optimize_tick"),
+    ("semantic_slam_tpu_torch.graph.planes", "lm_optimize_with_planes", "lm_optimize_with_planes"),
+    ("semantic_slam_tpu_torch.graph.planes", "linearize_with_planes", "linearize_with_planes"),
     ("semantic_slam_tpu_torch.solver.lm", "lm_optimize", "lm_optimize"),
     ("semantic_slam_tpu_torch.solver.lm", "linearize_arrays", "linearize_arrays"),
     ("semantic_slam_tpu_torch.solver.lm", "schur_solve", "schur_solve"),
@@ -71,6 +78,13 @@ LAYERS = (
     ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_mv_bwd", "tiled_mv_bwd"),
     ("semantic_slam_tpu_torch.solver.tiled_kernels", "tiled_chi2", "tiled_chi2"),
     ("semantic_slam_tpu_torch.solver.soa_dist", "landmark_marginals_mf_ellk", "landmark_marginals_mf"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "lm_optimize_soa_planes", "lm_optimize_soa_planes"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "plane_slot_blocks", "plane_lin"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "plane_wT_x", "plane_matvec"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "plane_w_z", "plane_matvec"),
+    ("semantic_slam_tpu_torch.solver.soa_dist", "ell_linearize_planes", "ell_linearize_planes"),
+    ("semantic_slam_tpu_torch.solver.fixed_lag", "marginalize_planes", "marginalize"),
+    ("semantic_slam_tpu_torch.solver.fixed_lag", "apply_prior_planes", "prior_fold"),
     ("semantic_slam_tpu_torch.solver.fixed_lag", "marginalize", "marginalize"),
     ("semantic_slam_tpu_torch.solver.fixed_lag", "lm_optimize_prior", "lm_optimize_prior"),
     ("semantic_slam_tpu_torch.solver.fixed_lag", "apply_prior", "prior_fold"),
@@ -319,6 +333,7 @@ def main(argv=None) -> None:
     ap.add_argument("--solver", default="", choices=["", "dense", "pcg"])
     ap.add_argument("--fixed-lag", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plane-landmarks", action="store_true")
     args = ap.parse_args(argv)
 
     if args.device == "cuda":
@@ -329,7 +344,8 @@ def main(argv=None) -> None:
                                  loops=max(args.steps / 240, 1.0), H=args.height, W=args.width)
     run_args = ["run", "--log", "in-process", "--profile", "yolo_detector", "--device", args.device,
                 "--max-keyframes", str(args.max_keyframes), "--crop-size", str(args.crop_size),
-                "--solver", args.solver, "--fixed-lag", str(args.fixed_lag)]
+                "--solver", args.solver, "--fixed-lag", str(args.fixed_lag)] + (
+                    ["--plane-landmarks"] if args.plane_landmarks else [])
     cfg = cli.make_config(cli.build_parser().parse_args(run_args))
     report = profile_session(log, cfg, args.device, args.out)
     _print_report(report)

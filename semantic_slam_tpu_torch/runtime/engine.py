@@ -1,6 +1,6 @@
 """The SLAM engine: keyframe queue, tick loop, graph growth, state sync (port
 of ``semantic_slam_tpu.runtime.engine`` for one device: the dense Schur LM
-and the SoA Schur-PCG solver).
+and the SoA Schur-PCG solver, point or plane landmarks).
 
 The host drives the same sequential loop as the JAX engine (keyframe gate,
 latest-wins sensor pairing, queue bookkeeping, in numpy), and the device
@@ -15,6 +15,16 @@ work runs eagerly on ``device``:
     row-range loop of ``solver/soa_dist.py`` with kernels K6-K10, see
     ``_soa_dispatch``), landmark marginals, table sync, and the packed
     ``info`` vector that the host fetches once;
+  * plane landmarks (``use_plane_landmarks``, ``_process_keyframe_planes``
+    and ``_optimize_tick_planes``): each landmark is also a planar patch in
+    ``self.plane_nodes`` (plane index == landmark id), observed by an
+    SE3-plane edge from every keyframe that sees it. The tick solves poses,
+    points and planes jointly: the dense plane LM (``graph/planes.py``), or
+    with ``linear_solver="pcg"`` the row-range loop's plane half
+    (``soa_dist.lm_optimize_soa_planes``, kernels K6-K10) at every K, as the
+    JAX engine does on the TPU (it has no resident-loop plane variant). The
+    ``info`` vector's slots 5 and 7 then carry the plane and plane-edge
+    counts, and the host mirrors read them as the JAX engine's do;
   * ``_maybe_marginalize`` -- fixed-lag smoothing (``fixed_lag_window > 0``,
     ``solver/fixed_lag.py``): once the active window holds window + chunk
     keyframes, the oldest chunk is marginalized into ``self.prior`` and the
@@ -50,8 +60,10 @@ from semantic_slam_tpu_torch.assoc import association as assoc_mod
 from semantic_slam_tpu_torch.config import CLASS_TO_ID, PLANE_VERTICAL, SlamConfig
 from semantic_slam_tpu_torch.core import np_geometry as npg
 from semantic_slam_tpu_torch.core import geometry as geo
+from semantic_slam_tpu_torch.core import frames as frames_mod
 from semantic_slam_tpu_torch.frontend import depth as depth_mod
 from semantic_slam_tpu_torch.frontend import segmentation as seg_mod
+from semantic_slam_tpu_torch.graph import planes as planes_mod
 from semantic_slam_tpu_torch.graph import state as gs
 from semantic_slam_tpu_torch.graph.state import set_rows
 from semantic_slam_tpu_torch.runtime.keyframe_gate import KeyframeGate
@@ -90,10 +102,6 @@ def _unported(cfg: SlamConfig) -> list[str]:
         missing.append(f"pcg_precond={s.pcg_precond!r} (block-tridiagonal PCG preconditioner)")
     if cfg.mesh.num_devices > 1:
         missing.append("mesh.num_devices > 1 (sharded solver)")
-    if s.fixed_lag_window > 0 and cfg.use_plane_landmarks:
-        missing.append("fixed_lag_window with use_plane_landmarks (the plane part of the fixed-lag prior)")
-    if cfg.use_plane_landmarks:
-        missing.append("use_plane_landmarks (plane landmarks, and the plane half of the tiled PCG loop)")
     if s.ingest_window > 1:
         missing.append("ingest_window > 1 (windowed ingest)")
     if not cfg.information.use_const_inf_matrix:
@@ -153,6 +161,44 @@ def _ingest_landmarks(graph: gs.GraphState, valid, lm_id, is_new, local, world, 
     )
 
 
+def _ingest_planes(pn: planes_mod.PlaneNodes, valid, lm_id, is_new, plane_w4, meas4, kf_idx, info3):
+    """Masked append of plane nodes and SE3-plane edges (plane index ==
+    the table's landmark id, as for the point nodes)."""
+    new = valid & is_new
+    node_idx = pn.num_planes + torch.cumsum(new.to(torch.int32), dim=0) - 1
+    edge_idx = pn.num_pe + torch.cumsum(valid.to(torch.int32), dim=0) - 1
+    kf_col = torch.as_tensor(kf_idx, device=valid.device).to(torch.int32)
+    return pn.replace(
+        planes=set_rows(pn.planes, node_idx, plane_w4, new),
+        num_planes=pn.num_planes + torch.sum(new.to(torch.int32)).to(torch.int32),
+        pe_k=set_rows(pn.pe_k, edge_idx, kf_col, valid),
+        pe_p=set_rows(pn.pe_p, edge_idx, lm_id.to(torch.int32), valid),
+        pe_meas=set_rows(pn.pe_meas, edge_idx, meas4, valid),
+        pe_info=set_rows(pn.pe_info, edge_idx, info3, valid),
+        num_pe=pn.num_pe + torch.sum(valid.to(torch.int32)).to(torch.int32),
+    )
+
+
+def _process_keyframe_planes(pn, dets, res, kf_idx, robot_xyzrpy, cam_angle, lm_info3, *, strict_frames):
+    """The plane-landmark part of a keyframe, after ``_process_keyframe``
+    gave its detections ``dets``, their association ``res`` and the
+    keyframe index: each associated detection's plane as a plane node (new
+    landmarks) and an SE3-plane edge. The world plane comes from the
+    detection's camera-frame plane through the cam->world chain, its offset
+    through the world centroid; the observation is the camera-frame plane
+    rotated into the robot (odometry node) frame, whose offset that rotation
+    leaves as it is. Returns the plane nodes."""
+    n_w = frames_mod.convert_normal_to_world(robot_xyzrpy, cam_angle, dets.normal_cam, strict=strict_frames)[:, :3]
+    n_w = n_w / torch.clamp(torch.linalg.vector_norm(n_w, dim=-1, keepdim=True), min=1e-12)
+    d_w = -torch.sum(n_w * res.world_pose, dim=-1)
+    C = frames_mod.t_cam_robot(cam_angle.to(pn.planes.dtype))[:3, :3]
+    n_r = dets.normal_cam[:, :3] @ C.T
+    n_r = n_r / torch.clamp(torch.linalg.vector_norm(n_r, dim=-1, keepdim=True), min=1e-12)
+    meas4 = torch.cat([n_r, dets.normal_cam[:, 3:4]], dim=-1)
+    return _ingest_planes(pn, res.valid, res.lm_id, res.is_new, torch.cat([n_w, d_w[:, None]], dim=-1), meas4,
+                          kf_idx, lm_info3)
+
+
 def _process_keyframe(
     graph, table, odom7, prev_odom7, has_prev, info6, points, cloud_valid, cam_intr,
     depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle, seg_params: dict,
@@ -160,7 +206,8 @@ def _process_keyframe(
     smoothing_size, strict_frames, use_rtabmap_offset, depth_input,
 ):
     """One detection-bearing keyframe: node+edge append, (depth
-    backprojection,) frontend, association, landmark ingest."""
+    backprojection,) frontend, association, landmark ingest. Returns (graph,
+    table, dets, association, keyframe index)."""
     kf_idx = graph.num_poses
     graph = _ingest_keyframes_batch(graph, odom7[None], prev_odom7, has_prev, info6)
     if depth_input:
@@ -178,7 +225,7 @@ def _process_keyframe(
     graph = _ingest_landmarks(
         graph, res.valid, res.lm_id, res.is_new, res.local_pose, res.world_pose, kf_idx, lm_info3
     )
-    return graph, table, dets
+    return graph, table, dets, res, kf_idx
 
 
 def _optimize_tick(
@@ -240,6 +287,53 @@ def _optimize_tick(
     return graph, table, marginals, info, stats.iterations
 
 
+def _optimize_tick_planes(
+    graph, table, pn, last_idx: int, *, do_opt: bool, init_lambda: float, max_iterations: int, min_edges: int,
+    rel_tol: float, robust_kind: str, robust_delta: float, need_marginals: bool, linear_solver: str, pcg_iters: int,
+    ell_rows: tuple, prior: fl.MarginalPrior | None = None,
+):
+    """The plane-landmark tick: the joint pose, point and plane LM (the
+    dense plane LM, or the row-range loop's plane half with ``pcg``, with
+    the fixed-lag ``prior`` folded in), then the point path's table sync
+    with the point landmarks' marginals. Returns (graph, table, pn, info
+    [8+7] on the device, iterations); info's slots 5 and 7 hold the plane
+    and plane-edge counts (the JAX engine's plane tick)."""
+    zero = graph.poses.new_zeros(())
+    stats = lm_mod.LMStats(0, zero, zero, zero)
+    if do_opt:
+        kw = dict(max_iterations=max_iterations, min_edges=min_edges, rel_tol=rel_tol, robust_kind=robust_kind,
+                  robust_delta=robust_delta, init_lambda=init_lambda, prior=prior)
+        marg = None
+        if linear_solver == "pcg":
+            out = soa_dist_mod.lm_optimize_soa_planes(graph, pn, max_cg_iters=pcg_iters, ell_rows=ell_rows,
+                                                      with_marginals=need_marginals, **kw)
+            g2, pn2, st = out[:3]
+            if need_marginals:
+                marg = out[3]
+        else:
+            g2, pn2, st = planes_mod.lm_optimize_with_planes(graph, pn, **kw)
+            if need_marginals and st.iterations > 0:
+                marg = fl.landmark_marginals_prior(g2, prior) if prior is not None else lm_mod.landmark_marginals(g2)
+        # below the optimize gate the solvers report the current chi2 (the
+        # JAX plane tick's stats; its point tick reports zeros)
+        stats = st
+        if st.iterations > 0:  # the solve ran (enough edges)
+            graph, pn = g2, pn2
+            has_lms = table.count > 0
+            t2 = assoc_mod.sync_from_graph(table, graph.landmarks, table.cov if marg is None else marg)
+            table = assoc_mod.LandmarkTable(
+                **{f: torch.where(has_lms, getattr(t2, f), getattr(table, f)) for f in assoc_mod.TABLE_FIELDS}
+            )
+
+    dtype = graph.poses.dtype
+    head = torch.stack([
+        torch.tensor(float(stats.iterations), dtype=dtype, device=graph.poses.device),
+        stats.chi2_initial.to(dtype), stats.chi2_final.to(dtype), stats.lambda_final.to(dtype),
+        graph.num_poses.to(dtype), pn.num_planes.to(dtype), graph.num_odom.to(dtype), pn.num_pe.to(dtype),
+    ])
+    return graph, table, pn, torch.cat([head, graph.poses[last_idx]]), stats.iterations
+
+
 def _is_det(kf: KeyframeMeta) -> bool:
     return kf.boxes is not None and kf.cloud is not None and len(kf.boxes) > 0
 
@@ -272,6 +366,9 @@ class SlamEngine:
         e20 = min(cap.initial_landmark_edges or cap.max_landmark_edges, cap.max_landmark_edges)
         self.graph = gs.make_graph(k0, l0, e10, e20, dtype=dt, device=dev)
         self.table = assoc_mod.make_table(l0, dtype=dt, device=dev)
+        # plane-landmark sessions: plane nodes sized like the landmark table
+        # (plane index == landmark id); None in point-landmark sessions
+        self.plane_nodes = planes_mod.make_planes(l0, e20, dtype=dt, device=dev) if config.use_plane_landmarks else None
         self.marginals = torch.eye(3, dtype=dt, device=dev).repeat(l0, 1, 1)
         self.gate = KeyframeGate(
             config.keyframe.delta_trans, config.keyframe.delta_angle, config.keyframe.delta_time
@@ -293,7 +390,7 @@ class SlamEngine:
         self.keyframes: list[KeyframeMeta] = []
 
         # fixed-lag smoothing state (used when fixed_lag_window > 0)
-        self.prior = fl.empty_prior(l0, dtype=dt, device=dev)
+        self.prior = fl.empty_prior(l0, Pl=l0 if config.use_plane_landmarks else 0, dtype=dt, device=dev)
         self._kf_base = 0  # keyframes marginalized out of the graph so far
         self.archived_poses: list[np.ndarray] = []  # their poses at drop time
 
@@ -413,14 +510,14 @@ class SlamEngine:
     # the tick (semantic_graph_slam.cpp:58-102)
     # ------------------------------------------------------------------
 
-    def _ell_rows(self) -> tuple:
+    def _ell_rows(self, planes: bool = False) -> tuple:
         """Static per-pose edge-count bounds of the ELL layout
         (``solver.pcg.build_slots``): the engine appends edges in keyframe
         order, one odometry edge per side and at most
-        ``max_detections_per_frame * max_planes_per_detection`` landmark edges
-        per keyframe."""
+        ``max_detections_per_frame * max_planes_per_detection`` landmark (and
+        plane) edges per keyframe; marginalization keeps both invariants."""
         mpd = self.cfg.capacity.max_detections_per_frame * self.cfg.segmentation.max_planes_per_detection
-        return (1, 1, mpd)
+        return (1, 1, mpd, mpd) if planes else (1, 1, mpd)
 
     def _opt_statics(self) -> dict:
         s = self.cfg.solver
@@ -438,7 +535,7 @@ class SlamEngine:
             need_marginals=bool(self.cfg.association.use_maha_dist),
             linear_solver=s.linear_solver,
             pcg_iters=s.pcg_iters,
-            ell_rows=self._ell_rows(),
+            ell_rows=self._ell_rows(planes=self.cfg.use_plane_landmarks),
             prior=self._prior_arg(),
         )
 
@@ -489,10 +586,7 @@ class SlamEngine:
                 self.keyframes.append(r)
             i += len(run)
 
-        self.graph, self.table, self.marginals, info, iters = _optimize_tick(
-            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx - self._kf_base,
-            do_opt=do_opt, init_lambda=init_lam, **self._opt_statics(),
-        )
+        info, iters = self._tick_optimize(do_opt, init_lam)
         info = info.cpu().numpy().astype(np.float64)  # the tick's device->host fetch
         solve_s = time.perf_counter() - t0
         self._absorb_info(info, iters)
@@ -520,6 +614,22 @@ class SlamEngine:
 
             save_checkpoint(self.cfg.autosave_path, self)
         return True
+
+    def _tick_optimize(self, do_opt: bool, init_lam: float):
+        """The tick's optimize program, point or plane landmarks: (info on
+        the device, iterations)."""
+        last_idx = self.keyframes[-1].node_idx - self._kf_base
+        if self.cfg.use_plane_landmarks:
+            self.graph, self.table, self.plane_nodes, info, iters = _optimize_tick_planes(
+                self.graph, self.table, self.plane_nodes, last_idx, do_opt=do_opt, init_lambda=init_lam,
+                **self._opt_statics(),
+            )
+        else:
+            self.graph, self.table, self.marginals, info, iters = _optimize_tick(
+                self.graph, self.table, self.marginals, last_idx, do_opt=do_opt, init_lambda=init_lam,
+                **self._opt_statics(),
+            )
+        return info, iters
 
     def _absorb_info(self, info: np.ndarray, iters: int) -> None:
         self._n_poses = int(info[4])
@@ -553,10 +663,7 @@ class SlamEngine:
         if not self.keyframes:
             return False
         t0 = time.perf_counter()
-        self.graph, self.table, self.marginals, info, iters = _optimize_tick(
-            self.graph, self.table, self.marginals, self.keyframes[-1].node_idx - self._kf_base,
-            do_opt=True, init_lambda=0.0, **self._opt_statics(),
-        )
+        info, iters = self._tick_optimize(True, 0.0)
         info = info.cpu().numpy().astype(np.float64)
         self._absorb_info(info, iters)
         self._record_stats(iters, info, time.perf_counter() - t0)
@@ -588,16 +695,17 @@ class SlamEngine:
             valid_t = self._tensor(valid, torch.bool)
             cam_intr = depth_scale = None
 
-        self.graph, self.table, dets = _process_keyframe(
-            self.graph, self.table,
+        robot_xyzrpy = self._tensor(npg.pose_to_xyzrpy(kf.robot_pose).astype(self._npdt))
+        args = (
             self._tensor(kf.odom.astype(self._npdt)),
             self._tensor(np.asarray(prev_odom, self._npdt)),
             has_prev, self._info6, points_t, valid_t, cam_intr, depth_scale,
             self._tensor(boxes.astype(self._npdt)),
             self._tensor(cids, torch.int32),
             self._tensor(probs.astype(self._npdt)),
-            self._tensor(npg.pose_to_xyzrpy(kf.robot_pose).astype(self._npdt)),
-            self._cam_angle, self._seg_params, self._assoc_params, self._lm_info3,
+            robot_xyzrpy, self._cam_angle, self._seg_params, self._assoc_params, self._lm_info3,
+        )
+        statics = dict(
             samp_h=seg.crop_height,
             samp_w=seg.crop_width,
             max_planes=seg.max_planes_per_detection,
@@ -607,6 +715,11 @@ class SlamEngine:
             use_rtabmap_offset=cfg.association.use_rtab_map_odom,
             depth_input=depth_input,
         )
+        self.graph, self.table, dets, res, kf_idx = _process_keyframe(self.graph, self.table, *args, **statics)
+        if cfg.use_plane_landmarks:
+            self.plane_nodes = _process_keyframe_planes(
+                self.plane_nodes, dets, res, kf_idx, robot_xyzrpy, self._cam_angle, self._lm_info3,
+                strict_frames=cfg.strict_reference_frames)
         self.last_detected_objects = dets  # observability (seg_obj_vec_)
 
     def add_first_pose_and_landmark(self) -> None:
@@ -656,7 +769,11 @@ class SlamEngine:
         C = self.cfg.solver.fixed_lag_chunk or max(8, W // 4)
         while self._n_poses >= W + C:
             dropped = self.graph.poses[:C]
-            self.graph, self.prior, num_b = fl.marginalize(self.graph, self.prior, C)
+            if self.cfg.use_plane_landmarks:
+                self.graph, self.plane_nodes, self.prior, num_b = fl.marginalize_planes(
+                    self.graph, self.plane_nodes, self.prior, C)
+            else:
+                self.graph, self.prior, num_b = fl.marginalize(self.graph, self.prior, C)
             g = self.graph
             counts = torch.stack([g.num_odom, g.num_lme, num_b]).to(torch.float64)
             host = torch.cat([dropped.reshape(-1).to(torch.float64), counts]).cpu().numpy()
@@ -667,12 +784,16 @@ class SlamEngine:
                       f"{self.prior.max_poses}; information truncated")
             self._kf_base += C
             self._n_poses -= C
+            # the graph's counts, in plane-landmark sessions too (as the JAX
+            # engine; the next tick's info fetch brings the plane-edge count)
             self._n_odom, self._n_lme = n_odom, n_lme
 
     def _ensure_capacity(self, batch: list[KeyframeMeta]) -> None:
         """Double capacities, from the host count mirrors, when the incoming
-        batch could overflow them."""
+        batch could overflow them (plane nodes and plane edges too, in
+        plane-landmark sessions)."""
         mpd = self.cfg.capacity.max_detections_per_frame * self.cfg.segmentation.max_planes_per_detection
+        pn = self.plane_nodes if self.cfg.use_plane_landmarks else None
         need_poses = self._n_poses + len(batch)
         need_lms = self._n_landmarks + mpd * len(batch)
         need_oe = self._n_odom + len(batch)
@@ -682,9 +803,12 @@ class SlamEngine:
             or need_oe > self.graph.odom_i.shape[0]
             or need_le > self.graph.lme_k.shape[0]
             or need_lms > self.graph.max_landmarks
+            or (pn is not None and (need_lms > pn.max_planes or need_le > pn.max_edges))
         ):
             self.graph = gs.grow_graph(self.graph)
             self.table = assoc_mod.grow_table(self.table)
+            if pn is not None:
+                pn = self.plane_nodes = planes_mod.grow_planes(pn)
             self.marginals = torch.eye(3, dtype=self.dtype, device=self.device).repeat(
                 self.graph.max_landmarks, 1, 1
             )

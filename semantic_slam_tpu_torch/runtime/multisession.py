@@ -1,5 +1,5 @@
 """Multi-session map merging and joint bundle adjustment (port of
-``semantic_slam_tpu.runtime.multisession``, point landmarks on one device).
+``semantic_slam_tpu.runtime.multisession``, on one device).
 
 Sessions are engine checkpoints; merging
 
@@ -13,8 +13,9 @@ Sessions are engine checkpoints; merging
   4. runs joint BA: the dense Schur LM (``solver/lm.py``), as the JAX
      package's single-device merge does.
 
-The merge with plane landmarks and the sharded joint BA are not ported and
-raise.
+With plane landmarks (``merge_graphs_planes``) the plane nodes ride the same
+landmark unification, and the joint BA is the dense plane LM
+(``graph/planes.py``). The sharded joint BA is not ported and raises.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ import numpy as np
 import torch
 
 from semantic_slam_tpu_torch.assoc.association import table_to_numpy
+from semantic_slam_tpu_torch.graph import planes as gp
 from semantic_slam_tpu_torch.graph import state as gs
 from semantic_slam_tpu_torch.solver import lm as lm_mod
 
-PLANES_UNPORTED = "not ported to semantic_slam_tpu_torch yet: the merge with plane landmarks (P7a)"
 MESH_UNPORTED = "not ported to semantic_slam_tpu_torch yet: the sharded joint BA over a mesh (P8, several GPUs)"
 
 
@@ -125,12 +126,44 @@ def _merge_core(graphs: list[gs.GraphState], tables: list, merge_radius: float =
     return gs.GraphState(**out), np.asarray(owner, np.int64), lm_map, np.asarray(owner_local, np.int64), pose_off
 
 
-def merge_graphs_planes(*args, **kwargs):
-    raise NotImplementedError(PLANES_UNPORTED)
+def merge_graphs_planes(graphs: list[gs.GraphState], tables: list, plane_nodes: list, merge_radius: float = 1.0,
+                        dtype=None):
+    """The plane-landmark merge: the points as ``merge_graphs``; plane node i
+    is landmark i's patch, so the planes ride the same unification (each
+    unified landmark takes its owner session's plane), and the SE3-plane
+    edges re-target through the pose offsets and landmark maps. Returns
+    (merged graph, merged plane nodes, landmark_owner)."""
+    dtype = dtype or graphs[0].poses.dtype
+    merged, owner, lm_map, owner_local, pose_off = _merge_core(graphs, tables, merge_radius, dtype)
+    device = merged.poses.device
+    sess = [gp.plane_nodes_to_numpy(pn) for pn in plane_nodes]
+    uni = (np.stack([sess[s]["planes"][li].astype(np.float64) for s, li in zip(owner, owner_local)])
+           if len(owner) else np.zeros((0, 4)))
+    n = [int(b["num_pe"]) for b in sess]
+    cat = {
+        "pe_k": np.concatenate([b["pe_k"][:m] + pose_off[i] for i, (b, m) in enumerate(zip(sess, n))]),
+        "pe_p": np.concatenate([lm_map[i][b["pe_p"][:m]] for i, (b, m) in enumerate(zip(sess, n))]),
+        "pe_meas": np.concatenate([b["pe_meas"][:m].astype(np.float64) for b, m in zip(sess, n)]),
+        "pe_info": np.concatenate([b["pe_info"][:m].astype(np.float64) for b, m in zip(sess, n)]),
+    }
+    E3 = len(cat["pe_k"])
+    pn = gp.make_planes(merged.landmarks.shape[0], gs.pow2_capacity(max(E3, 1)), dtype=dtype, device=device)
+    out = {"planes": uni, **cat}
+    fields = {}
+    for name, vals in out.items():
+        dst = getattr(pn, name).clone()
+        dst[: len(vals)] = torch.as_tensor(vals, device=device).to(dst.dtype)
+        fields[name] = dst
+    count = lambda m: torch.tensor(m, dtype=torch.int32, device=device)  # noqa: E731
+    return merged, pn.replace(**fields, num_planes=count(len(uni)), num_pe=count(E3)), owner
 
 
-def joint_bundle_adjust_planes(*args, **kwargs):
-    raise NotImplementedError(PLANES_UNPORTED)
+def joint_bundle_adjust_planes(merged: gs.GraphState, pn, mesh=None, max_iterations: int = 64):
+    """Joint BA over the merged graph and plane nodes: the dense plane LM.
+    Returns (graph, plane nodes, LMStats)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_UNPORTED)
+    return gp.lm_optimize_with_planes(merged, pn, max_iterations=max_iterations)
 
 
 def joint_bundle_adjust(merged: gs.GraphState, mesh=None, max_iterations: int = 64):

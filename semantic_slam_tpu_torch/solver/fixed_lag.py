@@ -1,5 +1,5 @@
 """Fixed-lag smoothing: Schur marginalization of old keyframes into a prior
-(port of ``semantic_slam_tpu.solver.fixed_lag``, point landmarks only).
+(port of ``semantic_slam_tpu.solver.fixed_lag``).
 
 When the active window exceeds the configured lag, the oldest ``drop``
 keyframes are marginalized out and the graph arrays are compacted in place,
@@ -15,12 +15,17 @@ so the solve works on a bounded window instead of the whole history.
   and a pose-side block (``J_p^T O J_p``) that joins the pose elimination;
   only the cross block ``J_p^T O J_l`` is dropped. Landmarks are never
   removed: landmark id == graph index stays invariant.
+* **Plane observations** (plane-landmark sessions, ``marginalize_planes``):
+  the same sparsification, into anchored priors in each plane's tangent
+  coordinates (``plane_local``) and pose-side blocks.
 
 The prior is the quadratic ``c0 + 2 g0.e + e^T H e`` in the local
 coordinates ``e_p = log(ref^-1 x)`` (boundary poses) and ``e_l = l - l_ref``
-(landmarks); its gradient and Hessian fold into every linearization
-(``apply_prior`` for the dense LM, ``pcg.apply_prior_blocks`` for the PCG
-loops, whose matvec applies ``Hp`` itself).
+(landmarks), and ``e_pl = plane_local(pl, pl_ref)`` (planes); its gradient
+and Hessian fold into every linearization (``apply_prior`` /
+``apply_prior_planes`` for the dense LM, ``pcg.apply_prior_blocks`` and the
+row-range loop's plane half for the PCG loops, whose matvec applies ``Hp``
+itself).
 
 Differences from the JAX module:
 
@@ -32,9 +37,9 @@ Differences from the JAX module:
 * ``_marginalize_impl`` assembles the pose blocks only over the dropped and
   boundary poses (``drop + PB`` of them), from the edge endpoints; the JAX
   module builds a dense ``[K, K, 6, 6]`` array and reads the same blocks.
-* The plane part (``marginalize_planes``, the ``Hpl``/``pl_ref``/``gpl0``
-  fields) is not ported: ``MarginalPrior`` has no plane fields, and
-  ``prior_from_numpy`` refuses a prior whose plane part is not zero.
+* A point-landmark session's prior has an empty plane part (Pl = 0), and
+  ``grow_prior`` keeps it empty; the JAX engine sizes it like the landmark
+  table in every session.
 
 ``prior_from_numpy`` / ``prior_to_numpy`` carry a prior between the JAX
 package (its ``MarginalPrior`` leaves as numpy arrays) and the port.
@@ -48,14 +53,13 @@ import numpy as np
 import torch
 
 from semantic_slam_tpu_torch.core import geometry as geo
+from semantic_slam_tpu_torch.frontend.hull import plane_basis
 from semantic_slam_tpu_torch.graph import residuals as res
 from semantic_slam_tpu_torch.graph.state import GraphState
 from semantic_slam_tpu_torch.solver import lm as lm_mod
 from semantic_slam_tpu_torch.solver.lm import Linearization, LMStats
 
 Tensor = torch.Tensor
-
-PLANES_UNPORTED = "not ported to semantic_slam_tpu_torch yet: the plane part of a fixed-lag prior (marginalize_planes)"
 
 
 class MarginalPrior(NamedTuple):
@@ -65,7 +69,9 @@ class MarginalPrior(NamedTuple):
     coordinates around ``p_ref``). Landmark part: independent 3x3 blocks over
     the full landmark capacity (world coordinates around ``l_ref``); zero
     blocks mean no prior. Slots >= num_p are all-zero by invariant, with
-    ``p_idx`` 0.
+    ``p_idx`` 0. Plane part (plane-landmark sessions): 3x3 blocks in each
+    plane's tangent coordinates around ``pl_ref``, the Schur plane blocks'
+    shape; zero when unused, and Pl = 0 in point-landmark sessions.
     """
 
     p_idx: Tensor  # [PB] int32 graph pose indices
@@ -77,13 +83,20 @@ class MarginalPrior(NamedTuple):
     l_ref: Tensor  # [L, 3]
     gl0: Tensor  # [L, 3]
     c0: Tensor  # 0-d chi2 offset
+    Hpl: Tensor  # [Pl, 3, 3] per-plane information
+    pl_ref: Tensor  # [Pl, 4]
+    gpl0: Tensor  # [Pl, 3]
 
     @property
     def max_poses(self) -> int:
         return self.p_idx.shape[0]
 
 
-def empty_prior(L: int, PB: int = 8, dtype=torch.float32, device=None) -> MarginalPrior:
+def _unit_planes(n: int, dtype, device) -> Tensor:
+    return torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=dtype, device=device).repeat(n, 1)
+
+
+def empty_prior(L: int, PB: int = 8, Pl: int = 0, dtype=torch.float32, device=None) -> MarginalPrior:
     return MarginalPrior(
         p_idx=torch.zeros((PB,), dtype=torch.int32, device=device),
         p_ref=geo.pose_identity(dtype, device).repeat(PB, 1),
@@ -94,30 +107,37 @@ def empty_prior(L: int, PB: int = 8, dtype=torch.float32, device=None) -> Margin
         l_ref=torch.zeros((L, 3), dtype=dtype, device=device),
         gl0=torch.zeros((L, 3), dtype=dtype, device=device),
         c0=torch.zeros((), dtype=dtype, device=device),
+        Hpl=torch.zeros((Pl, 3, 3), dtype=dtype, device=device),
+        pl_ref=_unit_planes(Pl, dtype, device),
+        gpl0=torch.zeros((Pl, 3), dtype=dtype, device=device),
     )
 
 
 def grow_prior(prior: MarginalPrior, new_L: int) -> MarginalPrior:
-    """Pad the landmark-capacity arrays after the graph's landmarks grow."""
+    """Pad the landmark-capacity arrays after the graph's landmarks grow, and
+    a plane part, if the prior has one, to the same capacity (plane nodes are
+    sized with the landmark table; new ``pl_ref`` rows are the unit plane)."""
     L = prior.Hl.shape[0]
     if new_L <= L:
         return prior
 
-    def pad(a):
-        out = a.new_zeros((new_L,) + a.shape[1:])
-        out[:L] = a
+    def pad(a, n, fill=None):
+        out = a.new_zeros((new_L,) + a.shape[1:]) if fill is None else fill
+        out[:n] = a
         return out
 
-    return prior._replace(Hl=pad(prior.Hl), l_ref=pad(prior.l_ref), gl0=pad(prior.gl0))
+    out = prior._replace(Hl=pad(prior.Hl, L), l_ref=pad(prior.l_ref, L), gl0=pad(prior.gl0, L))
+    Pl = prior.Hpl.shape[0]
+    if 0 < Pl < new_L:
+        out = out._replace(Hpl=pad(prior.Hpl, Pl), gpl0=pad(prior.gpl0, Pl),
+                           pl_ref=pad(prior.pl_ref, Pl, _unit_planes(new_L, prior.pl_ref.dtype, prior.pl_ref.device)))
+    return out
 
 
 def prior_from_numpy(arrays: Mapping[str, np.ndarray]) -> MarginalPrior:
     """A port prior (on the CPU) from the JAX ``MarginalPrior`` leaves as
     numpy arrays (e.g. ``{k: np.asarray(v) for k, v in prior._asdict().items()}``);
-    float leaves keep their dtype. A non-zero plane part is refused."""
-    for name in ("Hpl", "gpl0"):
-        if name in arrays and np.any(np.asarray(arrays[name]) != 0):
-            raise NotImplementedError(PLANES_UNPORTED)
+    float leaves keep their dtype."""
     ints = ("p_idx", "num_p")
     return MarginalPrior(**{
         name: torch.tensor(np.asarray(arrays[name]).astype(np.int32) if name in ints else np.asarray(arrays[name]))
@@ -126,12 +146,8 @@ def prior_from_numpy(arrays: Mapping[str, np.ndarray]) -> MarginalPrior:
 
 
 def prior_to_numpy(prior: MarginalPrior) -> dict[str, np.ndarray]:
-    """The prior's leaves as numpy arrays, keyed like the JAX
-    ``MarginalPrior``, with an empty plane part (zero planes)."""
-    out = {name: getattr(prior, name).detach().cpu().numpy() for name in MarginalPrior._fields}
-    dt = out["Hp"].dtype
-    out["Hpl"], out["pl_ref"], out["gpl0"] = np.zeros((0, 3, 3), dt), np.zeros((0, 4), dt), np.zeros((0, 3), dt)
-    return out
+    """The prior's leaves as numpy arrays, keyed like the JAX ``MarginalPrior``."""
+    return {name: getattr(prior, name).detach().cpu().numpy() for name in MarginalPrior._fields}
 
 
 def _pose_local(x: Tensor, ref: Tensor) -> Tensor:
@@ -141,6 +157,24 @@ def _pose_local(x: Tensor, ref: Tensor) -> Tensor:
     t = geo.quat_rotate(qi, x[..., :3] - ref[..., :3])
     q = geo.quat_normalize(geo.quat_mul(qi, x[..., 3:]))
     return geo.se3_log(geo.pose_make(t, q))
+
+
+def plane_local(x4: Tensor, ref4: Tensor) -> Tensor:
+    """Tangent coordinates of planes ``x4`` around ``ref4`` ([..., 4]): the
+    inverse of ``plane_retract(ref, e)`` where n_ref . n_x > 0; the tangent
+    components before the normalization are (u . n_x) / (n_ref . n_x)."""
+    n_r, n_x = ref4[..., :3], x4[..., :3]
+    u, v = plane_basis(n_r)
+    c = torch.clamp(torch.sum(n_r * n_x, dim=-1), min=1e-6)
+    return torch.stack([torch.sum(u * n_x, dim=-1) / c, torch.sum(v * n_x, dim=-1) / c, x4[..., 3] - ref4[..., 3]],
+                       dim=-1)
+
+
+def _plane_prior_terms(prior: MarginalPrior, planes: Tensor) -> tuple[Tensor, Tensor]:
+    """(chi2, gradient [Pl, 3]) of the plane part at ``planes``."""
+    e = plane_local(planes, prior.pl_ref).to(prior.Hpl.dtype)
+    He = torch.einsum("pij,pj->pi", prior.Hpl, e)
+    return 2.0 * torch.sum(prior.gpl0 * e) + torch.sum(e * He), prior.gpl0 + He
 
 
 def _prior_coords(prior: MarginalPrior, poses: Tensor, landmarks: Tensor) -> tuple[Tensor, Tensor]:
@@ -186,6 +220,27 @@ def apply_prior(lin: Linearization, prior: MarginalPrior, poses: Tensor, landmar
     Hpp = lin.Hpp.index_put((r6[:, None], r6[None, :]), prior.Hp.to(dtype), accumulate=True)
     gp = lin.gp.index_add(0, r6, gp_add)
     return Linearization(Hpp, lin.W, lin.Hll + prior.Hl, gp, lin.gl + gl_add.reshape(-1), lin.chi2 + chi_pr)
+
+
+def prior_chi2_planes(prior: MarginalPrior, poses: Tensor, landmarks: Tensor, planes: Tensor) -> Tensor:
+    """The prior's value with its plane part (plane-landmark sessions)."""
+    return prior_chi2(prior, poses, landmarks) + _plane_prior_terms(prior, planes)[0]
+
+
+def apply_prior_planes(lin: Linearization, prior: MarginalPrior, poses: Tensor, landmarks: Tensor,
+                       planes: Tensor) -> Linearization:
+    """``apply_prior`` for the plane-extended layout of
+    ``graph/planes.linearize_with_planes``: the landmark blocks are
+    ``Hll[:L]``/``gl[:3L]``, the plane blocks the tail."""
+    L = landmarks.shape[0]
+    out = apply_prior(lin._replace(Hll=lin.Hll[:L], gl=lin.gl[: 3 * L]), prior, poses, landmarks)
+    chi_pl, gpl = _plane_prior_terms(prior, planes)
+    dtype = lin.Hpp.dtype
+    return out._replace(
+        Hll=torch.cat([out.Hll, lin.Hll[L:] + prior.Hpl.to(dtype)]),
+        gl=torch.cat([out.gl, lin.gl[3 * L:] + gpl.to(dtype).reshape(-1)]),
+        chi2=out.chi2 + chi_pl,
+    )
 
 
 def lm_optimize_prior(
@@ -269,10 +324,12 @@ def _stable_partition(keep: Tensor) -> Tensor:
     return torch.argsort(torch.where(keep, idx, n + idx))
 
 
-def _marginalize_impl(g: GraphState, prior: MarginalPrior, drop: int):
-    """Marginalize the oldest ``drop`` keyframes; compact the graph.
+def _marginalize_impl(g: GraphState, prior: MarginalPrior, drop: int, pn=None):
+    """Marginalize the oldest ``drop`` keyframes; compact the graph (and the
+    plane edges of ``pn``, plane nodes, if given).
 
-    Returns ``(graph', prior', num_boundary)``; ``num_boundary`` (int32 0-d,
+    Returns ``(graph', prior', num_boundary)``, with ``pn`` ``(graph',
+    planes', prior', num_boundary)``; ``num_boundary`` (int32 0-d,
     on the device) is the number of boundary poses the new prior needed. The
     caller checks it against ``prior.max_poses`` on the host: beyond it the
     information is truncated (with chain odometry the boundary is 1-2 poses).
@@ -305,6 +362,28 @@ def _marginalize_impl(g: GraphState, prior: MarginalPrior, drop: int):
     lchi = 2.0 * torch.sum(prior.gl0 * d_l) + torch.sum(d_l * Hl_dl)
     gl0_new = prior.gl0 + Hl_dl + gl_add
     Hl_new = prior.Hl + Hl_add
+
+    # ---- plane-landmark sessions: anchored plane priors from the dropped
+    # plane edges, and the old plane part re-centered to the current planes
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    c_anchor_pl = plchi = zero
+    gpl0_new, Hpl_new = prior.gpl0, prior.Hpl
+    if pn is not None:
+        from semantic_slam_tpu_torch.graph.planes import plane_edge_jac
+
+        pk, pp = pn.pe_k.long(), pn.pe_p.long()
+        pe_drop = pn.pe_mask() & (pk < drop)
+        p_info = pn.pe_info * pe_drop.to(dtype)[:, None, None]
+        r_pe, Jk_pe, Jpl_pe = plane_edge_jac(poses[pk], pn.planes[pp], pn.pe_meas)
+        JplT_O = torch.einsum("eai,eab->eib", Jpl_pe, p_info)
+        Hpl_add = torch.zeros_like(prior.Hpl).index_add_(0, pp, JplT_O @ Jpl_pe)
+        gpl_add = torch.zeros_like(prior.gpl0).index_add_(0, pp, torch.einsum("eia,ea->ei", JplT_O, r_pe))
+        c_anchor_pl = torch.einsum("ea,eab,eb->", r_pe, p_info, r_pe)
+        d_pl = plane_local(pn.planes, prior.pl_ref).to(dtype)
+        Hpl_dpl = torch.einsum("pij,pj->pi", prior.Hpl, d_pl)
+        plchi = 2.0 * torch.sum(prior.gpl0 * d_pl) + torch.sum(d_pl * Hpl_dpl)
+        gpl0_new = prior.gpl0 + Hpl_dpl + gpl_add
+        Hpl_new = prior.Hpl + Hpl_add
 
     # ---- per-edge pose blocks of the dropped odometry edges
     o_info = g.odom_info * drop_o.to(dtype)[:, None, None]
@@ -364,6 +443,12 @@ def _marginalize_impl(g: GraphState, prior: MarginalPrior, drop: int):
     add_grad(oj, torch.einsum("eia,ea->ei", JjT_O, r_o))
     add_grad(lk, torch.einsum("eia,ea->ei", JpT_O, r_l))
     add_grad(pidx, gp_fold)
+    if pn is not None:
+        # pose side of the dropped plane edges (the cross term to the plane is
+        # dropped, as for the points)
+        JkT_O = torch.einsum("eai,eab->eib", Jk_pe, p_info)
+        add_blocks(pk, pk, JkT_O @ Jk_pe)
+        add_grad(pk, torch.einsum("eia,ea->ei", JkT_O, r_pe))
 
     # gauge: pose 0 (local slot 0) is a constant, not a variable
     Hf = Hloc[: n * n].reshape(n, n, 6, 6)
@@ -402,8 +487,10 @@ def _marginalize_impl(g: GraphState, prior: MarginalPrior, drop: int):
     # the nonlinear re-centering can leave the carried quadratic's minimum
     # below zero; its parts are separable, so the minimum is cheap here, and
     # lifting c0 by its negative part shifts every chi2 by a constant
-    c0_new = c_pose + lchi + c_anchor
+    c0_new = c_pose + lchi + c_anchor + plchi + c_anchor_pl
     qmin = c0_new + _quad_min_dense(Hp_new, gp_new) + torch.sum(_quad_min33(Hl_new, gl0_new))
+    if Hpl_new.shape[0] > 0:
+        qmin = qmin + torch.sum(_quad_min33(Hpl_new, gpl0_new))
     c0_new = c0_new - torch.clamp(qmin, max=0.0) + 1e-5 * (1.0 + torch.abs(qmin))
 
     active = b_act.to(torch.bool)
@@ -417,6 +504,9 @@ def _marginalize_impl(g: GraphState, prior: MarginalPrior, drop: int):
         l_ref=landmarks,
         gl0=gl0_new,
         c0=c0_new,
+        Hpl=Hpl_new,
+        pl_ref=prior.pl_ref if pn is None else pn.planes,
+        gpl0=gpl0_new,
     )
 
     # ---- compaction
@@ -443,7 +533,18 @@ def _marginalize_impl(g: GraphState, prior: MarginalPrior, drop: int):
         lme_info=g.lme_info[pe],
         num_lme=torch.sum(keep_e.to(torch.int32)).to(torch.int32),
     )
-    return g2, prior_new, num_b
+    if pn is None:
+        return g2, prior_new, num_b
+    keep_pe = pn.pe_mask() & ~pe_drop
+    pp_ = _stable_partition(keep_pe)
+    pn2 = pn.replace(
+        pe_k=sub(pk[pp_]),
+        pe_p=pn.pe_p[pp_],
+        pe_meas=pn.pe_meas[pp_],
+        pe_info=pn.pe_info[pp_],
+        num_pe=torch.sum(keep_pe.to(torch.int32)).to(torch.int32),
+    )
+    return g2, pn2, prior_new, num_b
 
 
 def marginalize(g: GraphState, prior: MarginalPrior, drop: int) -> tuple[GraphState, MarginalPrior, Tensor]:
@@ -452,5 +553,12 @@ def marginalize(g: GraphState, prior: MarginalPrior, drop: int) -> tuple[GraphSt
     return _marginalize_impl(g, prior, drop)
 
 
-def marginalize_planes(g, pn, prior, drop):
-    raise NotImplementedError(PLANES_UNPORTED)
+def marginalize_planes(g: GraphState, pn, prior: MarginalPrior, drop: int):
+    """Plane-landmark marginalization: also turns the dropped SE3-plane edges
+    into anchored plane-tangent priors (their pose side joins the pose
+    elimination, the pose-plane cross term is dropped as for the points) and
+    compacts the plane edges. Returns ``(graph', planes', prior',
+    num_boundary)``."""
+    if drop < 1:
+        raise ValueError(f"marginalize_planes: drop={drop} must be >= 1")
+    return _marginalize_impl(g, prior, drop, pn=pn)

@@ -289,12 +289,15 @@ def run_lm_loop(
     rel_tol: float,
     init_lambda_tau: float = 1e-5,
     init_lambda: float = 0.0,
+    retract_fn: Callable = retract,
 ):
     """The damped LM iteration over node variables (edges fixed inside
     ``linearize_fn``). Each step relinearizes at the trial point, so the new
     linearization's chi2 is the trial objective and an accepted step costs
     one linearize; a rejected step retries the carried system with a larger
     lambda. ``init_lambda > 0`` overrides the tau*diag heuristic.
+    ``retract_fn(poses, landmarks, dp, dl)`` applies a step; the plane LM
+    passes its own, with ``landmarks`` a (points, planes) pair.
 
     Returns (poses, landmarks, LMStats, final linearization); the final
     linearization always matches the returned estimate.
@@ -315,7 +318,7 @@ def run_lm_loop(
     p, l, nu, it = poses, landmarks, 2.0, 0
     while it < max_iterations:
         dp, dl = schur_solve(lin, pose_free, lm_free, lam)
-        p_new, l_new = retract(p, l, dp, dl)
+        p_new, l_new = retract_fn(p, l, dp, dl)
         lin_new = linearize_fn(p_new, l_new)
         chi2_new = lin_new.chi2
 

@@ -99,6 +99,103 @@ def build_ell_edges(edge_args: tuple, K: int, R: int) -> EllEdges:
     return EllEdges(ll=ll_e, meas=meas_e, info=info_e, o_meas=o_meas_e, o_info=o_info_e, o_w=o_w)
 
 
+class EllEdgesPlanes(NamedTuple):
+    """SE3-plane edges in per-pose layout ([K, R4] slots; the point slots are
+    the loop's own edge store)."""
+
+    pl: Tensor  # [K, R4] plane index per slot (0 where empty), int64
+    pmeas: Tensor  # [K, R4, 4], the unit plane on empty slots
+    pinfo: Tensor  # [K, R4, 3, 3], zeroed on empty slots
+    valid: Tensor  # [K, R4] bool, the real slots
+
+
+# Pad rows past a plane table that the empty plane slots' zeros are summed
+# into, spread over all of them: index_add_ on the card adds with atomics,
+# and one row for every empty slot (most of the [K, R4] grid) serializes them.
+PLANE_SPREAD = 256
+
+
+def plane_sum_index(eep: EllEdgesPlanes, Pl: int) -> Tensor:
+    """[Kr R4]: the row of each slot's term in a plane-table sum
+    (``plane_table_sum``): its plane id, or for an empty slot one of the
+    ``PLANE_SPREAD`` pad rows past the table."""
+    n = eep.pl.numel()
+    pad = Pl + torch.arange(n, device=eep.pl.device) % PLANE_SPREAD
+    return torch.where(eep.valid.reshape(-1), eep.pl.reshape(-1), pad)
+
+
+def plane_table_sum(idx: Tensor, vals: Tensor, Pl: int) -> Tensor:
+    """The plane table [Pl, ...] of the per-slot terms ``vals`` [Kr R4, ...]
+    summed at the rows ``idx`` of ``plane_sum_index``."""
+    out = vals.new_zeros((Pl + PLANE_SPREAD,) + vals.shape[1:])
+    return out.index_add_(0, idx, vals)[:Pl]
+
+
+def unit_plane_rows(planes: Tensor) -> Tensor:
+    """``planes [..., 4]`` with all-zero rows (an empty slot's, an inactive
+    plane's) replaced by the unit plane [0, 0, 1, 0]: a zero normal makes
+    the plane-tangent Jacobians NaN, and NaN * 0 stays NaN under the
+    slot's zero information."""
+    unit = planes.new_tensor([0.0, 0.0, 1.0, 0.0])
+    return torch.where(torch.sum(planes[..., :3] * planes[..., :3], dim=-1, keepdim=True) > 1e-12, planes, unit)
+
+
+def build_ell_edges_planes(plane_args: tuple, K: int, R4: int) -> EllEdgesPlanes:
+    """``(pe_k, pe_p, pe_meas, pe_info, pe_mask)`` -> per-pose layout, once
+    per solve (the plane half of ``pcg.build_ell_edges_planes``; its point
+    half is ``build_ell_edges``). The masked prefix of ``pe_k`` must be
+    sorted with at most R4 edges per pose (``build_slots``)."""
+    pe_k, pe_p, pe_meas, pe_info, pe_mask = plane_args
+    slots = build_slots(pe_k, pe_mask, K, R4)
+    valid = (slots >= 0).to(pe_meas.dtype)
+    return EllEdgesPlanes(
+        pl=_gat(pe_p.long(), slots),
+        pmeas=unit_plane_rows(_gat(pe_meas, slots)),
+        pinfo=_gat(pe_info, slots) * valid[:, :, None, None],
+        valid=slots >= 0,
+    )
+
+
+def plane_slot_blocks(poses: Tensor, planes: Tensor, eep: EllEdgesPlanes, robust_kind: str = "none",
+                      robust_delta: float = 1.0):
+    """The plane slots' blocks of pose rows ``poses [Kr, 7]``
+    (``graph/planes.plane_edge_blocks`` over [Kr, R4]): (robust chi2,
+    H_kk, W_kp, H_pp, g_k, g_p)."""
+    from semantic_slam_tpu_torch.graph.planes import plane_edge_blocks
+
+    pw = unit_plane_rows(planes[eep.pl])
+    return plane_edge_blocks(poses[:, None, :].expand(-1, eep.pl.shape[1], -1), pw, eep.pmeas, eep.pinfo,
+                             robust_kind, robust_delta)
+
+
+def ell_linearize_planes(eb: EllBlocks, poses: Tensor, planes: Tensor, eep: EllEdgesPlanes,
+                         robust_kind: str = "none", robust_delta: float = 1.0) -> EllBlocks:
+    """The point blocks ``eb`` with the plane slots appended, block ids
+    offset by L: ``ll [K, R+R4]``, ``W_kl``, ``Hll [L+Pl]`` and the
+    diagonal. The marginal recovery then runs unchanged over the B = L + Pl
+    blocks (the per-pose analog of the dense plane linearization)."""
+    L, Pl = eb.Hll.shape[0], planes.shape[0]
+    _, H_kk, W_kp, H_pp, _, _ = plane_slot_blocks(poses, planes, eep, robust_kind, robust_delta)
+    Hll_p = plane_table_sum(plane_sum_index(eep, Pl), H_pp.reshape(-1, 3, 3), Pl)
+    return EllBlocks(
+        ll=torch.cat([eb.ll, eep.pl + L], dim=1),
+        H_ij=eb.H_ij,
+        W_kl=torch.cat([eb.W_kl, W_kp.to(eb.W_kl.dtype)], dim=1),
+        Hll=torch.cat([eb.Hll, Hll_p.to(eb.Hll.dtype)]),
+        diag=eb.diag + H_kk.sum(dim=1).to(eb.diag.dtype),
+    )
+
+
+def apply_prior_blocks_planes(eb: EllBlocks, prior: fl.MarginalPrior) -> EllBlocks:
+    """The prior's plane information on the appended plane rows ``Hll[L:]``
+    of plane-extended blocks (``ell_linearize_planes``), trimmed to what the
+    marginal recovery reads: its pose and point parts are folded before the
+    plane slots append (``apply_prior_blocks`` on the point
+    linearization)."""
+    Pl = prior.Hpl.shape[0]
+    return eb._replace(Hll=torch.cat([eb.Hll[:-Pl], eb.Hll[-Pl:] + prior.Hpl.to(eb.Hll.dtype)]) if Pl else eb.Hll)
+
+
 def _edge_args(g: GraphState):
     return (
         g.odom_i, g.odom_j, g.odom_meas, g.odom_info, g.odom_mask(),

@@ -1,5 +1,5 @@
 """Large-K SoA LM loop over a row range of poses (port of the single-device
-subset of ``semantic_slam_tpu.solver.soa_dist``: no planes, no mesh).
+subset of ``semantic_slam_tpu.solver.soa_dist``: no mesh).
 
 The loop is the JAX package's distributed one with identity reductions:
 poses, landmarks and the CG vectors are replicated ``[*, K]``/``[L, *]``,
@@ -41,6 +41,18 @@ reduction, and its dense boundary block joins the matvec after K9's
 reduction and the shift. That order is what a multi-device loop needs: every
 device adds the same terms to the same replicated arrays.
 
+Plane landmarks (``lm_optimize_soa_planes``) ride the same loop as a plane
+half in plain PyTorch, as the JAX package computes it in XLA outside its
+kernels: the range's SE3-plane slots ([Kl, R4], rows of
+``pcg.EllEdgesPlanes``, taken by plain index gathers where the JAX package
+has one-hot factors) are linearized once per LM iteration into W blocks [Kl, R4, 6, 3], the pose
+diagonal and gradient, and the plane tables Hpl/gpl [Pl, *] (reduced like
+the landmark tables). In the matvec, W^T x per slot is summed into the plane
+table beside K8's T (the pair is one reduction), z_pl = A_pl^-1 T_pl, and
+-W z_pl joins K9's u; the slots' pose blocks ride K9's chain diagonal Hii,
+which K9 applies to x. The plane blocks are Schur-eliminated like the
+landmark blocks; the step's plane rows retract by ``plane_retract``.
+
 Reference: graph_slam.cpp:182-219 (the lm_var loop).
 """
 
@@ -51,6 +63,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from semantic_slam_tpu_torch.core import geometry as geo
+from semantic_slam_tpu_torch.graph import residuals as res
 from semantic_slam_tpu_torch.graph.state import GraphState
 from semantic_slam_tpu_torch.solver import chain_soa as chs
 from semantic_slam_tpu_torch.solver import ellk_soa as soa
@@ -66,12 +79,21 @@ from semantic_slam_tpu_torch.solver.ellk_soa import (
 from semantic_slam_tpu_torch.solver.lm import LMStats, _free_masks, inv33, inv66
 from semantic_slam_tpu_torch.solver.pcg import (
     EllEdges,
+    EllEdgesPlanes,
     _edge_args,
     apply_prior_blocks,
+    apply_prior_blocks_planes,
     build_ell_edges,
+    build_ell_edges_planes,
     build_slots,
+    ell_linearize_planes,
     landmark_marginals_mf_ellk,
+    plane_slot_blocks,
+    plane_sum_index,
+    plane_table_sum,
+    unit_plane_rows,
 )
+from semantic_slam_tpu_torch.solver.plane_ba import plane_retract
 from semantic_slam_tpu_torch.solver.robust import robust_rho
 
 Tensor = torch.Tensor
@@ -93,6 +115,29 @@ def build_dist_edges(edge_args: tuple, K: int, R: int, L: int, off: int = 0, Kl:
     valid = build_slots(edge_args[5], edge_args[9], K, R) >= 0
     rows = slice(off, off + Kl)
     return soa.soa_edges_from_ell(EllEdges(*(a[rows] for a in ee)), valid[rows], L)
+
+
+def build_plane_dist(plane_args: tuple, K: int, R4: int, off: int = 0, Kl: int | None = None) -> EllEdgesPlanes:
+    """The plane slots of pose rows ``[off, off + Kl)`` (default: all K) from
+    ``(pe_k, pe_p, pe_meas, pe_info, pe_mask)``, built once per solve."""
+    Kl = K - off if Kl is None else Kl
+    if off < 0 or Kl <= 0 or off + Kl > K:
+        raise ValueError(f"build_plane_dist: rows [{off}, {off + Kl}) are not inside [0, {K})")
+    eep = build_ell_edges_planes(plane_args, K, R4)
+    return EllEdgesPlanes(*(a[off:off + Kl] for a in eep))
+
+
+def plane_args(pn) -> tuple:
+    return (pn.pe_k, pn.pe_p, pn.pe_meas, pn.pe_info, pn.pe_mask())
+
+
+def plane_chi2(poses_loc: Tensor, planes: Tensor, pe: EllEdgesPlanes, robust_kind: str = "none",
+               robust_delta: float = 1.0) -> Tensor:
+    """The robust chi2 of the range's plane slots at poses ``poses_loc``
+    [Kl, 7] (an empty slot's information is 0)."""
+    R4 = pe.pl.shape[1]
+    r = res.se3_plane_residual(poses_loc[:, None, :].expand(-1, R4, -1), unit_plane_rows(planes[pe.pl]), pe.pmeas)
+    return torch.sum(robust_rho(torch.einsum("kra,krab,krb->kr", r, pe.pinfo, r), robust_kind, robust_delta))
 
 
 def _dus(vec_loc: Tensor, off: int, Kg: int) -> Tensor:
@@ -212,7 +257,8 @@ def _identity(a):
 
 class _LinG(NamedTuple):
     """One linearization after the reduction: the range's primitives for the
-    matvec and the replicated, j-side-folded gradient and diagonal."""
+    matvec and the replicated, j-side-folded gradient and diagonal; with
+    planes, the range's plane W blocks and the replicated plane tables."""
 
     lin: TiledLin
     gp: Tensor  # [6, Kg]
@@ -220,6 +266,24 @@ class _LinG(NamedTuple):
     gl: Tensor  # [L, 3]
     Hll: Tensor  # [L, 3, 3]
     chi2: Tensor
+    Wa: Tensor | None = None  # [Kl, 3 R4, 6]: W^T per pose row (W^T x is one batched product)
+    Wb: Tensor | None = None  # [Kl, 6, 3 R4]: W per pose row
+    gpl: Tensor | None = None  # [Pl, 3]
+    Hpl: Tensor | None = None  # [Pl, 3, 3]
+
+
+def plane_wT_x(Wa: Tensor, x_loc: Tensor, pl_sum: Tensor, Pl: int) -> Tensor:
+    """The plane half of the matvec's first half: W^T x of every plane slot
+    of the range (``Wa`` [Kl, 3 R4, 6], one batched product), summed into
+    the plane table [Pl, 3] at the rows ``pl_sum`` (``pcg.plane_sum_index``)."""
+    return plane_table_sum(pl_sum, torch.bmm(Wa, x_loc.T.unsqueeze(-1)).reshape(-1, 3), Pl)
+
+
+def plane_w_z(Wb: Tensor, z_pl: Tensor, pl_flat: Tensor) -> Tensor:
+    """Its second half: W z_pl, z_pl [Pl, 3] gathered per slot and summed
+    over each pose's slots (``Wb`` [Kl, 6, 3 R4], one batched product): [6, Kl]."""
+    Kl = Wb.shape[0]
+    return torch.bmm(Wb, z_pl[pl_flat].reshape(Kl, Wb.shape[2], 1))[..., 0].T
 
 
 def run_lm_loop_soa_dist(
@@ -227,60 +291,119 @@ def run_lm_loop_soa_dist(
     max_iterations: int, rel_tol: float, max_cg_iters: int = 32, init_lambda_tau: float = 1e-5,
     robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0, prior=None,
     cg_tol: float = 1e-8, allreduce: Callable = _identity, off: int = 0, ops: TiledOps | None = None,
-    pe=None, planes=None, plane_free=None,
+    pe: EllEdgesPlanes | None = None, planes: Tensor | None = None, plane_free: Tensor | None = None,
 ):
     """The Nielsen LM over the replicated state with the edge primitives of
     rows ``[off, off + Kl)`` (``de``). ``allreduce`` takes a tensor or a
     tuple of tensors and returns the sums over all ranges (the identity on
     one device). ``ops`` defaults to the kernels' wrappers; ``PLAIN_OPS``
-    runs the plain versions on any device.
+    runs the plain versions on any device. With ``pe`` (the range's plane
+    slots), ``planes`` [Pl, 4] and ``plane_free`` [Pl] the plane half joins
+    the solve (module docstring).
 
     Per LM iteration: one linearization (K6 + K7; the first iteration reuses
     the damping seed's, built at the same state), the right-hand side (K9),
     ``max_cg_iters`` CG steps (K8 and K9 each), the back-substitution (K8)
-    and the trial objective (K10); a fixed-lag ``prior`` adds no launch.
-    Returns (poses, landmarks, LMStats)."""
-    if pe is not None or planes is not None or plane_free is not None:
-        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: the plane half of the tiled PCG "
-                                  "loop (soa_dist.run_lm_loop_soa_dist with planes)")
+    and the trial objective (K10); a fixed-lag ``prior`` and the plane half
+    add no launch of these kernels.
+    Returns (poses, landmarks, LMStats), with planes (poses, landmarks,
+    planes, LMStats)."""
+    has_planes = pe is not None
+    if has_planes != (planes is not None) or has_planes != (plane_free is not None):
+        raise ValueError("run_lm_loop_soa_dist: pe, planes and plane_free come together")
     ops = ops or kernel_ops()
     dtype = poses.dtype
     Kg, L = poses.shape[0], landmarks.shape[0]
     Kl = de.ll.shape[0]
     pf = pose_free.to(dtype)[None, :]  # [1, Kg]
     lmf = lm_free.to(dtype)
+    if has_planes:
+        Pl, R4 = planes.shape[0], pe.pl.shape[1]
+        plf = plane_free.to(dtype)
+        pl_flat = pe.pl.reshape(-1)  # the gathers' index
+        pl_sum = plane_sum_index(pe, Pl)  # the sums'
 
     def pose_channels(p):
         pc = p.T
         return _slice_k(pc, off, Kl), _slice_k(chs.roll_up_pose_ch(pc), off, Kl)
 
-    def build(p, l):
+    def plane_lin(p, pl):
+        """The range's plane slots, once per linearization: the W blocks in
+        both batched-product layouts, the pose gradient and diagonal
+        [6, Kl] / [6, 6, Kl], the plane tables and the robust chi2."""
+        chi, H_kk, W_kp, H_pp, g_k, g_p = plane_slot_blocks(_slice_k(p.T, off, Kl).T, pl, pe, robust_kind,
+                                                            robust_delta)
+        Hpl = plane_table_sum(pl_sum, H_pp.reshape(-1, 3, 3), Pl)
+        gpl = plane_table_sum(pl_sum, g_p.reshape(-1, 3), Pl)
+        Wb = W_kp.permute(0, 2, 1, 3).reshape(Kl, 6, 3 * R4)
+        return (Wb.transpose(1, 2).contiguous(), Wb.contiguous(), g_k.sum(dim=1).T,
+                H_kk.sum(dim=1).permute(1, 2, 0), gpl, Hpl, chi)
+
+    def build(p, l, pl=None):
         pc, pj = pose_channels(p)
         lin = ops.linearize(pc, pj, l, de, robust_kind, robust_delta)
-        gp_e, gj_e, dg_e, hj_e, gl, Hll, chi = allreduce((
-            _dus(lin.gp, off, Kg), _dus(lin.gj, off, Kg), _dus(lin.diag, off, Kg), _dus(lin.Hjj, off, Kg),
-            lin.gl, lin.Hll, lin.chi2,
+        gp_loc, diag_loc, chi_loc = lin.gp, lin.diag, lin.chi2
+        extra = ()
+        if has_planes:
+            Wa, Wb, gp_add, diag_add, gpl, Hpl, chi_p = plane_lin(p, pl)
+            gp_loc, diag_loc, chi_loc = gp_loc + gp_add, diag_loc + diag_add, chi_loc + chi_p.to(chi_loc.dtype)
+            # K9 applies Hii x per row: the plane slots' pose blocks ride it
+            lin = lin._replace(Hii=lin.Hii + diag_add.to(lin.Hii.dtype))
+            extra = (gpl, Hpl)
+        out = allreduce((
+            _dus(gp_loc, off, Kg), _dus(lin.gj, off, Kg), _dus(diag_loc, off, Kg), _dus(lin.Hjj, off, Kg),
+            lin.gl, lin.Hll, chi_loc, *extra,
         ))
+        gp_e, gj_e, dg_e, hj_e, gl, Hll, chi = out[:7]
         lg = _LinG(lin, gp_e + _shift_down_soa(gj_e), dg_e + _shift_down_soa(hj_e), gl, Hll, chi)
-        return lg if prior is None else apply_prior_blocks(lg, prior, p, l)
+        if has_planes:
+            lg = lg._replace(Wa=Wa, Wb=Wb, gpl=out[7], Hpl=out[8])
+        if prior is None:
+            return lg
+        lg = apply_prior_blocks(lg, prior, p, l)
+        if has_planes:
+            chi_pl, gpl_add = fl._plane_prior_terms(prior, pl)
+            lg = lg._replace(gpl=lg.gpl + gpl_add.to(dtype), Hpl=lg.Hpl + prior.Hpl.to(dtype),
+                             chi2=lg.chi2 + chi_pl.to(lg.chi2.dtype))
+        return lg
 
-    def chi2_at(p, l):
+    def chi2_at(p, l, pl=None):
         pc, pj = pose_channels(p)
-        chi = allreduce(ops.chi2(pc, pj, l, de, robust_kind, robust_delta))
-        return chi if prior is None else chi + fl.prior_chi2(prior, p, l).to(chi.dtype)
+        chi_loc = ops.chi2(pc, pj, l, de, robust_kind, robust_delta)
+        if has_planes:
+            chi_pl = plane_chi2(_slice_k(p.T, off, Kl).T, pl, pe, robust_kind, robust_delta)
+            chi_loc = chi_loc + chi_pl.to(chi_loc.dtype)
+        chi = allreduce(chi_loc)
+        if prior is not None:
+            chi = chi + fl.prior_chi2(prior, p, l).to(chi.dtype)
+            if has_planes:
+                chi = chi + fl._plane_prior_terms(prior, pl)[0].to(chi.dtype)
+        return chi
 
     def solve(lg: _LinG, lam):
-        lin, gp, diag, gl, Hll, _ = lg
+        lin, gp, diag, gl, Hll = lg.lin, lg.gp, lg.diag, lg.gl, lg.Hll
         Ainv = inv33(_masked_eye(Hll, lam, lmf, 3))  # [L, 3, 3]
         Minv = inv66(_masked_eye(diag.permute(2, 0, 1), lam, pf[0], 6)).permute(1, 2, 0)
+        if has_planes:
+            # A_pl^-1 with the inactive planes' rows zeroed (plf is 0/1): z_pl
+            # of an inactive plane is 0 without a mask op a CG step
+            Ainv_pl = inv33(_masked_eye(lg.Hpl, lam, plf, 3)) * plf[:, None, None]  # [Pl, 3, 3]
+            gplm = lg.gpl * plf[:, None]
 
         def full_matvec(x):
             xm = x * pf
             xm_loc = _slice_k(xm, off, Kl)
             xj_loc = _slice_k(chs.roll_up_pose_ch(xm), off, Kl)  # the wrap row's information is 0
             Oa, T_loc = ops.mv_fwd(lin, de, xm_loc)
-            z = torch.einsum("lij,lj->li", Ainv, allreduce(T_loc))
+            if has_planes:
+                T, T_pl = allreduce((T_loc, plane_wT_x(lg.Wa, xm_loc, pl_sum, Pl)))
+                z_pl = torch.einsum("pij,pj->pi", Ainv_pl, T_pl)
+            else:
+                T = allreduce(T_loc)
+            z = torch.einsum("lij,lj->li", Ainv, T)
             u_loc, vj_loc = ops.mv_bwd(lin, de, Oa, z, xm_loc, xj_loc)
+            if has_planes:
+                u_loc = u_loc - plane_w_z(lg.Wb, z_pl, pl_flat)
             u_e, vj_e = allreduce((_dus(u_loc, off, Kg), _dus(vj_loc, off, Kg)))
             u = u_e + _shift_down_soa(vj_e)
             if prior is not None:
@@ -291,11 +414,13 @@ def run_lm_loop_soa_dist(
             return _m66_vec(Minv, r) * pf
 
         # b = -(gp - c), c = Jp^T O' Rt (A^-1 gl) summed over each pose's
-        # slots: K9 with Oa = 0 and x = 0 gives -c
+        # slots (K9 with Oa = 0 and x = 0 gives -c), plus W A_pl^-1 gpl
         glm = gl * lmf[:, None]
         y = torch.einsum("lij,lj->li", Ainv, glm)
         zero_loc = gp.new_zeros((6, Kl))
         cu_loc, _ = ops.mv_bwd(lin, de, torch.zeros_like(lin.v), y, zero_loc, zero_loc)
+        if has_planes:
+            cu_loc = cu_loc - plane_w_z(lg.Wb, torch.einsum("pij,pj->pi", Ainv_pl, gplm), pl_flat)
         b = -(gp + allreduce(_dus(cu_loc, off, Kg))) * pf
 
         x = torch.zeros_like(b)
@@ -317,30 +442,40 @@ def run_lm_loop_soa_dist(
             rz = torch.where(active, rz_new, rz)
 
         dpk = x * pf
-        _, t_loc = ops.mv_fwd(lin, de, _slice_k(dpk, off, Kl))
-        db = torch.einsum("lij,lj->li", Ainv, -glm - allreduce(t_loc)) * lmf[:, None]
-        return dpk.T, db
+        dp_loc = _slice_k(dpk, off, Kl)
+        _, t_loc = ops.mv_fwd(lin, de, dp_loc)
+        if has_planes:
+            t_tab, t_pl = allreduce((t_loc, plane_wT_x(lg.Wa, dp_loc, pl_sum, Pl)))
+            db_pl = torch.einsum("pij,pj->pi", Ainv_pl, -gplm - t_pl)
+        else:
+            t_tab = allreduce(t_loc)
+        db = torch.einsum("lij,lj->li", Ainv, -glm - t_tab) * lmf[:, None]
+        return dpk.T, (torch.cat([db, db_pl]) if has_planes else db)
 
-    lg = build(poses, landmarks)
+    pl = planes if has_planes else None
+    lg = build(poses, landmarks, pl)
     chi2_0 = lg.chi2
     if init_lambda > 0:
         lam = torch.tensor(init_lambda, dtype=dtype, device=poses.device)
     else:
         diag_max = torch.maximum(lg.diag.diagonal(dim1=0, dim2=1).abs().max(),
                                  lg.Hll.diagonal(dim1=-2, dim2=-1).abs().max())
+        if has_planes:
+            diag_max = torch.maximum(diag_max, lg.Hpl.diagonal(dim1=-2, dim2=-1).abs().max())
         lam = (init_lambda_tau * torch.clamp(diag_max, min=1.0)).to(dtype)
 
     p, l, chi2_cur, nu, it = poses, landmarks, chi2_0, 2.0, 0
     while it < max_iterations:
         if it > 0:
-            lg = build(p, l)
-        dp, dl = solve(lg, lam)
+            lg = build(p, l, pl)
+        dp, db = solve(lg, lam)
         p_new = geo.pose_retract(p, dp.to(dtype))
-        l_new = l + dl.to(dtype)
-        chi2_new = chi2_at(p_new, l_new)
+        l_new = l + db[:L].to(dtype)
+        pl_new = plane_retract(pl, db[L:].to(dtype)) if has_planes else None
+        chi2_new = chi2_at(p_new, l_new, pl_new)
 
-        delta = torch.cat([dp.reshape(-1), dl.reshape(-1)])
-        gvec = torch.cat([lg.gp.T.reshape(-1), lg.gl.reshape(-1)])
+        delta = torch.cat([dp.reshape(-1), db.reshape(-1)])
+        gvec = torch.cat([lg.gp.T.reshape(-1), lg.gl.reshape(-1)] + ([lg.gpl.reshape(-1)] if has_planes else []))
         pred = lam * torch.dot(delta, delta) - torch.dot(delta, gvec)
         rho = (chi2_cur - chi2_new) / torch.clamp(pred, min=1e-12)
         finite = torch.isfinite(chi2_new) & torch.all(torch.isfinite(delta))
@@ -351,13 +486,14 @@ def run_lm_loop_soa_dist(
         done = converged | (lam > 1e12)
         accepted, stop = torch.stack([accept, done]).tolist()  # the iteration's one host fetch
         if accepted:
-            p, l, chi2_cur, nu = p_new, l_new, chi2_new, 2.0
+            p, l, pl, chi2_cur, nu = p_new, l_new, pl_new, chi2_new, 2.0
         else:
             nu *= 2.0
         it += 1
         if stop:
             break
-    return p, l, LMStats(it, chi2_0, chi2_cur, lam)
+    stats = LMStats(it, chi2_0, chi2_cur, lam)
+    return (p, l, pl, stats) if has_planes else (p, l, stats)
 
 
 def lm_optimize_soa_tiled(
@@ -400,3 +536,54 @@ def lm_optimize_soa_tiled(
             lin = apply_prior_blocks(lin, prior, g.poses, g.landmarks)
         return g, stats, landmark_marginals_mf_ellk(soa.soa_to_ell_blocks(lin, de), pose_free, lm_free, prior)
     return g, stats
+
+
+def lm_optimize_soa_planes(
+    g: GraphState, pn, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
+    max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
+    prior=None, with_marginals: bool = False, ell_rows: tuple = (1, 1, 8, 8), cg_tol: float = 1e-8,
+    ops: TiledOps | None = None,
+):
+    """The joint LM over poses, point landmarks and plane landmarks ``pn``
+    (``graph/planes.PlaneNodes``) on the row-range loop at any K: the point
+    slots through K6-K10, the plane slots through the loop's plane half.
+    ``ell_rows[3]`` bounds the plane edges per pose, ``prior`` may carry a
+    plane part. Returns (graph, planes, LMStats[, landmark marginals]).
+
+    Below ``min_edges`` edges (odometry, observations and plane edges; the
+    count is fetched unless ``min_edges`` is 0) the state comes back
+    unchanged with ``iterations == 0``. ``with_marginals=True`` also returns
+    the point landmarks' marginals, recovered matrix-free over the L + Pl
+    blocks of a fresh linearization at the final state (K1 + K2 for the
+    point slots, with the prior folded in) and sliced to the first L."""
+    ops = ops or kernel_ops()
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    pose_free, lm_free = _free_masks(g)
+    de = build_dist_edges(_edge_args(g), K, ell_rows[2], L)
+    pe = build_plane_dist(plane_args(pn), K, ell_rows[3])
+    if min_edges > 0 and int(g.num_edges() + pn.num_pe) < min_edges:  # fetches the count
+        pc = g.poses.T
+        chi2 = ops.chi2(pc, chs.roll_up_pose_ch(pc), g.landmarks, de, robust_kind, robust_delta)
+        chi2 = chi2 + plane_chi2(g.poses, pn.planes, pe, robust_kind, robust_delta).to(chi2.dtype)
+        if prior is not None:
+            chi2 = chi2 + fl.prior_chi2_planes(prior, g.poses, g.landmarks, pn.planes).to(chi2.dtype)
+        stats = LMStats(0, chi2, chi2, torch.zeros_like(chi2))
+        return (g, pn, stats, None) if with_marginals else (g, pn, stats)
+
+    poses, landmarks, planes, stats = run_lm_loop_soa_dist(
+        g.poses, g.landmarks, pose_free, lm_free, de, max_iterations, rel_tol, max_cg_iters,
+        robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, prior=prior, cg_tol=cg_tol,
+        ops=ops, pe=pe, planes=pn.planes, plane_free=pn.plane_mask(),
+    )
+    g, pn = g.replace(poses=poses, landmarks=landmarks), pn.replace(planes=planes)
+    if not with_marginals:
+        return g, pn, stats
+    lin_ops = soa.PLAIN_OPS if ops is PLAIN_OPS else soa.kernel_ops()
+    lin = lin_ops.linearize(g.poses, g.landmarks, de, robust_kind, robust_delta)
+    if prior is not None:
+        lin = apply_prior_blocks(lin, prior, g.poses, g.landmarks)
+    eb = ell_linearize_planes(soa.soa_to_ell_blocks(lin, de), g.poses, pn.planes, pe, robust_kind, robust_delta)
+    if prior is not None:
+        eb = apply_prior_blocks_planes(eb, prior)
+    block_free = torch.cat([lm_free, pn.plane_mask()])
+    return g, pn, stats, landmark_marginals_mf_ellk(eb, pose_free, block_free, prior)[:L]

@@ -43,7 +43,12 @@ K7 in K6's, for the pair K6 + K7).
 ``FL_LOG`` with ``--fixed-lag 64 --solver pcg``) and the tiled one (the
 240-step log with ``--solver pcg --max-keyframes 8192``) once to warm up and
 once under a ``torch.profiler`` trace of the device alone, and writes each
-hand-written kernel's launches and summed device ms in the session.
+hand-written kernel's launches and summed device ms in the session, and
+those of every other kernel together. With ``--plane-landmarks`` it replays
+chip_smoke.py's plane sessions in their place: the 240-step log with
+``--plane-landmarks --solver pcg --max-keyframes 4096`` (K6-K10 with the
+plane half at K=4096) and ``FL_LOG`` with ``--plane-landmarks --fixed-lag 64
+--solver pcg`` (K6-K10 at K=512 with a prior that has a plane part).
 
 ``--baseline DIR`` runs this script on DIR and on this checkout in turns
 (baseline, this, this, baseline), each in a process of its own, and writes
@@ -309,9 +314,11 @@ SESSION_NAMES = tuple(dict.fromkeys(K1_NAMES + K2_NAMES + K3_NAMES + K4_NAMES + 
     "rows_mvf_slot", "rows_mvf_lm", "rows_mvb_pose", "score_kernel")))
 
 
-def measure_sessions(torch, cs, smi: str) -> dict:
-    """Launches and summed device ms of each hand-written kernel in the
-    fixed-lag pcg and tiled sessions (one warm-up replay, then one traced)."""
+def measure_sessions(torch, cs, smi: str, planes: bool = False) -> dict:
+    """Launches and summed device ms of each hand-written kernel, and of the
+    other kernels together, in the fixed-lag pcg and tiled sessions, or with
+    ``planes`` the plane pcg and plane fixed-lag pcg sessions (one warm-up
+    replay, then one traced)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,6 +327,10 @@ def measure_sessions(torch, cs, smi: str) -> dict:
     tiled_log = dict(seed=0, n_steps=240, sensor_every=6, loops=1, H=480, W=640)
     sessions = {"fixed-lag pcg": (cs.FL_LOG, ["--fixed-lag", str(cs.FL_WINDOW), "--solver", "pcg"]),
                 "tiled": (tiled_log, ["--solver", "pcg", "--max-keyframes", "8192"])}
+    if planes:
+        sessions = {"plane pcg": (tiled_log, ["--plane-landmarks", "--solver", "pcg", "--max-keyframes", "4096"]),
+                    "plane fixed-lag pcg": (cs.FL_LOG, ["--plane-landmarks", "--fixed-lag", str(cs.FL_WINDOW),
+                                                        "--solver", "pcg"])}
     out = {}
     for label, (log_kw, extra) in sessions.items():
         log = cli.make_synthetic_log(**log_kw)
@@ -332,11 +343,11 @@ def measure_sessions(torch, cs, smi: str) -> dict:
             torch.cuda.synchronize()
         row = {}
         for e in prof.events():
-            name = next((n for n in SESSION_NAMES if f"{n}(" in e.name), None) if e.device_type == DeviceType.CUDA \
-                else None
-            if name:
-                launches, ms = row.get(name, (0, 0.0))
-                row[name] = (launches + 1, ms + e.time_range.elapsed_us() / 1e3)
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = next((n for n in SESSION_NAMES if f"{n}(" in e.name), "other kernels")
+            launches, ms = row.get(name, (0, 0.0))
+            row[name] = (launches + 1, ms + e.time_range.elapsed_us() / 1e3)
         if not row:
             raise RuntimeError(f"no hand-written kernel events in the trace of the {label} session")
         out[label] = {"lm_iterations": [s["iterations"] for s in engine.stats_history],
@@ -346,7 +357,7 @@ def measure_sessions(torch, cs, smi: str) -> dict:
     return out
 
 
-def measure(root: str, reps: int, split: bool, sweep: bool, sessions: bool = False) -> dict:
+def measure(root: str, reps: int, split: bool, sweep: bool, sessions: bool = False, planes: bool = False) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -394,7 +405,7 @@ def measure(root: str, reps: int, split: bool, sweep: bool, sessions: bool = Fal
     print(f"K9 [K=8192 L=2048 R=32]: device {dev:.5f} ms, event {ev:.5f} ms ({out['card']})", flush=True)
 
     if sessions:
-        out["sessions"] = measure_sessions(torch, cs, out["card"])
+        out["sessions"] = measure_sessions(torch, cs, out["card"], planes)
     if split:
         out["split"] = {}
         with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
@@ -423,11 +434,16 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true", help="also K1 + K2, K3, K6 and K6 + K7 under other launch splits")
     ap.add_argument("--sessions", action="store_true",
                     help="also each kernel's launches and device ms in the fixed-lag pcg and tiled sessions")
+    ap.add_argument("--plane-landmarks", action="store_true",
+                    help="with --sessions: the plane pcg and plane fixed-lag pcg sessions instead")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", required=True, help="JSON file to write")
     args = ap.parse_args()
+    if args.plane_landmarks and (args.baseline or not args.sessions):
+        ap.error("--plane-landmarks goes with --sessions and without --baseline (a parent may have no planes)")
     if not args.baseline:
-        res = measure(os.path.abspath(args.root), args.reps, args.split, args.sweep, args.sessions)
+        res = measure(os.path.abspath(args.root), args.reps, args.split, args.sweep, args.sessions,
+                      args.plane_landmarks)
     else:
         runs = []
         for i, root in enumerate((args.baseline, THIS_ROOT, THIS_ROOT, args.baseline)):

@@ -7,8 +7,9 @@ their one call and K10 also at the tiled session's and ragged graphs on each
 row range, K6 alone also at the tiled session's graph; K1 + K2, K1, K3, K4,
 K6, K6 + K7, K9 and K10 also bit for bit on a repeat),
 and small sessions on the card (dense, ``--solver pcg`` and ``--solver pcg``
-on the row-range loop; dense and pcg with fixed-lag smoothing) against the
-same sessions on the CPU.
+on the row-range loop; dense and pcg with fixed-lag smoothing; plane
+landmarks dense, and pcg with fixed-lag smoothing on the row-range loop's
+plane half) against the same sessions on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, carries the ``cuda`` marker
 and skips without a GPU. The file imports no JAX, because the machine with
@@ -692,6 +693,27 @@ SMALL_SESSIONS = {
 }
 
 
+def small_config(assoc, caps, max_iterations, solver, window, planes=False):
+    from semantic_slam_tpu_torch.config import (
+        AssociationConfig, CapacityConfig, KeyframeConfig, SegmentationConfig, SlamConfig, SolverConfig,
+    )
+
+    kf_cap, lme_cap = caps
+    return SlamConfig(
+        keyframe=KeyframeConfig(delta_trans=0.4, delta_angle=0.4, delta_time=2.0),
+        segmentation=SegmentationConfig(
+            num_point_seg=100, norm_point_thres=400, planar_area=0.01, crop_height=64, crop_width=64,
+            max_planes_per_detection=2, num_hypotheses=64, normal_smoothing_size=10,
+        ),
+        association=AssociationConfig(**assoc),
+        solver=SolverConfig(max_iterations=max_iterations, linear_solver=solver, fixed_lag_window=window,
+                            fixed_lag_chunk=8),
+        capacity=CapacityConfig(max_keyframes=kf_cap, max_landmarks=16, max_odom_edges=kf_cap,
+                                max_landmark_edges=lme_cap, max_detections_per_frame=4),
+        use_plane_landmarks=planes,
+    )
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("gating", sorted(SMALL_SESSIONS))
 def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
@@ -703,9 +725,6 @@ def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
     marginalize (the window and the keyframes' archive agree too), and their
     K4 launches all carry the prior."""
     from semantic_slam_tpu_torch import cli
-    from semantic_slam_tpu_torch.config import (
-        AssociationConfig, CapacityConfig, KeyframeConfig, SegmentationConfig, SlamConfig, SolverConfig,
-    )
     from semantic_slam_tpu_torch.solver import kernels as sk
     from semantic_slam_tpu_torch.solver import soa_dist
     from semantic_slam_tpu_torch.solver import tiled_kernels as tk
@@ -713,18 +732,7 @@ def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
     if gating.endswith("tiled"):
         monkeypatch.setattr(soa_dist, "TILED_FROM_K", 0)
     assoc, (kf_cap, lme_cap), max_iterations, solver, window = SMALL_SESSIONS[gating]
-    cfg = SlamConfig(
-        keyframe=KeyframeConfig(delta_trans=0.4, delta_angle=0.4, delta_time=2.0),
-        segmentation=SegmentationConfig(
-            num_point_seg=100, norm_point_thres=400, planar_area=0.01, crop_height=64, crop_width=64,
-            max_planes_per_detection=2, num_hypotheses=64, normal_smoothing_size=10,
-        ),
-        association=AssociationConfig(**assoc),
-        solver=SolverConfig(max_iterations=max_iterations, linear_solver=solver, fixed_lag_window=window,
-                            fixed_lag_chunk=8),
-        capacity=CapacityConfig(max_keyframes=kf_cap, max_landmarks=16, max_odom_edges=kf_cap,
-                                max_landmark_edges=lme_cap, max_detections_per_frame=4),
-    )
+    cfg = small_config(assoc, (kf_cap, lme_cap), max_iterations, solver, window)
     log = cli.make_synthetic_log(seed=3, n_steps=240 if window else 120, sensor_every=5, drift_noise=0.008, H=120,
                                  W=160)
     before = sk.resident_solve.launches, tk.tiled_mv_bwd.launches, sk.resident_solve.prior_launches
@@ -746,3 +754,48 @@ def test_small_session_card_matches_cpu(cuda, gating, monkeypatch):
     n = int(cpu.graph.num_lme)
     np.testing.assert_array_equal(gpu.graph.lme_l[:n].cpu().numpy(), cpu.graph.lme_l[:n].numpy())
     np.testing.assert_allclose(gpu.get_keyframe_poses(), cpu.get_keyframe_poses(), atol=1e-3)
+
+
+PLANE_SESSIONS = {
+    # chip_smoke.py's plane sessions A (dense) and C (pcg with fixed-lag smoothing: the row-range loop's plane
+    # half, K6-K10, with a prior that has a plane part), at a small size
+    "maha-planes": (MAHA, (16, 64), 32, "dense", 0),
+    "maha-pcg-planes-fixed-lag": (MAHA, (8, 64), 32, "pcg", 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PLANE_SESSIONS))
+def test_small_plane_session_card_matches_cpu(cuda, case):
+    """Plane landmarks on the card and on the CPU, same log and config (f32):
+    the same map (keyframes, landmarks, planes, plane edges), trajectories
+    and planes within 1e-3. With ``pcg`` every LM iteration on the card runs
+    K6-K10 (the plane LM takes the row-range loop at every K) and no K4; the
+    fixed-lag session marginalizes into a prior with a plane part."""
+    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.solver import kernels as sk
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    assoc, caps, max_iterations, solver, window = PLANE_SESSIONS[case]
+    cfg = small_config(assoc, caps, max_iterations, solver, window, planes=True)
+    log = cli.make_synthetic_log(seed=3, n_steps=240 if window else 120, sensor_every=5, drift_noise=0.008, H=120,
+                                 W=160)
+    before = sk.resident_solve.launches, tk.tiled_mv_bwd.launches, tk.tiled_chi2.launches
+    gpu, cpu = cli.run_session(log, cfg, "cuda"), cli.run_session(log, cfg, "cpu")
+    assert sk.resident_solve.launches == before[0]
+    assert (tk.tiled_mv_bwd.launches > before[1]) == (solver == "pcg")
+    assert (tk.tiled_chi2.launches > before[2]) == (solver == "pcg")
+    if window:
+        assert gpu._kf_base == cpu._kf_base > 0 and gpu._n_poses == cpu._n_poses < window + 8
+        assert float(gpu.prior.Hpl.abs().sum()) > 0
+    assert gpu.graph.poses.device.type == gpu.plane_nodes.planes.device.type == "cuda"
+    assert gpu.graph.max_poses > caps[0] and gpu.plane_nodes.max_planes == gpu.graph.max_landmarks  # grew
+    pg, pc = gpu.plane_nodes, cpu.plane_nodes
+    assert int(cpu.table.count) > 0
+    assert (len(gpu.keyframes), int(gpu.table.count), int(pg.num_planes), int(pg.num_pe)) == (
+        len(cpu.keyframes), int(cpu.table.count), int(pc.num_planes), int(pc.num_pe))
+    assert int(pc.num_planes) == int(cpu.table.count) and int(pc.num_pe) == int(cpu.graph.num_lme)
+    P, E3 = int(pc.num_planes), int(pc.num_pe)
+    np.testing.assert_array_equal(pg.pe_p[:E3].cpu().numpy(), pc.pe_p[:E3].numpy())
+    np.testing.assert_allclose(gpu.get_keyframe_poses(), cpu.get_keyframe_poses(), atol=1e-3)
+    np.testing.assert_allclose(pg.planes[:P].cpu().numpy(), pc.planes[:P].numpy(), atol=1e-3)

@@ -137,7 +137,7 @@ def test_marginalize_matches_f64(marg):
             np.testing.assert_array_equal(getattr(tg, f).numpy(), np.asarray(getattr(jg, f)), err_msg=f)
         for f in tfl.MarginalPrior._fields:
             want, got = np.asarray(getattr(jps[step], f)), getattr(tps[step], f).numpy()
-            if f in ("p_idx", "num_p", "p_ref", "l_ref"):
+            if f in ("p_idx", "num_p", "p_ref", "l_ref") or want.size == 0:  # (the empty plane part)
                 np.testing.assert_array_equal(got, want, err_msg=f)
             else:
                 close(got, want, 1e-8, f"step {step}: {f}")
@@ -162,10 +162,13 @@ def test_prior_numpy_round_trip(marg):
     back = prior_to_jax(tp)
     for f in jfl.MarginalPrior._fields:
         np.testing.assert_array_equal(np.asarray(getattr(back, f)), np.asarray(getattr(jp, f)), err_msg=f)
+    # a plane part crosses too (plane landmarks)
     planar = {k: np.asarray(v) for k, v in jfl.empty_prior(L, Pl=2, dtype=jnp.float64)._asdict().items()}
     planar["Hpl"] = planar["Hpl"] + np.eye(3)
-    with pytest.raises(NotImplementedError, match="plane part"):
-        tfl.prior_from_numpy(planar)
+    planar["gpl0"] = planar["gpl0"] + 0.5
+    back = tfl.prior_to_numpy(tfl.prior_from_numpy(planar))
+    for f in jfl.MarginalPrior._fields:
+        np.testing.assert_array_equal(back[f], planar[f], err_msg=f)
 
 
 def test_grow_prior_pads_landmarks(marg):

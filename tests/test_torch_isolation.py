@@ -52,6 +52,9 @@ def _imported_names(path: pathlib.Path) -> list[str]:
 def test_no_jax_imports():
     files = sorted((REPO / "semantic_slam_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
+    # the plane-landmark modules are among them
+    rel = {str(f.relative_to(REPO)) for f in files}
+    assert {f"semantic_slam_tpu_torch/{m}.py" for m in ("graph/planes", "frontend/hull", "solver/plane_ba")} <= rel
     bad = {str(f.relative_to(REPO)): n for f in files for n in _imported_names(f) if n.split(".")[0] in FORBIDDEN}
     assert not bad, bad
     # the scan sees what it looks for

@@ -196,9 +196,10 @@ def test_jax_session_checkpoint_loads_in_port(which, dense, fixed_lag):
             x, y = getattr(a, f.name).numpy(), getattr(b, f.name).numpy()
             assert x.dtype == y.dtype, f.name
             np.testing.assert_allclose(x, y, atol=TOL, rtol=0, err_msg=f.name)
-    for f in je.prior._fields:
-        np.testing.assert_allclose(getattr(je.prior, f).numpy(), getattr(te.prior, f).numpy(), rtol=TOL,
-                                   atol=TOL * max(1.0, float(getattr(te.prior, f).abs().max())), err_msg=f)
+    for f in je.prior._fields:  # a point session's plane part is empty (Pl = 0) in both
+        t = getattr(te.prior, f)
+        np.testing.assert_allclose(getattr(je.prior, f).numpy(), t.numpy(), rtol=TOL,
+                                   atol=TOL * max(1.0, float(t.abs().max()) if t.numel() else 0.0), err_msg=f)
     np.testing.assert_allclose(np.asarray(je.archived_poses).reshape(-1, 7),
                                np.asarray(te.archived_poses).reshape(-1, 7), atol=TOL, rtol=0)
     assert je._kf_base == te._kf_base and [k.node_idx for k in je.keyframes] == [k.node_idx for k in te.keyframes]

@@ -19,6 +19,9 @@ TILED_LAYERS = ("lm_optimize_soa_tiled", "build_dist_edges", "tiled_fused_linear
                 "tiled_mv_bwd", "tiled_chi2")
 # the layers only fixed-lag smoothing runs
 PRIOR_LAYERS = ("marginalize", "lm_optimize_prior", "prior_fold", "prior_matvec", "prior_marginals")
+# the layers only plane landmarks run (their ticks share the point ticks' labels)
+PLANE_LAYERS = ("lm_optimize_with_planes", "linearize_with_planes", "lm_optimize_soa_planes", "plane_lin",
+                "plane_matvec", "ell_linearize_planes")
 
 
 def _small(solver: str, max_iterations: int, n_steps: int = 42, **solver_kw):
@@ -41,7 +44,7 @@ def test_profile_session_times_every_layer_and_unwraps():
     plain, traced = report["plain"], report["traced"]
     assert plain["lm_iterations"] == traced["lm_iterations"]
     rows = {r["layer"]: r for r in report["layers"]}
-    assert all(rows.pop(label)["calls"] == 0 for label in PCG_LAYERS + TILED_LAYERS + PRIOR_LAYERS)
+    assert all(rows.pop(label)["calls"] == 0 for label in PCG_LAYERS + TILED_LAYERS + PRIOR_LAYERS + PLANE_LAYERS)
     assert all(r["calls"] > 0 and r["host_ms_total"] > 0 and r["device_ms_total"] is None for r in rows.values())
     assert rows["_optimize_tick"]["calls"] == len(traced["tick_ms"])
     assert rows["score_hypotheses"]["calls"] == cfg.segmentation.max_planes_per_detection * rows["extract_planes"]["calls"]
@@ -112,3 +115,37 @@ def test_profile_session_fixed_lag_labels_the_prior_layers():
             assert rows["prior_fold"] == rows["resident_linearize"] > 0
             assert rows["prior_marginals"] == rows["landmark_marginals_mf"] > 0
             assert rows["lm_optimize_prior"] == rows["prior_matvec"] == 0
+
+
+def test_profile_session_planes_counts_the_plane_layers():
+    """Plane-landmark sessions: on the dense LM one plane linearization per
+    LM iteration plus the first of each solve (and the point marginals' one
+    linearization at its end); on pcg the row-range loop at
+    this small K, with the plane half's linearization (``plane_lin``) once
+    per LM iteration and its products (``plane_matvec``) twice per CG step
+    plus once for the right-hand side and once for the back-substitution,
+    K10 once per LM iteration and once per solve skipped below the edge
+    gate, the plane blocks joining the marginals once per solve."""
+    for solver in ("dense", "pcg"):
+        log, cfg = _small(solver, 2, n_steps=60, pcg_iters=2)
+        report = ps.profile_session(log, cfg.replace(use_plane_landmarks=True), "cpu")
+        traced = report["traced"]
+        rows = {r["layer"]: r["calls"] for r in report["layers"]}
+        ran = [it for it in traced["lm_iterations"] if it > 0]
+        assert ran, solver
+        assert rows["lm_optimize"] == rows["lm_optimize_soa"] == rows["lm_optimize_soa_tiled"] == 0
+        if solver == "dense":
+            assert rows["lm_optimize_with_planes"] == rows["_optimize_tick"] == len(traced["tick_ms"])
+            assert rows["linearize_with_planes"] == sum(ran) + len(ran)
+            # and the point marginals' fresh linearization at the final state
+            assert rows["linearize_arrays"] == rows["linearize_with_planes"] + len(ran)
+            assert rows["lm_optimize_soa_planes"] == rows["plane_lin"] == 0
+        else:
+            assert rows["lm_optimize_soa_planes"] == rows["_optimize_tick"] == len(traced["tick_ms"])
+            assert rows["plane_lin"] == rows["tiled_fused_linearize"] == sum(ran)
+            # K10 once per LM iteration and once per solve skipped below the edge gate
+            assert rows["tiled_chi2"] == sum(ran) + rows["lm_optimize_soa_planes"] - len(ran)
+            assert rows["lm_optimize_soa_planes"] > len(ran)
+            assert rows["plane_matvec"] == sum(it * (2 * 2 + 2) for it in ran)
+            assert rows["ell_linearize_planes"] == rows["landmark_marginals_mf"] == len(ran)
+            assert rows["lm_optimize_with_planes"] == 0

@@ -118,16 +118,9 @@ def _with(section: str, **kw):
 UNPORTED = {
     "pcg": lambda cfg: cfg.replace(solver=SolverConfig(linear_solver="pcg", pcg_precond="tridiag")),
     "mesh.num_devices": _with("mesh", num_devices=4),
-    "use_plane_landmarks": lambda cfg: cfg.replace(use_plane_landmarks=True),
     "ingest_window": _with("solver", ingest_window=4),
     "use_const_inf_matrix": _with("information", use_const_inf_matrix=False),
     "adaptive_normals": _with("segmentation", adaptive_normals=True),
-    "fixed_lag_window with use_plane_landmarks": lambda cfg: cfg.replace(
-        use_plane_landmarks=True, solver=dataclasses.replace(cfg.solver, fixed_lag_window=24)),
-    # the row-range (tiled) PCG loop that --max-keyframes above 4096 takes
-    "plane half of the tiled PCG loop": lambda cfg: cfg.replace(
-        use_plane_landmarks=True, solver=SolverConfig(linear_solver="pcg"),
-        capacity=dataclasses.replace(cfg.capacity, max_keyframes=8192)),
 }
 
 

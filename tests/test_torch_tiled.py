@@ -44,7 +44,6 @@ from semantic_slam_tpu_torch.runtime import engine as teng
 from semantic_slam_tpu_torch.solver import chain_soa as tchs
 from semantic_slam_tpu_torch.solver import soa_dist as tsd
 from semantic_slam_tpu_torch.solver import tiled_kernels as ttk
-from semantic_slam_tpu_torch.solver.lm import _free_masks
 from semantic_slam_tpu_torch.solver.pcg import _edge_args
 from tests.test_pcg import _sort_obs_edges
 from tests.test_solver import build_chain_graph
@@ -337,14 +336,6 @@ def test_lm_optimize_soa_tiled_matches_pallas_interpret_f32(f32, force_small_blo
     tg2, ts = tsd.lm_optimize_soa_tiled(tg, ell_rows=rows, **KW)
     np.testing.assert_allclose(tg2.poses.numpy(), np.asarray(jg.poses), atol=5e-4, rtol=0)
     np.testing.assert_allclose(float(ts.chi2_final), float(js.chi2_final), rtol=1e-3)
-
-
-def test_unported_parts_raise(f64):
-    _, tg, rows = f64
-    de = tsd.build_dist_edges(_edge_args(tg), tg.poses.shape[0], rows[2], tg.landmarks.shape[0])
-    pf, lf = _free_masks(tg)
-    with pytest.raises(NotImplementedError, match="plane half of the tiled PCG loop"):
-        tsd.run_lm_loop_soa_dist(tg.poses, tg.landmarks, pf, lf, de, 4, 0.0, planes=tg.landmarks)
 
 
 # ---------------------------------------------------------------------------
