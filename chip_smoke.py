@@ -77,6 +77,19 @@ before the result line:
              its finalize pass; and ``cli merge`` of the first half's
              checkpoint with the unbroken session's (chi2 not rising, no more
              landmarks than the sessions'); its wall time printed;
+10b. the ROS surface -- the dense slice's log written as a rosbag (read back,
+             ``baginfo``) and, from the bag's read-back, as a ``.slog``; ``cli
+             run`` from each with ``--solver pcg --max-keyframes 4096 --voxel
+             --carve --viz-bag-detections``: the counts of the read-back log
+             replayed from memory and its ATE within 1%, the pcg slice's
+             keyframes and ATE within 1%, K5 once more for each detection
+             keyframe the viz bag re-runs, viz.bag read back; the two sessions' voxel maps equal
+             (the .slog clouds, read after the reader closed, at the .bag
+             poses: bit for bit), the card's map against a CPU rebuild (hits
+             of every keyframe, one keyframe's carving: at most 0.1% of the
+             voxels differ), its hits the valid points inside its chunks; the
+             voxel ms per keyframe with and without carving and its peak
+             device memory, the bag and .slog MB/s and the phase's wall time;
 11. fixed-lag session lifecycle -- the fixed-lag pcg session's log split at
              three quarters (after its first marginalization): the first part
              with --checkpoint (LM-optimized state and a non-empty prior),
@@ -1076,9 +1089,11 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
 
     n_det_kf = sum(1 for kf in engine.keyframes if _is_det(kf))  # restored keyframes carry no cloud
     rounds = cfg.segmentation.max_planes_per_detection
+    # --viz-bag-detections re-runs the frontend (segment_keyframe) on every detection keyframe
+    passes = 2 if args.viz_bag_detections else 1
     print(f"[{label}] launches: {launches}; score_hypotheses expected {n_det_kf} detection keyframes x {rounds} "
-          f"extraction rounds = {n_det_kf * rounds}")
-    require(launches["score_hypotheses"] > 0 and launches["score_hypotheses"] == n_det_kf * rounds,
+          f"extraction rounds x {passes} frontend passes = {n_det_kf * rounds * passes}")
+    require(launches["score_hypotheses"] > 0 and launches["score_hypotheses"] == n_det_kf * rounds * passes,
             f"[{label}] K5 launches do not match the extraction rounds")
     iters = [s["iterations"] for s in own]
     loop = None
@@ -1321,6 +1336,216 @@ def check_lifecycle(torch, log) -> dict:
     wall = time.perf_counter() - t0
     print(f"lifecycle: phase wall {wall:.2f} s")
     return {"wall_s": wall, "checkpoint_bytes": ckpt_bytes, "tensors": n_tensors}
+
+
+# ---------------------------------------------------------------------------
+# 10b. the ROS surface
+# ---------------------------------------------------------------------------
+
+ROS_SOLVER = ["--solver", "pcg", "--max-keyframes", "4096"]  # the pcg slice's
+ROS_OUTPUTS = ["--voxel", "--carve", "--viz-bag-detections"]
+VOXEL_DIFF_SHARE = 1e-3  # card map against a CPU rebuild: voxels whose hits differ, share of occupied ones
+ATE_RTOL = 1e-2  # a bag session's ATE against the pcg slice's
+
+
+def _maps_equal(torch, a, b) -> bool:
+    return list(a.chunks) == list(b.chunks) and all(
+        torch.equal(a.chunks[cc].hits, g.hits) and torch.equal(a.chunks[cc].misses, g.misses)
+        for cc, g in b.chunks.items())
+
+
+def check_ros_surface(torch, log, pcg: dict) -> dict:
+    """The ROS surface on the card, on the dense slice's log (640x480): the
+    log written as a rosbag and read back, that read-back log written as a
+    ``.slog`` (so both files hold the same inputs), ``baginfo``; then ``cli
+    run`` from each file with ``--solver pcg --max-keyframes 4096 --voxel
+    --carve --viz-bag-detections``, beside the read-back log in memory
+    (``ros_mem``, what an ``.npz`` of it replays) with ``--solver pcg
+    --max-keyframes 4096``. Each file's session: ``ros_mem``'s keyframe,
+    landmark and edge counts and ATE within 1%; the pcg slice's keyframes and
+    ATE within 1% (its counts printed beside: the bag's boxes are whole
+    pixels, the log's are not); K1-K5 launched as its LM
+    iterations and detection keyframes imply (K5 again for each detection
+    keyframe the viz bag re-runs); viz.bag read back with the topic counts
+    ``write_viz_bag`` returned. The two sessions' voxel maps: equal voxel for
+    voxel where their poses are bit for bit equal (else within the CPU
+    rebuild's share); the .slog session's clouds, read after its reader
+    closed, at the .bag session's poses give the .bag session's map. The
+    card's map against a CPU rebuild of its hits (every keyframe) and of
+    one keyframe's carving: at most 0.1% of the occupied voxels differ; its
+    hits are its valid points inside its chunks. Prints the voxel ms per
+    keyframe with and without carving, the bag and .slog MB/s, and the
+    phase's wall time."""
+    t_phase = time.perf_counter()
+    d = os.path.join(OUT_DIR, "ros")
+    os.makedirs(d, exist_ok=True)
+    bag, slog = os.path.join(d, "dense.bag"), os.path.join(d, "dense.slog")
+    H, W = log.clouds[0].points.shape[:2]
+    try:
+        return _ros_sessions(torch, log, pcg, bag, slog, H, W, t_phase)
+    finally:
+        for f in (bag, slog):
+            if os.path.exists(f):
+                os.remove(f)
+
+
+def _ros_sessions(torch, log, pcg: dict, bag: str, slog: str, H: int, W: int, t_phase: float) -> dict:
+    """``check_ros_surface``'s body; the caller deletes the two log files."""
+    import numpy as np
+
+    from semantic_slam_tpu_torch import cli, native
+    from semantic_slam_tpu_torch.io import rosbag, rosbag_write
+    from semantic_slam_tpu_torch.mapping import voxel as vox
+
+    rates = {}
+
+    def timed(name, fn, path):
+        t0 = time.perf_counter()
+        out = fn()
+        sec = time.perf_counter() - t0
+        rates[name] = (os.path.getsize(path) / 1e6, sec)
+        print(f"ros: {name} {os.path.getsize(path) / 1e6:.1f} MB in {sec:.2f} s = "
+              f"{os.path.getsize(path) / 1e6 / sec:.1f} MB/s (host)")
+        return out
+
+    timed("bag write", lambda: rosbag_write.write_bag(bag, log), bag)
+    blog = timed("bag read", lambda: rosbag.read_bag(bag), bag)
+    require(len(blog.clouds) == len(log.clouds) and len(blog.odom) == len(log.odom)
+            and len(blog.detections) == len(log.detections), "the bag read back other counts than the log")
+    require(sum(int(np.isnan(c.points).any()) for c in blog.clouds) > 0, "the bag's clouds carry no NaN")
+    timed("slog write", lambda: native.write_slog(slog, blog, height=H, width=W), slog)
+    timed("slog read", lambda: sum(1 for _ in _slog_clouds(native, slog)), slog)
+    print("ros: baginfo")
+    cli.main(["baginfo", bag])
+    mem = run_slice(torch, blog, ROS_SOLVER, "ros_mem")
+    del mem["engine"]
+
+    grids, vox_ms, vox_mb = {}, {}, {}
+    orig = cli.build_voxel_map
+
+    def recording(engine, carve=False):
+        """``build_voxel_map``, synced and timed, with its peak device memory
+        above what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        g = orig(engine, carve)
+        torch.cuda.synchronize()
+        vox_ms[carve] = 1e3 * (time.perf_counter() - t0)
+        vox_mb[carve] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        grids["last"] = g
+        return g
+
+    runs = {}
+    cli.build_voxel_map = recording
+    try:
+        for fmt, path in (("bag", bag), ("slog", slog)):
+            r = run_slice(torch, cli.load_replay_log(path), ROS_SOLVER + ROS_OUTPUTS, f"ros_{fmt}")
+            r["grid"] = grids.pop("last")
+            r["voxel_ms"] = vox_ms.pop(True)
+            runs[fmt] = r
+    finally:
+        cli.build_voxel_map = orig
+
+    for fmt, r in runs.items():
+        s = r["summary"]
+        for ref, label, keys in ((mem["summary"], "ros_mem", ("keyframes", "landmarks", "edges")),
+                                 (pcg["summary"], "the pcg slice", ("keyframes",))):
+            for k in keys:
+                require(s[k] == ref[k], f"ros_{fmt}: {k} {s[k]} != {label}'s {ref[k]}")
+            require(abs(s["ate_rmse_optimized"] - ref["ate_rmse_optimized"]) <= ATE_RTOL * ref["ate_rmse_optimized"],
+                    f"ros_{fmt}: ATE {s['ate_rmse_optimized']} not within 1% of {label}'s {ref['ate_rmse_optimized']}")
+        info = {t: n for t, (_, n) in rosbag.bag_info(os.path.join(r["out"], "viz.bag")).items()}
+        require(info == s["viz_bag"], f"ros_{fmt}: viz.bag holds {info}, write_viz_bag returned {s['viz_bag']}")
+        require(s["viz_bag"].get("/detected_landmarks", 0) >= 1 and s["viz_bag"].get("/occupancy") == 1,
+                f"ros_{fmt}: viz.bag lacks detections or occupancy: {s['viz_bag']}")
+        require(os.path.getsize(os.path.join(r["out"], "occupancy.ply")) > 0, f"ros_{fmt}: no occupancy.ply")
+        print(f"ros_{fmt}: keyframes / landmarks / edges {s['keyframes']} / {s['landmarks']} / {s['edges']}, ATE "
+              f"{s['ate_rmse_optimized']:.6g} m; ros_mem {mem['summary']['landmarks']} landmarks, "
+              f"{mem['summary']['edges']} edges, ATE {mem['summary']['ate_rmse_optimized']:.6g}; the pcg slice "
+              f"{pcg['summary']['landmarks']} / {pcg['summary']['edges']}, ATE "
+              f"{pcg['summary']['ate_rmse_optimized']:.6g}; viz.bag {s['viz_bag']}")
+
+    eb, es = runs["bag"]["engine"], runs["slog"]["engine"]
+    gb, gs = runs["bag"]["grid"], runs["slog"]["grid"]
+    pose_diff = float(np.abs(eb.get_keyframe_poses() - es.get_keyframe_poses()).max())
+    # the .slog session's clouds (read after its reader closed) at the .bag session's poses
+    cross = vox.ChunkedVoxelMap(carve=True, strict_frames=eb.cfg.strict_reference_frames, dtype=eb.dtype)
+    for kb, ks in zip(eb.keyframes, es.keyframes):
+        pts, valid = cli.voxel_inputs(es, ks)[:2]
+        cross.insert_keyframe_cloud(pts, valid, *cli.voxel_inputs(eb, kb)[2:])
+    require(_maps_equal(torch, cross, gb), "ros: the .slog clouds at the .bag poses map otherwise than the .bag")
+
+    # the card's map against a CPU rebuild of its hits, and of the first keyframe's carving
+    occupied = sum(int((g.hits >= 2).sum()) for g in gb.chunks.values())
+    cpu_map = vox.ChunkedVoxelMap(strict_frames=eb.cfg.strict_reference_frames, dtype=eb.dtype)
+    inside = 0  # valid points inside the card's chunks, counted by masks
+    t0 = time.perf_counter()
+    for kf in eb.keyframes:
+        pts, valid, xyzrpy, cam = cli.voxel_inputs(eb, kf)
+        cpu_map.insert_keyframe_cloud(pts.cpu(), valid.cpu(), xyzrpy.cpu(), cam.cpu())
+        w, v = vox._world_points_aabb(pts, valid, xyzrpy, cam)[:2]
+        for g in gb.chunks.values():
+            idx = vox._indices(g, torch.where(v[:, None], w, g.origin).unbind(-1))
+            inside += int((vox._in_bounds(g, idx) & v).sum())
+    cpu_s = time.perf_counter() - t0
+    differ = sum(int((gb.chunks[cc].hits.cpu() != g.hits).sum()) for cc, g in cpu_map.chunks.items())
+    differ += sum(int(gb.chunks[cc].hits.sum() > 0) for cc in gb.chunks if cc not in cpu_map.chunks)
+    maps_differ = -1  # other chunks
+    if list(gs.chunks) == list(gb.chunks):
+        maps_differ = sum(int((gb.chunks[cc].hits != g.hits).sum() + (gb.chunks[cc].misses != g.misses).sum())
+                          for cc, g in gs.chunks.items())
+    print(f"ros: voxel maps: {len(gb.chunks)} chunks, {occupied} occupied voxels, {gb.total_hits()} hits "
+          f"({inside} valid points inside the chunks); the CPU rebuild's hits differ in {differ} voxels "
+          f"({cpu_s:.1f} s on the host); .slog against .bag session: max pose difference {pose_diff:.3g}, "
+          f"{maps_differ} voxels differ")
+    require(occupied > 0 and differ <= VOXEL_DIFF_SHARE * occupied,
+            f"ros: {differ} voxels differ from the CPU rebuild ({occupied} occupied)")
+    require(gb.total_hits() == inside, f"ros: {gb.total_hits()} hits for {inside} valid points inside the chunks")
+    if pose_diff == 0.0:
+        require(maps_differ == 0, f"ros: the .slog and .bag sessions' maps differ ({maps_differ}) at equal poses")
+    else:
+        require(0 <= maps_differ <= VOXEL_DIFF_SHARE * occupied,
+                f"ros: the .slog and .bag sessions' maps differ in {maps_differ} voxels")
+    kf0 = next(kf for kf in eb.keyframes if kf.cloud is not None)
+    one_card = vox.ChunkedVoxelMap(carve=True, strict_frames=eb.cfg.strict_reference_frames, dtype=eb.dtype)
+    one_cpu = vox.ChunkedVoxelMap(carve=True, strict_frames=eb.cfg.strict_reference_frames, dtype=eb.dtype)
+    pts, valid, xyzrpy, cam = cli.voxel_inputs(eb, kf0)
+    one_card.insert_keyframe_cloud(pts, valid, xyzrpy, cam)
+    t0 = time.perf_counter()
+    one_cpu.insert_keyframe_cloud(pts.cpu(), valid.cpu(), xyzrpy.cpu(), cam.cpu())
+    carve_cpu_s = time.perf_counter() - t0
+    require(list(one_card.chunks) == list(one_cpu.chunks), "ros: one keyframe's carving made other chunks on the CPU")
+    carved = sum(int((g.misses > 0).sum()) for g in one_cpu.chunks.values())
+    carve_differ = sum(int((one_card.chunks[cc].misses.cpu() != g.misses).sum()) for cc, g in one_cpu.chunks.items())
+    print(f"ros: one keyframe's carving on the CPU ({carve_cpu_s:.1f} s): {carved} carved voxels, {carve_differ} differ "
+          f"from the card's")
+    require(carved > 0 and carve_differ <= VOXEL_DIFF_SHARE * carved,
+            f"ros: one keyframe's misses differ in {carve_differ} of {carved} carved voxels")
+
+    n_kf = sum(1 for kf in eb.keyframes if kf.cloud is not None)
+    recording(eb, carve=False)  # the map without carving, timed alone
+    plain_ms = vox_ms.pop(False)
+    wall = time.perf_counter() - t_phase
+    mbs = {k: round(mb / sec, 1) for k, (mb, sec) in rates.items()}
+    print(f"ros: voxel map ms per keyframe ({n_kf} keyframes, 640x480, synced): with carving "
+          f"{runs['bag']['voxel_ms'] / n_kf:.2f} (.bag session) / {runs['slog']['voxel_ms'] / n_kf:.2f} (.slog), "
+          f"without {plain_ms / n_kf:.2f}; peak device MB of the build above what was allocated: with carving "
+          f"{vox_mb[True]:.1f}, without {vox_mb[False]:.1f} ({len(gb.chunks)} chunks of "
+          f"{gb.chunks[next(iter(gb.chunks))].hits.numel() * 8 / 1e6:.1f} MB); MB/s {mbs}; phase wall {wall:.2f} s")
+    for r in runs.values():
+        del r["engine"], r["grid"]
+    return {"wall_s": wall, "mb_per_s": mbs, "voxel_ms_per_kf_carve": runs["bag"]["voxel_ms"] / n_kf,
+            "voxel_ms_per_kf": plain_ms / n_kf}
+
+
+def _slog_clouds(native, path):
+    """Every cloud of a ``.slog`` file, copied out of the mapped file."""
+    with native.SlogReader(path) as r:
+        for i in range(r.n_cloud):
+            t, xyz, valid = r.cloud(i)
+            yield t, xyz.copy(), valid
 
 
 FL_SPLIT = 0.75  # ~90 of FL_LOG's 120 keyframes: a marginalization (at the 81st) before the split, two after
@@ -1603,6 +1828,8 @@ def main() -> int:
             del r["engine"]
         phase("session lifecycle on the card")
         check_lifecycle(torch, log)
+        phase("the ROS surface on the card")
+        check_ros_surface(torch, log, pcg)
 
         t0 = time.perf_counter()
         fl_log = cli.make_synthetic_log(**FL_LOG)

@@ -4,9 +4,9 @@ Module paths mirror the JAX package so each port module sits at the path of
 the JAX function it replaces. The port imports nothing of the JAX package:
 what it needs of the JAX package's jax-free modules (``config``,
 ``core.np_geometry``, ``io``, ``eval``, ``runtime.keyframe_gate``,
-``viz.markers``, ``utils.profiling``) is copied here at the same relative
-path, trimmed to what the port calls. This package imports torch and never
-jax.
+``viz.markers``, ``viz.rviz_bag``, ``utils.profiling``, and ``native``'s
+C++ source) is copied here at the same relative path, trimmed to what the
+port calls. This package imports torch and never jax.
 
 The Schur products and Cholesky factors run in full float32 on the card:
 TF32 is switched off for matmuls and cuDNN here, at import.

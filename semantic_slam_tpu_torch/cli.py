@@ -9,6 +9,9 @@
   python -m semantic_slam_tpu_torch.cli run --log a.npz --out a/ --checkpoint --save-graph --dump-keyframes
   python -m semantic_slam_tpu_torch.cli run --log b.npz --out b/ --resume a/checkpoint.npz
   python -m semantic_slam_tpu_torch.cli merge a/checkpoint.npz b/checkpoint.npz --out merged/ [--plane-landmarks]
+  python -m semantic_slam_tpu_torch.cli synth --out lab.bag   (or lab.slog)
+  python -m semantic_slam_tpu_torch.cli baginfo lab.bag
+  python -m semantic_slam_tpu_torch.cli run --log lab.bag --voxel --carve --viz-bag-detections --device cuda
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
@@ -32,8 +35,15 @@ the fresh engine before the replay; with plane landmarks the graph and the
 checkpoint carry the plane nodes. ``merge`` joins session checkpoints into
 one map (landmarks unified by class, plane type and radius; with
 ``--plane-landmarks`` their planes too) and runs the joint dense LM over it,
-writing ``merged_pose.txt``, ``merged_graph.g2o`` and ``summary.json``. ``synth`` writes the same ``.npz`` log as the JAX
-package's command.
+writing ``merged_pose.txt``, ``merged_graph.g2o`` and ``summary.json``. ``synth`` writes the JAX
+package's logs: ``.npz``, the native ``.slog``, or a rosbag 2.0 ``.bag`` on
+the reference node's topics. ``run --log`` reads all three. ``baginfo``
+lists a bag's topics, types and counts. ``--voxel`` maps every keyframe's
+cloud at its optimized pose into a chunked occupancy map (``--carve`` adds
+free-space carving) and writes ``occupancy.ply``; ``--viz-bag`` writes
+``viz.bag``, the reference's rviz topics, and ``--viz-bag-detections`` adds
+the per-keyframe ``/detected_landmarks`` stream, re-running the frontend on
+each detection keyframe's stored cloud.
 """
 
 from __future__ import annotations
@@ -94,11 +104,30 @@ def make_config(args):
     return cfg
 
 
+class SlogLog:
+    """A ``.slog`` log as ``run`` takes it: replayed from its file
+    (``io.replay.replay_slog``), with its ground truth in memory."""
+
+    def __init__(self, path: str):
+        from semantic_slam_tpu_torch.io import replay as replay_mod
+
+        self.path = path
+        gt_t, gt_p = replay_mod.slog_gt(path)
+        self.gt = [replay_mod.GtEvent(float(t), p) for t, p in zip(gt_t, gt_p)]
+
+
 def load_replay_log(path: str):
+    """A ``.npz`` or ROS ``.bag`` log read into memory, or a ``.slog`` log
+    (``SlogLog``) to replay from its file."""
     from semantic_slam_tpu_torch.io import replay as replay_mod
 
-    if not path.endswith(".npz"):
-        sys.exit(f"unsupported log {path!r}: the port reads .npz logs")
+    if path.endswith(".slog"):
+        return SlogLog(path)
+    if path.endswith(".bag"):
+        # recorded ROS session (rosbag v2.0) — the reference's native input
+        from semantic_slam_tpu_torch.io.rosbag import read_bag
+
+        return read_bag(path)
     return replay_mod.load_log(path)
 
 
@@ -121,17 +150,62 @@ def run_session(log, cfg, device: str, resume: str = "", finalize: bool = False)
         from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
 
         load_checkpoint(resume, engine)
-    replay_mod.replay(log, engine)
+    if isinstance(log, SlogLog):
+        replay_mod.replay_slog(log.path, engine)
+    else:
+        replay_mod.replay(log, engine)
     if finalize:
         engine.finalize()
     return engine
 
 
+def voxel_inputs(engine, kf):
+    """One keyframe's insert into the voxel map, on the engine's device:
+    (points [H,W,3], valid [H,W], xyzrpy [6] of its optimized pose, camera
+    angle), depth keyframes backprojected; None for a keyframe without a
+    cloud (a restored session's) or without a pose. The pose's angles are
+    taken in float64 and rounded once, so that every device inserts the
+    same pose."""
+    import torch
+
+    from semantic_slam_tpu_torch.core import geometry as geo
+    from semantic_slam_tpu_torch.frontend import depth as depth_mod
+
+    if kf.cloud is None or kf.node_idx is None:
+        return None
+    est7 = engine.get_keyframe_pose(kf)  # archive-aware (fixed-lag)
+    if est7 is None:
+        return None
+    if kf.depth_intr is not None:
+        pts, valid = depth_mod.backproject_depth(
+            engine._tensor(kf.cloud[0], torch.int32), engine._tensor(kf.depth_intr), engine._tensor(kf.depth_scale))
+    else:
+        pts, valid = engine._tensor(kf.cloud[0]), engine._tensor(kf.cloud[1], torch.bool)
+    xyzrpy = geo.pose_to_xyzrpy(engine._tensor(est7, torch.float64)).to(engine.dtype)
+    return pts, valid, xyzrpy, engine._cam_angle
+
+
+def build_voxel_map(engine, carve: bool = False):
+    """A ``ChunkedVoxelMap`` on the engine's device and dtype from every
+    keyframe's cloud at its optimized pose (``voxel_inputs``)."""
+    from semantic_slam_tpu_torch.mapping import voxel as vox
+
+    grid = vox.ChunkedVoxelMap(carve=carve, strict_frames=engine.cfg.strict_reference_frames, dtype=engine.dtype)
+    for kf in engine.keyframes:
+        ins = voxel_inputs(engine, kf)
+        if ins is not None:
+            grid.insert_keyframe_cloud(*ins)
+    return grid
+
+
 def write_outputs(out_dir: str, profile: str, cfg, engine, log, save_graph: bool = False,
-                  checkpoint: bool = False, dump_keyframes: bool = False) -> dict:
+                  checkpoint: bool = False, dump_keyframes: bool = False, grid=None, viz_bag: bool = False,
+                  viz_bag_detections: bool = False) -> dict:
     """The shutdown work of ``semantic_slam_tpu.cli run``, in its order: TUM
-    dumps, the g2o graph, the checkpoint, the keyframe dumps, viz exports,
-    summary.json and stats.jsonl. Returns the summary."""
+    dumps, the g2o graph, the checkpoint, the keyframe dumps, viz exports
+    (with ``grid``, a voxel map, ``occupancy.ply``), ``viz.bag``,
+    summary.json and stats.jsonl. Returns the summary; with a viz bag its
+    ``viz_bag`` entry holds the bag's message counts by topic."""
     from semantic_slam_tpu_torch.eval import ate as ate_mod
     from semantic_slam_tpu_torch.io import tum as tum_mod
     from semantic_slam_tpu_torch.viz.markers import export_session
@@ -163,7 +237,16 @@ def write_outputs(out_dir: str, profile: str, cfg, engine, log, save_graph: bool
 
         dump(os.path.join(out_dir, "keyframes"), engine)
 
-    export_session(out_dir, engine)
+    voxel_centers = export_session(out_dir, engine, grid)
+    viz_counts = None
+    if viz_bag or viz_bag_detections:
+        # the reference's live publisher surface, replayable in stock rviz
+        from semantic_slam_tpu_torch.viz.rviz_bag import write_viz_bag
+
+        viz_counts = write_viz_bag(
+            os.path.join(out_dir, "viz.bag"), engine, grid, path_stride=max(1, len(engine.keyframes) // 64),
+            voxel_centers=voxel_centers, detections=viz_bag_detections,
+        )
 
     history = engine.stats_history
     summary = {
@@ -182,6 +265,8 @@ def write_outputs(out_dir: str, profile: str, cfg, engine, log, save_graph: bool
         vio_xyz = np.stack([p[:3] for _, p in engine.vio_traj])
         summary["ate_rmse_optimized"] = ate_mod.ate_rmse(kf_t, kf_poses[:, :3], gt_t, gt_xyz, align=False)
         summary["ate_rmse_vio"] = ate_mod.ate_rmse(vio_t, vio_xyz, gt_t, gt_xyz, align=False)
+    if viz_counts is not None:
+        summary["viz_bag"] = viz_counts
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     with open(os.path.join(out_dir, "stats.jsonl"), "w") as f:
@@ -191,16 +276,12 @@ def write_outputs(out_dir: str, profile: str, cfg, engine, log, save_graph: bool
 
 
 def cmd_synth(args) -> None:
-    """Write a synthetic session to an ``.npz`` log."""
+    """Write a synthetic session to an ``.npz``, ``.slog`` or ``.bag`` log."""
     import math
 
     from semantic_slam_tpu_torch.io import replay as replay_mod
     from semantic_slam_tpu_torch.io import synthetic as synth_mod
 
-    if not args.out.endswith(".npz"):
-        raise NotImplementedError(
-            f"not ported to semantic_slam_tpu_torch yet: synth --out {args.out!r} (.slog/.bag writers); use .npz"
-        )
     log = synth_mod.make_synthetic_log(
         seed=args.seed, n_steps=args.steps, sensor_every=args.sensor_every, drift_noise=args.drift,
         loops=args.loops, H=args.height, W=args.width, cam_pitch=math.radians(args.cam_pitch_deg),
@@ -208,7 +289,24 @@ def cmd_synth(args) -> None:
     )
     if args.depth:
         log = synth_mod.clouds_to_depth(log)
-    replay_mod.save_log(args.out, log)
+        if args.out.endswith(".slog"):
+            sys.exit(
+                "--depth with a .slog output is not supported: the SLOG "
+                "binary schema carries XYZ clouds only (native/slamlog.cpp); "
+                "use an .npz log for depth sessions"
+            )
+    if args.out.endswith(".slog"):
+        from semantic_slam_tpu_torch import native
+
+        native.write_slog(args.out, log, height=args.height, width=args.width)
+    elif args.out.endswith(".bag"):
+        # reference-ready rosbag: the synthetic scene on the reference
+        # node's subscription topics (rosbag play into the reference node)
+        from semantic_slam_tpu_torch.io.rosbag_write import write_bag
+
+        write_bag(args.out, log)
+    else:
+        replay_mod.save_log(args.out, log)
     print(
         f"wrote {args.out}: {len(log.odom)} odom / {len(log.clouds)} clouds / "
         f"{len(log.depths)} depths / {len(log.detections)} detections / "
@@ -221,8 +319,10 @@ def run_from_args(args, log):
     work. Returns (engine, summary)."""
     cfg = make_config(args)
     engine = run_session(log, cfg, args.device, resume=args.resume, finalize=args.optimize_every > 1)
+    grid = build_voxel_map(engine, carve=args.carve) if args.voxel else None
     summary = write_outputs(args.out, args.profile, cfg, engine, log, save_graph=args.save_graph,
-                            checkpoint=args.checkpoint, dump_keyframes=args.dump_keyframes)
+                            checkpoint=args.checkpoint, dump_keyframes=args.dump_keyframes, grid=grid,
+                            viz_bag=args.viz_bag, viz_bag_detections=args.viz_bag_detections)
     return engine, summary
 
 
@@ -284,12 +384,27 @@ def cmd_merge(args) -> dict:
     return summary
 
 
+def cmd_baginfo(args) -> None:
+    """Topic/type/count summary of a recorded ROS bag (rosbag-info analog)."""
+    from semantic_slam_tpu_torch.io.rosbag import DEFAULT_TOPIC_MAP, bag_info
+
+    info = bag_info(args.bag)
+    width = max((len(t) for t in info), default=0)
+    for topic in sorted(info):
+        msg_type, count = info[topic]
+        route = DEFAULT_TOPIC_MAP.get(topic)
+        used = f" -> {route[0]}" + (f" ({route[1]})" if route and route[1] else "") if route else ""
+        print(f"{topic:<{width}}  {count:>7} msgs  {msg_type}{used}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="semantic_slam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     s = sub.add_parser("synth", help="generate a synthetic replay log (no JAX needed)")
-    s.add_argument("--out", required=True)
+    s.add_argument("--out", required=True,
+                   help=".npz / .slog replay log, or .bag (reference-ready rosbag 2.0 on the reference node's "
+                        "subscription topics)")
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--steps", type=int, default=720)
     s.add_argument("--sensor-every", type=int, default=3)
@@ -301,7 +416,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--scene", default="lab", choices=["lab", "kitti", "dense_indoor", "corridor"])
     s.add_argument("--depth", action="store_true")
 
-    r = sub.add_parser("run", help="replay a log through the engine")
+    r = sub.add_parser("run", help="replay a log (.npz / .slog / ROS .bag) through the engine")
     r.add_argument("--log", required=True)
     r.add_argument("--profile", default="yolo_detector")
     r.add_argument("--out", default="results")
@@ -328,6 +443,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--dump-keyframes", action="store_true",
                    help="per-keyframe text dumps in the KeyFrame::dump format under <out>/keyframes/")
     r.add_argument("--resume", default="", help="engine checkpoint .npz to restore before the replay")
+    r.add_argument("--voxel", action="store_true",
+                   help="occupancy voxel map of the keyframe clouds at their optimized poses (<out>/occupancy.ply)")
+    r.add_argument("--carve", action="store_true", help="with --voxel: octomap-style free-space carving + log-odds")
+    r.add_argument("--viz-bag", action="store_true",
+                   help="also write <out>/viz.bag: the reference's publisher surface (paths, PoseArray, landmark "
+                        "MarkerArray, map->odom /tf, occupancy CUBE_LIST) for rosbag play + stock rviz")
+    r.add_argument("--viz-bag-detections", action="store_true",
+                   help="include the per-frame /detected_landmarks MarkerArray stream in viz.bag "
+                        "(publishDetectedLandmarks); detections are recomputed post-hoc from stored clouds, the "
+                        "frontend once per detection keyframe here, zero cost on the live path (implies --viz-bag)")
 
     m = sub.add_parser("merge", help="merge session checkpoints into one map + joint BA")
     m.add_argument("checkpoints", nargs="+", help="engine checkpoint .npz files")
@@ -337,12 +462,15 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--max-iterations", type=int, default=64)
     m.add_argument("--plane-landmarks", action="store_true", help="merge the sessions' plane landmarks too")
     m.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    b = sub.add_parser("baginfo", help="list topics/types/counts of a recorded ROS bag")
+    b.add_argument("bag", help="rosbag v2.0 file")
     return ap
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    {"synth": cmd_synth, "run": cmd_run, "merge": cmd_merge}[args.cmd](args)
+    {"synth": cmd_synth, "run": cmd_run, "merge": cmd_merge, "baginfo": cmd_baginfo}[args.cmd](args)
 
 
 if __name__ == "__main__":

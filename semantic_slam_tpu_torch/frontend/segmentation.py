@@ -8,6 +8,8 @@ flat ``DetectedObjects`` of D*P rows. Reference behaviors kept: the class
 whitelist (id < 0), the far-edge-only spurious-box test
 (plane_segmentation.cpp:34-38), the ``norm_point_thres`` gate on the box
 AREA, and the world pose that adds the robot translation after rotating.
+Points at invalid pixels are zeroed on entry (the JAX package lets a NaN
+there reach the plane fit's masked sums).
 """
 
 from __future__ import annotations
@@ -79,6 +81,10 @@ def segment_all(
     dtype = points.dtype
     N = samp_h * samp_w
 
+    # invalid pixels may hold NaN (a PointCloud2's, the .bag reader's): zero
+    # them once, so that masked sums (0 * NaN) stay finite; finite points
+    # there already carry weight 0
+    points = torch.where(cloud_valid[..., None], points, 0.0)
     normal, normal_valid = nrm_mod.compute_normals(points, cloud_valid, smoothing_size=smoothing_size)
     h_cam = frames.horizontal_plane_normal_in_cam(robot_xyzrpy, cam_angle, strict=strict_frames)[:3]
     T_cw = frames.t_cam_world(robot_xyzrpy, cam_angle, strict=strict_frames)

@@ -1,6 +1,6 @@
 """Replay logs — the rosbag/pub-sub replacement (the port's own copy of
-``semantic_slam_tpu.io.replay``: npz logs and in-process replay; the native
-``.slog`` reader is not ported and raises).
+``semantic_slam_tpu.io.replay``: npz logs, in-process replay and the native
+``.slog`` replay through the port's ``native`` reader).
 
 The reference consumes live ROS topics wired by ``launch/*.launch`` (VIO
 odometry, depth clouds, detector boxes, GT). Here a session is a time-sorted
@@ -148,13 +148,50 @@ def replay(log: ReplayLog, engine, tick_hz: float = 30.0, run_ticks: bool = True
 
 
 def replay_slog(path: str, engine, tick_hz: float = 30.0) -> None:
-    """Native SLOG replay: not ported (it needs the C++ reader)."""
-    raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: io.replay.replay_slog (native .slog reader)")
+    """Replay a native SLOG binary log (mmap, zero-copy cloud views) through
+    the engine — same tick semantics as ``replay``. The reader closes when
+    the replay ends; the engine copies a cloud when a keyframe takes it, so
+    no keyframe keeps a view into the unmapped file."""
+    from semantic_slam_tpu_torch import native
+
+    ctx: dict = {}
+    next_tick: float | None = None
+    with native.SlogReader(path) as r:
+        for kind, idx in r.events():
+            if kind == 0:
+                t, xyz, valid = r.cloud(idx)
+            elif kind == 1:
+                t, boxes, cids, probs = r.detections(idx)
+            elif kind == 2:
+                t, source, pose, cov = r.odom(idx)
+            else:
+                continue  # gt: evaluation side channel
+            if next_tick is None:
+                next_tick = t
+            while t >= next_tick:
+                engine.run()
+                next_tick += 1.0 / tick_hz
+            if kind == 0:
+                engine.set_point_cloud(xyz, valid)
+            elif kind == 1:
+                engine.set_detections(boxes, cids, probs)
+            else:
+                fixed, cov6 = apply_odom_fixup(OdomEvent(t, pose, cov, source), ctx)
+                engine.vio_callback(t, fixed, cov6)
+        engine.run()
 
 
 def slog_gt(path: str):
-    """Ground truth from a SLOG file: not ported (it needs the C++ reader)."""
-    raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: io.replay.slog_gt (native .slog reader)")
+    """Ground-truth track from a SLOG file: (stamps [N], poses7 [N,7])."""
+    from semantic_slam_tpu_torch import native
+
+    with native.SlogReader(path) as r:
+        ts, ps = [], []
+        for i in range(r.n_gt):
+            t, p = r.gt(i)
+            ts.append(t)
+            ps.append(p)
+        return np.asarray(ts), np.asarray(ps).reshape(-1, 7)
 
 
 def save_log(path: str, log: ReplayLog) -> None:

@@ -9,6 +9,8 @@ work runs eagerly on ``device``:
   * ``_process_keyframe``  -- node + odometry-edge append, frontend
     (normals, batched plane extraction), association, landmark ingest;
   * ``_ingest_keyframes_batch`` -- a run of detection-less keyframes;
+  * ``segment_keyframe`` -- the frontend alone (``_segment_only``) re-run
+    on a stored keyframe after the session (the viz bag's detections);
   * ``_optimize_tick``     -- the LM (dense Schur, or with
     ``linear_solver="pcg"`` the SoA Schur-PCG solver: up to K=4096 poses the
     resident loop of ``solver/ellk_soa.py`` with kernels K1-K4, above it the
@@ -34,7 +36,8 @@ work runs eagerly on ``device``:
     the window is set, even while it is still empty;
   * autosave -- every ``autosave_every_n_ticks`` ticks the tick ends in
     ``io.checkpoint.save_checkpoint`` to ``cfg.autosave_path``. A restored
-    session's keyframes carry no cloud (``cloud=None``).
+    session's keyframes carry no cloud (``cloud=None``). A keyframe's cloud
+    is the engine's own copy of the arrays ``set_point_cloud`` was given.
 
 Host traffic per tick: two flags per LM iteration and the ``info`` vector,
 and one small fetch per marginalization.
@@ -199,6 +202,22 @@ def _process_keyframe_planes(pn, dets, res, kf_idx, robot_xyzrpy, cam_angle, lm_
                           kf_idx, lm_info3)
 
 
+def _segment_only(
+    points, cloud_valid, cam_intr, depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle,
+    seg_params: dict, *, samp_h, samp_w, max_planes, num_hypotheses, smoothing_size, strict_frames, depth_input,
+):
+    """The frontend of one keyframe: (depth backprojection,) normals and the
+    per-box plane extraction (K5 on the card). Returns its detections."""
+    if depth_input:
+        points, cloud_valid = depth_mod.backproject_depth(points, cam_intr, depth_scale)
+    return seg_mod.segment_all(
+        points, cloud_valid, boxes, class_ids, probs, robot_xyzrpy, cam_angle,
+        **seg_params, samp_h=samp_h, samp_w=samp_w, max_planes=max_planes,
+        num_hypotheses=num_hypotheses, smoothing_size=smoothing_size,
+        strict_frames=strict_frames,
+    )
+
+
 def _process_keyframe(
     graph, table, odom7, prev_odom7, has_prev, info6, points, cloud_valid, cam_intr,
     depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle, seg_params: dict,
@@ -210,13 +229,10 @@ def _process_keyframe(
     table, dets, association, keyframe index)."""
     kf_idx = graph.num_poses
     graph = _ingest_keyframes_batch(graph, odom7[None], prev_odom7, has_prev, info6)
-    if depth_input:
-        points, cloud_valid = depth_mod.backproject_depth(points, cam_intr, depth_scale)
-    dets = seg_mod.segment_all(
-        points, cloud_valid, boxes, class_ids, probs, robot_xyzrpy, cam_angle,
-        **seg_params, samp_h=samp_h, samp_w=samp_w, max_planes=max_planes,
-        num_hypotheses=num_hypotheses, smoothing_size=smoothing_size,
-        strict_frames=strict_frames,
+    dets = _segment_only(
+        points, cloud_valid, cam_intr, depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle, seg_params,
+        samp_h=samp_h, samp_w=samp_w, max_planes=max_planes, num_hypotheses=num_hypotheses,
+        smoothing_size=smoothing_size, strict_frames=strict_frames, depth_input=depth_input,
     )
     table, res = assoc_mod.associate(
         table, dets, robot_xyzrpy, cam_angle, **assoc_params,
@@ -382,6 +398,7 @@ class SlamEngine:
         self.first_key_added = False
 
         self._cloud: tuple[np.ndarray, np.ndarray | None] | None = None
+        self._cloud_owned = False  # _cloud is the engine's own copy
         self._cloud_depth_meta: tuple[np.ndarray, float] | None = None
         self._dets: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None
         self._det_available = False
@@ -451,10 +468,12 @@ class SlamEngine:
 
     def set_point_cloud(self, points, valid) -> None:
         self._cloud = (np.asarray(points), np.asarray(valid))
+        self._cloud_owned = False
         self._cloud_depth_meta = None
 
     def set_depth_image(self, depth, intrinsics, depth_scale: float = 1e-3) -> None:
         self._cloud = (np.asarray(depth, np.uint16), None)
+        self._cloud_owned = False
         self._cloud_depth_meta = (np.asarray(intrinsics, np.float64), float(depth_scale))
 
     def set_detections(self, boxes: np.ndarray, class_ids: np.ndarray, probs: np.ndarray) -> None:
@@ -475,6 +494,12 @@ class SlamEngine:
             self._record_traj(stamp)
             return
 
+        if self._cloud is not None and not self._cloud_owned:
+            # a keyframe keeps its cloud past the replay, and the caller's
+            # arrays may be views into a reader's mapped file (io.replay
+            # replay_slog): copy them once, when a keyframe first takes them
+            self._cloud = tuple(None if a is None else np.array(a) for a in self._cloud)
+            self._cloud_owned = True
         cloud = self._cloud  # latest-wins; kept even when stale (:264-265)
         if self._det_available and self._dets is not None:
             boxes, cids, probs = self._dets
@@ -671,7 +696,10 @@ class SlamEngine:
 
     # ------------------------------------------------------------------
 
-    def _process_keyframe_with_detections(self, kf: KeyframeMeta, prev_odom, has_prev: bool) -> None:
+    def _frontend_args(self, kf: KeyframeMeta) -> tuple[dict, dict]:
+        """The frontend's inputs for one detection keyframe, from its stored
+        cloud, boxes and ``robot_pose`` snapshot: (tensors, statics), the
+        keyword arguments of ``_segment_only``."""
         cfg = self.cfg
         seg = cfg.segmentation
         D = cfg.capacity.max_detections_per_frame
@@ -695,15 +723,13 @@ class SlamEngine:
             valid_t = self._tensor(valid, torch.bool)
             cam_intr = depth_scale = None
 
-        robot_xyzrpy = self._tensor(npg.pose_to_xyzrpy(kf.robot_pose).astype(self._npdt))
-        args = (
-            self._tensor(kf.odom.astype(self._npdt)),
-            self._tensor(np.asarray(prev_odom, self._npdt)),
-            has_prev, self._info6, points_t, valid_t, cam_intr, depth_scale,
-            self._tensor(boxes.astype(self._npdt)),
-            self._tensor(cids, torch.int32),
-            self._tensor(probs.astype(self._npdt)),
-            robot_xyzrpy, self._cam_angle, self._seg_params, self._assoc_params, self._lm_info3,
+        tensors = dict(
+            points=points_t, cloud_valid=valid_t, cam_intr=cam_intr, depth_scale=depth_scale,
+            boxes=self._tensor(boxes.astype(self._npdt)),
+            class_ids=self._tensor(cids, torch.int32),
+            probs=self._tensor(probs.astype(self._npdt)),
+            robot_xyzrpy=self._tensor(npg.pose_to_xyzrpy(kf.robot_pose).astype(self._npdt)),
+            cam_angle=self._cam_angle, seg_params=self._seg_params,
         )
         statics = dict(
             samp_h=seg.crop_height,
@@ -712,15 +738,51 @@ class SlamEngine:
             num_hypotheses=seg.num_hypotheses,
             smoothing_size=seg.normal_smoothing_size,
             strict_frames=cfg.strict_reference_frames,
-            use_rtabmap_offset=cfg.association.use_rtab_map_odom,
             depth_input=depth_input,
         )
-        self.graph, self.table, dets, res, kf_idx = _process_keyframe(self.graph, self.table, *args, **statics)
+        return tensors, statics
+
+    def _process_keyframe_with_detections(self, kf: KeyframeMeta, prev_odom, has_prev: bool) -> None:
+        cfg = self.cfg
+        fa, statics = self._frontend_args(kf)
+        self.graph, self.table, dets, res, kf_idx = _process_keyframe(
+            self.graph, self.table,
+            odom7=self._tensor(kf.odom.astype(self._npdt)),
+            prev_odom7=self._tensor(np.asarray(prev_odom, self._npdt)),
+            has_prev=has_prev, info6=self._info6, assoc_params=self._assoc_params, lm_info3=self._lm_info3,
+            use_rtabmap_offset=cfg.association.use_rtab_map_odom, **fa, **statics,
+        )
         if cfg.use_plane_landmarks:
             self.plane_nodes = _process_keyframe_planes(
-                self.plane_nodes, dets, res, kf_idx, robot_xyzrpy, self._cam_angle, self._lm_info3,
+                self.plane_nodes, dets, res, kf_idx, fa["robot_xyzrpy"], self._cam_angle, self._lm_info3,
                 strict_frames=cfg.strict_reference_frames)
         self.last_detected_objects = dets  # observability (seg_obj_vec_)
+
+    def segment_keyframe(self, kf: KeyframeMeta) -> dict | None:
+        """Re-run the frontend for one stored keyframe (post-hoc viz/debug).
+
+        Reproduces the detections as they were computed at processing time
+        (the ``robot_pose`` snapshot is stored on the keyframe), without any
+        hot-path cost: the reference's per-frame ``publishDetectedLandmarks``
+        stream (``semantic_graph_slam_ros.cpp:305-347``) is regenerated from
+        the kept clouds instead of being fetched per tick. Returns None for
+        detection-less keyframes, else host arrays (one fetch).
+        """
+        if kf.boxes is None or kf.cloud is None or len(kf.boxes) == 0:
+            return None
+        fa, statics = self._frontend_args(kf)
+        dets = _segment_only(**fa, **statics)
+        M = dets.valid.shape[0]
+        packed = torch.cat([dets.valid[:, None].to(dets.world_pose.dtype),
+                            dets.class_id[:, None].to(dets.world_pose.dtype),
+                            dets.plane_type[:, None].to(dets.world_pose.dtype), dets.world_pose], dim=1)
+        host = packed.cpu().numpy().reshape(M, 6)
+        return {
+            "valid": host[:, 0] > 0,
+            "class_id": host[:, 1].astype(np.int32),
+            "plane_type": host[:, 2].astype(np.int32),
+            "world_pose": host[:, 3:].copy(),
+        }
 
     def add_first_pose_and_landmark(self) -> None:
         """Synthetic seed (semantic_graph_slam.cpp:289-332): identity keyframe

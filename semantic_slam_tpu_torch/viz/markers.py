@@ -1,6 +1,5 @@
 """Visualization exports — the rviz-marker/TF surface without ROS (the
-port's own copy of ``semantic_slam_tpu.viz.markers``; the voxel-map export
-is not ported and raises).
+port's own copy of ``semantic_slam_tpu.viz.markers``).
 
 The reference publishes a MarkerArray of mapped landmarks with per-class
 colors and h/v-dependent cuboid scales plus keyframe PoseArray/Path topics
@@ -94,6 +93,11 @@ def export_session(out_dir: str, engine, grid=None) -> np.ndarray | None:
     kfs = engine.get_keyframe_poses()
     if len(kfs):
         write_ply(os.path.join(out_dir, "keyframes.ply"), kfs[:, :3])
-    if grid is not None:
-        raise NotImplementedError("not ported to semantic_slam_tpu_torch yet: viz.markers.export_session(grid=...) (voxel map)")
-    return None
+    if grid is None:
+        return None
+    from semantic_slam_tpu_torch.mapping.voxel import occupied_centers
+
+    centers = occupied_centers(grid)
+    if len(centers):
+        write_ply(os.path.join(out_dir, "occupancy.ply"), centers)
+    return centers

@@ -9,7 +9,8 @@ K6, K6 + K7, K9 and K10 also bit for bit on a repeat),
 and small sessions on the card (dense, ``--solver pcg`` and ``--solver pcg``
 on the row-range loop; dense and pcg with fixed-lag smoothing; plane
 landmarks dense, and pcg with fixed-lag smoothing on the row-range loop's
-plane half) against the same sessions on the CPU.
+plane half; a ``.bag`` session) against the same sessions on the CPU, and
+``segment_keyframe`` and the voxel map on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, carries the ``cuda`` marker
 and skips without a GPU. The file imports no JAX, because the machine with
@@ -799,3 +800,112 @@ def test_small_plane_session_card_matches_cpu(cuda, case):
     np.testing.assert_array_equal(pg.pe_p[:E3].cpu().numpy(), pc.pe_p[:E3].numpy())
     np.testing.assert_allclose(gpu.get_keyframe_poses(), cpu.get_keyframe_poses(), atol=1e-3)
     np.testing.assert_allclose(pg.planes[:P].cpu().numpy(), pc.planes[:P].numpy(), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the ROS surface on the card: a .bag session, segment_keyframe, the voxel map
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def bag_sessions(cuda, tmp_path, monkeypatch):
+    """The small maha-pcg session read from a ``.bag`` (NaN at invalid
+    pixels, whole-pixel boxes) on the card, with each detection keyframe's
+    processing-time detections recorded, and on the CPU: (card engine, CPU
+    engine, the card's detections in keyframe order)."""
+    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.io.rosbag_write import write_bag
+    from semantic_slam_tpu_torch.runtime import engine as eng_mod
+    from semantic_slam_tpu_torch.solver import kernels as sk
+
+    cfg = small_config(*SMALL_SESSIONS["maha-pcg"])
+    path = str(tmp_path / "s.bag")
+    write_bag(path, cli.make_synthetic_log(seed=3, n_steps=120, sensor_every=5, drift_noise=0.008, H=120, W=160))
+    log = cli.load_replay_log(path)
+    assert any(np.isnan(c.points).any() for c in log.clouds)
+    seen = []
+    orig = eng_mod._segment_only
+
+    def recording(*a, **kw):
+        seen.append(orig(*a, **kw))
+        return seen[-1]
+
+    before = sk.resident_solve.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(eng_mod, "_segment_only", recording)
+        gpu = cli.run_session(log, cfg, "cuda")
+    assert sk.resident_solve.launches > before
+    return gpu, cli.run_session(log, cfg, "cpu"), seen
+
+
+@pytest.mark.cuda
+def test_bag_session_card_matches_cpu(bag_sessions):
+    """A ``.bag`` session on the card and on the CPU: the same map, poses
+    within the f32 tolerance 1e-3."""
+    gpu, cpu, _ = bag_sessions
+    assert int(cpu.table.count) > 0
+    assert (len(gpu.keyframes), int(gpu.table.count), int(gpu.graph.num_edges())) == (
+        len(cpu.keyframes), int(cpu.table.count), int(cpu.graph.num_edges()))
+    np.testing.assert_allclose(gpu.get_keyframe_poses(), cpu.get_keyframe_poses(), atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_segment_keyframe_card_matches_cpu(bag_sessions):
+    """``segment_keyframe`` on the card (K5 launches, one a plane round of a
+    detection keyframe): equal to the card's processing-time detections of
+    each keyframe, and against the CPU on the same stored keyframes the
+    same valid detections and types, world poses (plane centroids) within
+    1 cm: K5 compares in f32, so points at the distance gate may fall on
+    the other side on the card and move a centroid by millimetres (2.6 mm
+    seen on an H100)."""
+    from semantic_slam_tpu_torch.frontend import kernels as fk
+    from semantic_slam_tpu_torch.runtime.engine import _is_det
+
+    gpu, cpu, seen = bag_sessions
+    det = [(g, c) for g, c in zip(gpu.keyframes, cpu.keyframes) if _is_det(c)]
+    assert len(det) == len(seen) > 0
+    before = fk.score_hypotheses.launches
+    n_valid = 0
+    for (kg, kc), dets in zip(det, seen):
+        dg, dc = gpu.segment_keyframe(kg), cpu.segment_keyframe(kc)
+        np.testing.assert_array_equal(dg["valid"], dets.valid.cpu().numpy())
+        np.testing.assert_array_equal(dg["world_pose"], dets.world_pose.cpu().numpy())
+        v = dc["valid"]
+        np.testing.assert_array_equal(dg["valid"], v)
+        np.testing.assert_array_equal(dg["plane_type"][v], dc["plane_type"][v])
+        np.testing.assert_allclose(dg["world_pose"][v], dc["world_pose"][v], atol=1e-2)
+        n_valid += int(v.sum())
+    assert n_valid > 0
+    assert fk.score_hypotheses.launches - before == len(det) * gpu.cfg.segmentation.max_planes_per_detection
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carve", [False, True])
+def test_voxel_map_card_matches_cpu(bag_sessions, carve):
+    """The chunked voxel map of the card session's keyframe clouds at its
+    poses, built on the card (``cli.build_voxel_map``) and on the CPU from
+    the same inserts: the same chunks; voxels whose counts differ at most
+    0.1% of the occupied ones; the card's hits are its valid points inside
+    its chunks."""
+    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.mapping import voxel as vox
+
+    gpu, _, _ = bag_sessions
+    g = cli.build_voxel_map(gpu, carve=carve)
+    cpu_map = vox.ChunkedVoxelMap(carve=carve, dtype=gpu.dtype)
+    inside = 0  # valid points inside the card's chunks, counted by masks
+    for kf in gpu.keyframes:
+        ins = cli.voxel_inputs(gpu, kf)
+        cpu_map.insert_keyframe_cloud(*(t.cpu() for t in ins))
+        w, v = vox._world_points_aabb(*ins)[:2]
+        for c in g.chunks.values():
+            idx = vox._indices(c, torch.where(v[:, None], w, c.origin).unbind(-1))
+            inside += int((vox._in_bounds(c, idx) & v).sum())
+    assert list(g.chunks) == list(cpu_map.chunks) and g.chunks
+    occupied = sum(int((c.hits >= 2).sum()) for c in cpu_map.chunks.values())
+    differ = sum(int((g.chunks[cc].hits.cpu() != c.hits).sum() + (g.chunks[cc].misses.cpu() != c.misses).sum())
+                 for cc, c in cpu_map.chunks.items())
+    assert occupied > 0 and differ <= 1e-3 * occupied
+    assert (sum(int(c.misses.sum()) for c in g.chunks.values()) > 0) == carve
+    assert g.total_hits() == inside > 0
+    assert all(c.hits.device.type == "cuda" for c in g.chunks.values())

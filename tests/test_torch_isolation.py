@@ -5,8 +5,10 @@ imports ``jax``, the JAX package ``semantic_slam_tpu`` or ``__graft_entry__``
 (an ``ast`` scan of every import statement and every
 ``importlib.import_module`` call with a literal name). And the port's copies
 of the JAX package's jax-free modules (``config``, ``core/np_geometry``,
-``runtime/keyframe_gate``, ``io/{replay,synthetic,tum,dump}``, ``eval/ate``)
-give what their originals give on the same inputs, exactly.
+``runtime/keyframe_gate``, ``io/{replay,synthetic,tum,dump}``, ``eval/ate``,
+``io/{rosbag,rosbag_write}``, ``viz/rviz_bag``) give what their originals
+give on the same inputs, exactly, and ``native/slamlog.cpp`` is the JAX
+package's source byte for byte.
 """
 
 import ast
@@ -55,6 +57,9 @@ def test_no_jax_imports():
     # the plane-landmark modules are among them
     rel = {str(f.relative_to(REPO)) for f in files}
     assert {f"semantic_slam_tpu_torch/{m}.py" for m in ("graph/planes", "frontend/hull", "solver/plane_ba")} <= rel
+    # and the ROS surface's
+    assert {f"semantic_slam_tpu_torch/{m}.py" for m in ("io/rosbag", "io/rosbag_write", "viz/rviz_bag", "mapping/voxel",
+                                                         "native/__init__")} <= rel
     bad = {str(f.relative_to(REPO)): n for f in files for n in _imported_names(f) if n.split(".")[0] in FORBIDDEN}
     assert not bad, bad
     # the scan sees what it looks for
@@ -143,3 +148,49 @@ def test_keyframe_dumps_equal(tmp_path):
     assert sorted(p.relative_to(tmp_path / "t") for p in (tmp_path / "t").rglob("data")) == files
     for f in files:
         assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes(), f
+
+
+def test_slamlog_source_is_the_jax_packages():
+    """The port builds its own copy of the .slog library's source."""
+    got = (REPO / "semantic_slam_tpu_torch" / "native" / "slamlog.cpp").read_bytes()
+    assert got == (REPO / "semantic_slam_tpu" / "native" / "slamlog.cpp").read_bytes()
+
+
+def test_bag_copies_equal(tmp_path):
+    """``io/rosbag_write``'s bytes, ``io/rosbag``'s log and ``viz/rviz_bag``'s
+    bytes from the same inputs (a tiny log; a stand-in engine)."""
+    import types
+
+    from semantic_slam_tpu.io import rosbag as jrb
+    from semantic_slam_tpu.io import rosbag_write as jrw
+    from semantic_slam_tpu.viz import rviz_bag as jviz
+    from semantic_slam_tpu_torch.io import rosbag as trb
+    from semantic_slam_tpu_torch.io import rosbag_write as trw
+    from semantic_slam_tpu_torch.viz import rviz_bag as tviz
+
+    kw = dict(seed=1, n_steps=20, sensor_every=5, H=12, W=16, loops=1)
+    for comp in ("none", "bz2"):
+        assert (trw.write_bag(str(tmp_path / f"t{comp}.bag"), tsyn.make_synthetic_log(**kw), comp)
+                == jrw.write_bag(str(tmp_path / f"j{comp}.bag"), jsyn.make_synthetic_log(**kw), comp))
+        assert (tmp_path / f"t{comp}.bag").read_bytes() == (tmp_path / f"j{comp}.bag").read_bytes()
+        _assert_logs_equal(trb.read_bag(str(tmp_path / f"j{comp}.bag")), jrb.read_bag(str(tmp_path / f"j{comp}.bag")))
+    assert trb.DEFAULT_TOPIC_MAP == jrb.DEFAULT_TOPIC_MAP
+
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(6, 4))
+    poses = np.concatenate([rng.normal(size=(6, 3)), q / np.linalg.norm(q, axis=-1, keepdims=True)], axis=-1)
+    engine = types.SimpleNamespace(
+        keyframes=[types.SimpleNamespace(stamp=0.5 * i, odom=poses[i]) for i in range(6)],
+        get_keyframe_poses=lambda: poses, vio_traj=[(0.25 * i, poses[i // 2]) for i in range(12)],
+        get_map2odom=lambda: poses[0],
+        get_mapped_landmarks=lambda: {"pose": rng.normal(size=(3, 3)), "class_id": np.array([0, 5, 9]),
+                                      "plane_type": np.array([0, 1, 1])})
+    lms = engine.get_mapped_landmarks()
+    engine.get_mapped_landmarks = lambda: lms
+    centers = rng.normal(size=(7, 3))
+    grid = types.SimpleNamespace(resolution=0.05)
+    for stride in (1, 4):
+        assert (tviz.write_viz_bag(str(tmp_path / "t.bag"), engine, grid, path_stride=stride, voxel_centers=centers)
+                == jviz.write_viz_bag(str(tmp_path / "j.bag"), engine, grid, path_stride=stride,
+                                      voxel_centers=centers))
+        assert (tmp_path / "t.bag").read_bytes() == (tmp_path / "j.bag").read_bytes()
