@@ -14,8 +14,9 @@ before the result line:
              empty edge cases, timed with CUDA events after warm-up (the
              wrapper's host work between launches included) and by its own
              intervals in a ``torch.profiler`` trace (device time):
-             K5 (RANSAC scoring) at [D=8, N=65,536, S=128], its bound
-             counted in instructions a test; K1-K4 (the
+             K5 (RANSAC scoring) at [D=8, N=65,536, S=128] and at the
+             window's D' = 64, its bound counted in instructions a test;
+             K1-K4 (the
              resident SoA Schur-PCG solver; K1 + K2 as the one call the LM
              makes, its chain outputs and its linearization each against
              the plain version, and K1 alone on given chain blocks) at the
@@ -115,9 +116,23 @@ before the result line:
              states, what a CG step costs with the plane half and without
              it (K8/K9 launches from their counters, one call of each a
              step; device events and ms from a trace that holds every one
-             of those launches; host ms).
+             of those launches; host ms);
+13. breadth -- the last single-device paths at full width: the window
+             program alone on ``parallel/window_inputs.py``'s run (card
+             against CPU, K5 once for the window); the plane log in point
+             mode with ``--ingest-window 8`` (each run of detection
+             keyframes one frontend call, K5 over its B x D detections a
+             round) against phase 12's per-tick point session after both
+             finalize (equal keyframes, landmarks, edges; poses within
+             5e-4); ``--precond tridiag`` at the pcg slice's K=4096 (K1-K3,
+             no K4) and the tiled slice's K=8192 (K6-K10; the CG stops at
+             its tolerance), chi2 never rising and ATE no worse than raw
+             VIO's, ms per LM iteration and CG steps to tolerance beside
+             jacobi's; fitness-weighted odometry information and
+             ``--adaptive-normals`` on the dense log; ``--xla-trace`` on the
+             dense session, whose trace holds K5's kernel events.
 The counters are reset just before each session and checked against the LM's
-iteration counts just after.
+iteration counts just after (a window's frontend call counted once).
 
 The line before the last is a JSON object with one entry per kernel (launches
 from the session whose path runs it, K1-K3 and K5 from the pcg slice (K1's and
@@ -190,6 +205,7 @@ FL_WINDOW = 64  # --fixed-lag of the fixed-lag sessions (chunk max(8, 64 // 4) =
 # the fixed-lag sessions' log: benchmarks/pipeline_bench.py's deployment (seed 1, loops = steps / 240), cut from
 # 1800 steps with sensor_every=3 to 1920 with 6: ~120 keyframes, so that the window of 64 marginalizes 3 times
 FL_LOG = dict(seed=1, n_steps=1920, sensor_every=6, loops=8.0, H=480, W=640)
+WINDOW = 8  # --ingest-window of phase 13's window session; K5's window shape is D' = WINDOW x 8
 # plane sessions A and B: the dense session's log (seed 0, a loop of 240 steps) run three times round, 45
 # keyframes and 11 observations (5 on the dense log's one loop), so that at least 8 plane edges are checked
 PLANE_LOG = dict(seed=0, n_steps=720, sensor_every=6, loops=3.0, H=480, W=640)
@@ -303,6 +319,9 @@ def check_score_hypotheses(torch) -> dict:
     result = {}
     for label, D, N, S, empty in (
         ("path shape", 8, 65536, 128, False),
+        # window ingest (--ingest-window 8): one launch a round scores the
+        # detections of the 8 keyframes of a run, D' = B * D
+        ("window shape", WINDOW * 8, 65536, 128, False),
         ("ragged N", 8, 4133, 128, False),
         ("no candidates", 8, 65536, 128, True),
     ):
@@ -324,7 +343,7 @@ def check_score_hypotheses(torch) -> dict:
         require(bool(torch.all(err <= near)), f"{label}: counts differ beyond the threshold band")
         if empty:
             require(float(got.abs().max()) == 0.0, "no candidates: non-zero counts")
-        if label == "path shape":
+        if label in ("path shape", "window shape"):
             ms = _time_ms(torch, lambda: kernels.score_hypotheses(*args, dist_thres, cos_thres))
             plain_ms = _time_ms(torch, lambda: kernels.score_hypotheses_ref(*args, dist_thres, cos_thres))
             dev_ms = _device_ms(torch, lambda: kernels.score_hypotheses(*args, dist_thres, cos_thres),
@@ -336,7 +355,12 @@ def check_score_hypotheses(torch) -> dict:
             print(f"score_hypotheses [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean "
                   f"of 20), kernel device time {dev_ms:.4f} ms (profiler); bound {b['bound_ms']:.4f} ms by "
                   f"{b['bound_by']} ({K5_INSTR_PER_TEST} instructions a test)")
-            result = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **b}
+            if label == "path shape":
+                result.update({"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **b})
+            else:
+                result.update({"window_D": D, "window_ms": ms, "window_plain_ms": plain_ms,
+                               "window_device_ms": dev_ms, "window_bound_ms": b["bound_ms"],
+                               "window_max_abs_err": max_err})
     return result
 
 
@@ -981,6 +1005,7 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
     import numpy as np
 
     from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.runtime import engine as engine_mod
     from semantic_slam_tpu_torch.runtime.engine import _is_det
     from semantic_slam_tpu_torch.solver import ellk_soa
 
@@ -1032,11 +1057,21 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
 
         return call
 
+    # each window's rows (--ingest-window: a run of detection keyframes, one
+    # frontend call)
+    windows = []
+    orig_window = engine_mod._process_keyframes_window
+
+    def window(*a, **kw):
+        windows.append(int(kw["odoms"].shape[0]))
+        return orig_window(*a, **kw)
+
     wrappers = _wrappers()
     for key, (mod, fn) in entries.items():
         setattr(mod, fn, recording(key))
     for fn in orig_margs:
         setattr(fixed_lag, fn, timed(fn))
+    engine_mod._process_keyframes_window = window
     try:
         for w in wrappers.values():
             w.launches = 0
@@ -1054,12 +1089,16 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
             setattr(mod, fn, origs[key])
         for fn, orig in orig_margs.items():
             setattr(fixed_lag, fn, orig)
+        engine_mod._process_keyframes_window = orig_window
     print(f"[{label}] summary:", json.dumps(summary))
 
     g, t = engine.graph, engine.table
     tensors = [getattr(g, f) for f in ("poses", "landmarks", "lme_k", "num_lme")] + [t.world, t.cov, engine.marginals]
     require(all(x.device.type == DEVICE for x in tensors), f"[{label}] graph/table state is not on the card")
-    require(g.poses.shape[0] == cap.max_keyframes, f"[{label}] graph capacity {g.poses.shape[0]} != K")
+    # a window's batch may double the capacities up front (the engine sizes
+    # them for W keyframes' worst-case landmarks, as the JAX engine does)
+    require(g.poses.shape[0] == cap.max_keyframes or (cfg.solver.ingest_window > 1 and g.poses.shape[0] > 0),
+            f"[{label}] graph capacity {g.poses.shape[0]} != K")
     require(summary["keyframes"] > 0, f"[{label}] no keyframes")
     require(summary["landmarks"] > 0, f"[{label}] no landmarks mapped")
     own = engine.stats_history[n_before:]
@@ -1089,11 +1128,16 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
 
     n_det_kf = sum(1 for kf in engine.keyframes if _is_det(kf))  # restored keyframes carry no cloud
     rounds = cfg.segmentation.max_planes_per_detection
-    # --viz-bag-detections re-runs the frontend (segment_keyframe) on every detection keyframe
+    # a window (a run of detection keyframes) takes one frontend call, and
+    # --viz-bag-detections re-runs the frontend (segment_keyframe) on every
+    # detection keyframe
+    calls_fe = n_det_kf - sum(windows) + len(windows)
     passes = 2 if args.viz_bag_detections else 1
-    print(f"[{label}] launches: {launches}; score_hypotheses expected {n_det_kf} detection keyframes x {rounds} "
-          f"extraction rounds x {passes} frontend passes = {n_det_kf * rounds * passes}")
-    require(launches["score_hypotheses"] > 0 and launches["score_hypotheses"] == n_det_kf * rounds * passes,
+    want_k5 = rounds * (calls_fe + (passes - 1) * n_det_kf)
+    print(f"[{label}] launches: {launches}; score_hypotheses expected {rounds} extraction rounds x ({calls_fe} "
+          f"frontend calls for {n_det_kf} detection keyframes, {len(windows)} of them windows of {windows} rows"
+          f" + {passes - 1} x {n_det_kf} re-runs) = {want_k5}")
+    require(launches["score_hypotheses"] > 0 and launches["score_hypotheses"] == want_k5,
             f"[{label}] K5 launches do not match the extraction rounds")
     iters = [s["iterations"] for s in own]
     loop = None
@@ -1106,24 +1150,37 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
         skipped = sum(1 for it in calls[loop] if it == 0)
         require(not calls[other] and ran == [it for it in iters if it > 0],
                 f"[{label}] LM calls {calls} do not match the ticks {iters} on the {loop} loop")
+        tridiag = cfg.solver.pcg_precond == "tridiag"
         if loop == "resident":
             expect = {
                 "fused_linearize": sum(it + 2 for it in ran),
                 "obs_linearize": 0,
-                "resident_solve": sum(ran),
+                # the tridiag preconditioner's solve is plain PyTorch (K4 has none)
+                "resident_solve": 0 if tridiag else sum(ran),
                 "resident_chi2": sum(ran) + skipped,
                 "tiled_obs_linearize": 0,
                 **{name: 0 for name in TILED},
             }
-            formula = ("K1 + K2 = sum(it + 2) over solves, K1 alone = 0, K4 = sum(it), K3 = sum(it) + skipped solves, "
-                       "K6-K10 (K6 + K7 one call, K6 alone) = 0")
+            formula = (f"K1 + K2 = sum(it + 2) over solves, K1 alone = 0, K4 = {'0 (tridiag)' if tridiag else 'sum(it)'}"
+                       ", K3 = sum(it) + skipped solves, K6-K10 (K6 + K7 one call, K6 alone) = 0")
         else:
             steps = cfg.solver.pcg_iters
+            if tridiag:
+                # the tridiagonal CG stops at its tolerance, checked every
+                # TRIDIAG_CHECK_EVERY steps: K8/K9 launch (steps run + 1) times
+                # an iteration, the steps run a multiple of the check
+                every = ellk_soa.TRIDIAG_CHECK_EVERY
+                n8 = launches["tiled_mv_fwd"]
+                require(n8 == launches["tiled_mv_bwd"] and (n8 - sum(ran)) % every == 0
+                        and sum(ran) <= n8 <= sum(it * (steps + 1) for it in ran),
+                        f"[{label}] K8/K9 launches {n8} / {launches['tiled_mv_bwd']} do not match "
+                        f"{sum(ran)} LM iterations of up to {steps} CG steps, a multiple of {every}")
+                steps = (n8 - sum(ran)) // max(sum(ran), 1)  # the mean, printed
             expect = {
                 "tiled_fused_linearize": sum(ran),
                 "tiled_obs_linearize": 0,
-                "tiled_mv_fwd": sum(it * (steps + 1) for it in ran),
-                "tiled_mv_bwd": sum(it * (steps + 1) for it in ran),
+                "tiled_mv_fwd": launches["tiled_mv_fwd"] if tridiag else sum(it * (steps + 1) for it in ran),
+                "tiled_mv_bwd": launches["tiled_mv_bwd"] if tridiag else sum(it * (steps + 1) for it in ran),
                 "tiled_chi2": sum(ran) + skipped,
                 "fused_linearize": len(ran),
                 "obs_linearize": 0,
@@ -1131,7 +1188,8 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
                 "resident_chi2": 0,
             }
             formula = (f"K6 + K7 = sum(it) over solves (one call of two launches each), K6 alone = 0, K8/K9 = "
-                       f"sum(it x ({steps} CG steps + 1)), "
+                       f"sum(it x ({'~' + str(steps) + ' CG steps run (tridiag, to tolerance)' if tridiag else steps} "
+                       "CG steps + 1)), "
                        "K10 = sum(it) + skipped solves, K1 + K2 = one marginals linearization "
                        "per solve, K1 alone, K3, K4 = 0")
         print(f"[{label}] {loop} LM calls (iterations): {calls[loop]}; expected launches: {formula} = {expect}")
@@ -1142,7 +1200,8 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
               f"launches per shape {k4_shapes}")
         require(prior_launches == want_prior, f"[{label}] K4 took the prior on {prior_launches} launches, "
                                               f"expected {want_prior}")
-        for name in (RESIDENT if loop == "resident" else TILED + ("fused_linearize",)) if ran else ():
+        on_path = RESIDENT if loop == "resident" else TILED + ("fused_linearize",)
+        for name in [n for n in on_path if not (tridiag and n == "resident_solve")] if ran else ():
             require(launches[name] > 0, f"[{label}] {name} was launched no time on its path")
     else:
         require(not calls["resident"] and not calls["tiled"]
@@ -1170,6 +1229,7 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
               f"{[round(x, 2) for x in marg_ms]}, median {statistics.median(marg_ms):.2f}")
     return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop,
             "k4_shapes": k4_shapes, "engine": engine, "out": args.out, "iterations": iters, "marg_ms": marg_ms,
+            "windows": windows, "wall_s": wall, "tick_ms": tick_ms,
             "opt_ms_per_iteration": sum(opt_ms) / max(sum(iters), 1),
             "median_opt_ms": statistics.median(opt_ms[1:] or opt_ms) if opt_ms else float("nan")}
 
@@ -1737,7 +1797,6 @@ def check_plane_slices(torch, plane_log, fl_log, fl_point: dict) -> dict:
     dense session on their log, run here first; C to ``fl_point``."""
     t0 = time.perf_counter()
     twin = run_slice(torch, plane_log, [], "plane_log_point_dense")
-    del twin["engine"]
     a = run_slice(torch, plane_log, ["--plane-landmarks"], "plane_dense")
     _check_plane_session(a, twin, "plane_dense", same_keyframes=True)
     del a["engine"]
@@ -1760,7 +1819,170 @@ def check_plane_slices(torch, plane_log, fl_log, fl_point: dict) -> dict:
     wall = time.perf_counter() - t0
     print(f"plane slices: phase wall {wall:.2f} s")
     return {"wall_s": wall, "step": {"plane_pcg": step_b, "plane_fixed_lag_pcg": step_c},
-            "launches": {"plane_pcg": b["launches"], "plane_fixed_lag_pcg": c["launches"]}}
+            "launches": {"plane_pcg": b["launches"], "plane_fixed_lag_pcg": c["launches"]}, "twin": twin}
+
+
+# ---------------------------------------------------------------------------
+# 13. breadth on the card
+# ---------------------------------------------------------------------------
+
+WINDOW_POSE_ATOL = 5e-4  # tests/test_ingest_window.py's bound on poses after finalize
+
+
+def _cg_steps_to_tol(torch, engine, max_steps: int, cg_tol: float = 1e-8) -> dict:
+    """CG steps the resident loop's damped Schur system takes to the loop's
+    tolerance under each preconditioner, at ``engine``'s final state: one
+    linearization (the plain version), lambda at the LM's seed, the solves
+    ``soa_schur_step`` (jacobi, K4's plain version) and
+    ``soa_schur_step_tridiag``, each step's residual recorded where the
+    preconditioner reads it."""
+    from semantic_slam_tpu_torch.solver import ellk_soa as soa
+    from semantic_slam_tpu_torch.solver.lm import _free_masks
+    from semantic_slam_tpu_torch.solver.pcg import _edge_args
+
+    g = engine.graph
+    pf, lf = _free_masks(g)
+    se = soa.build_soa_edges(_edge_args(g), g.poses.shape[0], engine._ell_rows()[2], g.landmarks.shape[0])
+    lin = soa.PLAIN_OPS.linearize(g.poses, g.landmarks, se, "none", 1.0)
+    lam = _init_lambda(torch, lin)
+    orig, out = soa._schur_pcg, {}
+    for name, solve in (("jacobi", soa.soa_schur_step), ("tridiag", soa.soa_schur_step_tridiag)):
+        r2 = []
+
+        def recording(lin_, se_, lam_, pf_, lmf_, precond, *rest, r2=r2, **kw):
+            def rec(r):
+                r2.append(torch.sum(r * r))
+                return precond(r)
+
+            return orig(lin_, se_, lam_, pf_, lmf_, rec, *rest, **kw)
+
+        soa._schur_pcg = recording
+        try:
+            solve(lin, se, lam, pf, lf, max_steps, cg_tol)
+        finally:
+            soa._schur_pcg = orig
+        r2 = torch.stack(r2).double().cpu()
+        hit = torch.nonzero(r2 <= cg_tol * torch.clamp(r2[0], min=1e-30))
+        out[name] = int(hit[0]) if len(hit) else max_steps
+    return out
+
+
+def check_breadth(torch, log, plane_log, twin: dict, pcg: dict, tiled: dict) -> None:
+    """Phase 13, the last single-device paths at full width:
+
+    * window: ``plane_log`` in point mode with ``--ingest-window 8``, held
+      to the point dense session on it (``twin``, phase 12) after both
+      ``finalize()``: equal keyframes, landmarks and edges, poses within
+      ``WINDOW_POSE_ATOL``; K5 four launches a frontend call (``run_slice``);
+    * tridiag: the pcg slice's shape (K=4096, resident loop: K1-K3, K4
+      never) and the tiled slice's (K=8192, row-range loop: K6-K10) with
+      ``--precond tridiag``: launches as the LM iterations imply, chi2 never
+      rising (``run_slice``), ATE no worse than raw VIO's; ms per LM
+      iteration and CG steps to tolerance beside jacobi's;
+    * fitness information (a profile with ``use_const_inf_matrix=False``)
+      and ``--adaptive-normals`` on the dense log;
+    * ``--xla-trace`` on the dense session: its trace holds K5's kernel."""
+    import dataclasses
+
+    from semantic_slam_tpu_torch import config as tcfg
+
+    t0 = time.perf_counter()
+    # -- the window program alone on parallel/window_inputs.py's synthetic run
+    # (WINDOW keyframes, one box each, one plane round): card against CPU, K5
+    # once for the window's WINDOW detections
+    from semantic_slam_tpu_torch.frontend import kernels as fk
+    from semantic_slam_tpu_torch.parallel.window_inputs import make_window_inputs
+    from semantic_slam_tpu_torch.runtime import engine as engine_mod
+
+    prog = {}
+    for dev in (DEVICE, "cpu"):
+        g, tab, args, st = make_window_inputs(WINDOW, device=dev)
+        n0 = fk.score_hypotheses.launches
+        g, tab, _ = engine_mod._process_keyframes_window(g, tab, **args, **st)
+        prog[dev] = ((int(tab.count), int(g.num_poses), int(g.num_lme)), fk.score_hypotheses.launches - n0,
+                     g.landmarks[: int(g.num_landmarks)].cpu())
+    (cnt, k5_card, lm_card), (cnt_cpu, _, lm_cpu) = prog[DEVICE], prog["cpu"]
+    lm_gap = float((lm_card - lm_cpu).abs().max()) if len(lm_cpu) else 0.0
+    print(f"[window program] window_inputs B={WINDOW}: landmarks, poses, observations {cnt} (CPU {cnt_cpu}); "
+          f"landmarks within {lm_gap:.3g} of the CPU's; K5 {k5_card} launch(es) on the card")
+    require(cnt == cnt_cpu and cnt[0] > 0 and k5_card == 1 and lm_gap <= 1e-3,
+            "[window program] card and CPU disagree, or K5 did not score the window in one launch")
+
+    # -- window ingest
+    win = run_slice(torch, plane_log, ["--ingest-window", str(WINDOW)], "window")
+    ws, ts = win["summary"], twin["summary"]
+    for k in ("keyframes", "landmarks", "edges"):
+        require(ws[k] == ts[k], f"[window] {k}: {ws[k]} against the per-tick session's {ts[k]}")
+    require(win["windows"] and max(win["windows"]) >= 2, f"[window] no run of detection keyframes shared a "
+                                                         f"frontend call: {win['windows']}")
+    twin["engine"].finalize()
+    gap = float(abs(win["engine"].get_keyframe_poses() - twin["engine"].get_keyframe_poses()).max())
+    kf_s = {name: r["keyframes"] / r["wall_s"] for name, r in (("window", win), ("per_tick", twin))}
+    flush = statistics.median(win["tick_ms"])
+    print(f"[window] {ws['keyframes']} keyframes, {ws['landmarks']} landmarks, {ws['edges']} edges (per-tick "
+          f"session: the same); {len(win['windows'])} windows of {win['windows']} rows; poses after finalize "
+          f"within {gap:.3g} of the per-tick session's (bound {WINDOW_POSE_ATOL:g}); keyframes per second "
+          f"(session wall) window {kf_s['window']:.2f}, per tick {kf_s['per_tick']:.2f}; ms per flush: median "
+          f"{flush:.2f} over {len(win['tick_ms'])} flushes; K5 {win['launches']['score_hypotheses']} launches")
+    require(gap <= WINDOW_POSE_ATOL, f"[window] poses {gap:.3g} from the per-tick session's")
+    del win["engine"], twin["engine"]
+
+    # -- the tridiagonal preconditioner on both loops
+    for label, K, jac in (("tridiag_pcg", BENCH["K"], pcg), ("tridiag_tiled", TILED_BENCH["K"], tiled)):
+        r = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", str(K), "--precond", "tridiag"], label)
+        s = r["summary"]
+        require(r["loop"] == ("resident" if K <= BENCH["K"] else "tiled"), f"[{label}] took the {r['loop']} loop")
+        require(r["keyframes"] == jac["keyframes"], f"[{label}] keyframes {r['keyframes']} != {jac['keyframes']}")
+        require(s["ate_rmse_optimized"] <= s["ate_rmse_vio"], f"[{label}] ATE worse than raw VIO's")
+        steps = _cg_steps_to_tol(torch, r["engine"], r["engine"].cfg.solver.pcg_iters)
+        print(f"[{label}] K={K}: ms per LM iteration {r['opt_ms_per_iteration']:.3f} (jacobi "
+              f"{jac['opt_ms_per_iteration']:.3f}), LM iterations {sum(r['iterations'])} (jacobi "
+              f"{sum(jac['iterations'])}), median optimizing tick {r['median_opt_ms']:.2f} ms (jacobi "
+              f"{jac['median_opt_ms']:.2f}); CG steps to tolerance at the final state {steps}; ATE "
+              f"{s['ate_rmse_optimized']:.6g} m (raw VIO {s['ate_rmse_vio']:.6g}, jacobi "
+              f"{jac['summary']['ate_rmse_optimized']:.6g})")
+        del r["engine"]
+
+    # -- fitness information, adaptive normals
+    base = tcfg.PROFILES["yolo_detector"]
+    tcfg.PROFILES["yolo_detector_fitness"] = base.replace(
+        information=dataclasses.replace(base.information, use_const_inf_matrix=False))
+    try:
+        fit = run_slice(torch, log, ["--profile", "yolo_detector_fitness"], "fitness")
+    finally:
+        del tcfg.PROFILES["yolo_detector_fitness"]
+    eng = fit["engine"]
+    info = eng.graph.odom_info[: eng._n_odom]
+    d = info.diagonal(dim1=-2, dim2=-1)
+    n_fit = int((info != eng._info6).flatten(1).any(dim=1).sum())
+    print(f"[fitness] {len(info)} odometry edges, {n_fit} with fitness information; diagonal in "
+          f"[{float(d.min()):.6g}, {float(d.max()):.6g}] (constant {float(eng._info6[0, 0]):.6g} / "
+          f"{float(eng._info6[3, 3]):.6g}); median optimizing tick {fit['median_opt_ms']:.2f} ms; ATE "
+          f"{fit['summary']['ate_rmse_optimized']:.6g} m (raw VIO {fit['summary']['ate_rmse_vio']:.6g})")
+    require(bool(torch.isfinite(info).all()) and bool((d > 0).all()), "[fitness] information not finite and positive")
+    require(n_fit > 0, "[fitness] every odometry block is the constant matrix")
+    del fit["engine"]
+    adp = run_slice(torch, log, ["--adaptive-normals"], "adaptive_normals")
+    s = adp["summary"]
+    print(f"[adaptive_normals] {s['landmarks']} landmarks; median optimizing tick {adp['median_opt_ms']:.2f} ms; "
+          f"ATE {s['ate_rmse_optimized']:.6g} m (raw VIO {s['ate_rmse_vio']:.6g})")
+    require(s["ate_rmse_optimized"] <= s["ate_rmse_vio"], "[adaptive_normals] ATE worse than raw VIO's")
+    del adp["engine"]
+
+    # -- --xla-trace: a torch.profiler trace of the dense session
+    trace_dir = os.path.join(OUT_DIR, "xla_trace")
+    tr = run_slice(torch, log, ["--xla-trace", trace_dir], "dense_trace")
+    del tr["engine"]
+    path = os.path.join(trace_dir, "trace.json")
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    n_k5 = sum(1 for ev in events if "score_kernel(" in ev.get("name", "") and ev.get("cat") == "kernel")
+    print(f"[dense_trace] trace.json {size / 1e6:.1f} MB, {len(events)} events, {n_k5} score_kernel (K5) kernel "
+          f"events for {tr['launches']['score_hypotheses']} launches")
+    require(n_k5 > 0, "[dense_trace] the trace holds no K5 kernel event")
+    print(f"breadth: phase wall {time.perf_counter() - t0:.2f} s")
 
 
 def check_isolation() -> None:
@@ -1851,14 +2073,16 @@ def main() -> int:
         print(f"fixed-lag pcg session launches: K1 + K2 fused_linearize {n['fused_linearize']} (two kernel launches "
               f"each), K3 resident_chi2 {n['resident_chi2']}, K4 resident_solve {n['resident_solve']}")
 
-        del log
         t0 = time.perf_counter()
         plane_log = cli.make_synthetic_log(**PLANE_LOG)
         print(f"plane log {PLANE_LOG}: {len(plane_log.clouds)} clouds, {len(plane_log.detections)} detection frames "
               f"({time.perf_counter() - t0:.1f} s on the host)")
         phase("plane slices on the card")
-        check_plane_slices(torch, plane_log, fl_log, fl_pcg)
-        del plane_log, fl_log
+        planes = check_plane_slices(torch, plane_log, fl_log, fl_pcg)
+        del fl_log
+        phase("breadth on the card")
+        check_breadth(torch, log, plane_log, planes["twin"], pcg, tiled)
+        del plane_log, log
 
         check_isolation()
     except SmokeFailure as e:
@@ -1888,7 +2112,9 @@ def main() -> int:
                                             "tiled_fused_linearize" if name in TILED_PAIR else name],
             **{k: numbers[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
-            **{k: numbers[name][k] for k in ("device_ms", "device_us_per_step", "pair_device_ms")
+            **{k: numbers[name][k] for k in ("device_ms", "device_us_per_step", "pair_device_ms", "window_D",
+                                             "window_ms", "window_plain_ms", "window_device_ms", "window_bound_ms",
+                                             "window_max_abs_err")
                if k in numbers[name]},
         }
         for name, (src, rep, session) in meta.items()

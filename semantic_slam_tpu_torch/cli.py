@@ -12,6 +12,9 @@
   python -m semantic_slam_tpu_torch.cli synth --out lab.bag   (or lab.slog)
   python -m semantic_slam_tpu_torch.cli baginfo lab.bag
   python -m semantic_slam_tpu_torch.cli run --log lab.bag --voxel --carve --viz-bag-detections --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --ingest-window 8 --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --precond tridiag --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --adaptive-normals --xla-trace trace/ --device cuda
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
@@ -43,12 +46,21 @@ cloud at its optimized pose into a chunked occupancy map (``--carve`` adds
 free-space carving) and writes ``occupancy.ply``; ``--viz-bag`` writes
 ``viz.bag``, the reference's rviz topics, and ``--viz-bag-detections`` adds
 the per-keyframe ``/detected_landmarks`` stream, re-running the frontend on
-each detection keyframe's stored cloud.
+each detection keyframe's stored cloud. ``--ingest-window W`` pools W
+keyframes a tick (offline throughput: each run of detection keyframes takes
+one frontend call; ``finalize()`` flushes the last, partial window),
+``--precond tridiag`` preconditions both PCG loops with the odometry chain's
+block tridiagonal, ``--adaptive-normals`` shrinks the normal windows at
+depth edges, and ``--xla-trace DIR`` writes a ``torch.profiler`` trace of
+the replay to ``DIR/trace.json``. The profile's
+``use_const_inf_matrix=False`` (fitness-weighted odometry information) is a
+config field with no flag, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -86,8 +98,10 @@ def make_config(args):
         )
     if args.solver:
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, linear_solver=args.solver))
-    if args.precond:
+    if args.precond != "jacobi":
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, pcg_precond=args.precond))
+    if args.adaptive_normals:
+        cfg = cfg.replace(segmentation=dataclasses.replace(cfg.segmentation, adaptive_normals=True))
     if args.plane_landmarks:
         cfg = cfg.replace(use_plane_landmarks=True)
     if args.plane_gate:
@@ -97,6 +111,8 @@ def make_config(args):
         solver_kw["robust_kernel"] = args.robust
     if args.optimize_every > 1:
         solver_kw["optimize_every_n_ticks"] = args.optimize_every
+    if args.ingest_window > 1:
+        solver_kw["ingest_window"] = args.ingest_window
     if args.fixed_lag > 0:
         solver_kw["fixed_lag_window"] = args.fixed_lag
     if solver_kw:
@@ -318,7 +334,14 @@ def run_from_args(args, log):
     """``run`` on a log already in memory: the session, then its shutdown
     work. Returns (engine, summary)."""
     cfg = make_config(args)
-    engine = run_session(log, cfg, args.device, resume=args.resume, finalize=args.optimize_every > 1)
+    trace = contextlib.nullcontext()
+    if args.xla_trace:
+        from semantic_slam_tpu_torch.utils.profiling import device_trace
+
+        trace = device_trace(args.xla_trace)
+    with trace:
+        engine = run_session(log, cfg, args.device, resume=args.resume,
+                             finalize=args.optimize_every > 1 or args.ingest_window > 1)
     grid = build_voxel_map(engine, carve=args.carve) if args.voxel else None
     summary = write_outputs(args.out, args.profile, cfg, engine, log, save_graph=args.save_graph,
                             checkpoint=args.checkpoint, dump_keyframes=args.dump_keyframes, grid=grid,
@@ -426,8 +449,20 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     r.add_argument("--solver", default="", choices=["", "dense", "pcg"],
                    help="linear solver (default: the profile's, dense)")
-    r.add_argument("--precond", default="", choices=["", "jacobi"],
-                   help="PCG preconditioner (default: the profile's, jacobi)")
+    r.add_argument("--precond", default="jacobi", choices=["jacobi", "tridiag"],
+                   help="PCG preconditioner (tridiag = odometry-chain block tridiagonal via parallel cyclic "
+                        "reduction)")
+    r.add_argument("--ingest-window", type=int, default=1,
+                   help="pool W keyframes and ingest them together (+ one solve per window): offline-throughput "
+                        "mode; each run of detection keyframes takes one frontend call, association stays "
+                        "sequential inside the window. 1 = reference per-tick drain. W larger than the per-tick "
+                        "ingest cap wins over it (the whole window flushes at once)")
+    r.add_argument("--adaptive-normals", action="store_true",
+                   help="PCL-faithful adaptive normal windows near depth discontinuities")
+    r.add_argument("--xla-trace", default="",
+                   help="directory for a torch.profiler trace of the replay, host and CUDA activity: "
+                        "<dir>/trace.json in Chrome trace format (chrome://tracing, ui.perfetto.dev); the JAX "
+                        "package's flag name")
     r.add_argument("--fixed-lag", type=int, default=0,
                    help="fixed-lag smoothing window: marginalize keyframes beyond the last N into a prior "
                         "(0 = the reference's full-history behavior)")

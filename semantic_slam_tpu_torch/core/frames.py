@@ -3,8 +3,10 @@
 
 Reproduces the reference's ``semantic_tools`` numerics exactly, including the
 truncated constants (``1.5708`` for pi/2) and the (0,2) typo of the
-robot->world rotation (``strict=True``). The per-odometry-source fixups run
-on the host in ``semantic_slam_tpu.core.np_geometry`` and are not ported.
+robot->world rotation (``strict=True``). The per-odometry-source fixups (``pose_ned_to_enu``,
+``pose_cam_to_robot_odom``, ``rot_pose_z``, ``rebase_to_origin``) are here
+on tensors; the engine's host path applies their numpy copies in
+``core/np_geometry.py``.
 
 Scalar angles are passed as 0-d tensors, which carry the dtype and device.
 """
@@ -12,6 +14,8 @@ Scalar angles are passed as 0-d tensors, which carry the dtype and device.
 from __future__ import annotations
 
 import torch
+
+from semantic_slam_tpu_torch.core import geometry as geo
 
 Tensor = torch.Tensor
 
@@ -119,3 +123,59 @@ def horizontal_plane_normal_in_cam(
     T = t_cam_world(robot_xyzrpy, cam_pitch, strict=strict)
     n_world = T.new_tensor([0.0, 0.0, 1.0, 0.0])
     return torch.einsum("...ji,...j->...i", T, n_world)  # T^T @ n
+
+
+# ---------------------------------------------------------------------------
+# Per-odometry-source ingestion fixups (ros_utils.hpp), on tensors. The
+# engine's host path applies the ``np_geometry`` copies of these; these are
+# for odometry already on the device.
+# ---------------------------------------------------------------------------
+
+REF_PI = 3.14  # ros_utils.hpp:205 (NED->ENU)
+REF_HALF_PI_SHORT = 1.57  # ros_utils.hpp:248 (RotPoseZ)
+
+
+def _euler_vector_fixup(pose7: Tensor, M: Tensor, rpy: Tensor) -> Tensor:
+    """The reference's fixups rotate the Euler-angle vector and the
+    translation by one 3x3 matrix and rebuild the quaternion."""
+    rpy_r = torch.einsum("ij,...j->...i", M, rpy)
+    t_r = torch.einsum("ij,...j->...i", M, pose7[..., :3])
+    return geo.pose_make(t_r, geo.rpy_to_quat(rpy_r))
+
+
+def pose_ned_to_enu(pose7: Tensor) -> Tensor:
+    """Snap-VIO NED->ENU fixup, ``ros_utils.hpp:192-231``: the Euler-angle
+    vector and the translation multiplied by the reference's matrix with
+    both off-diagonal terms sin(-3.14) (not a rotation), verbatim."""
+    a = torch.tensor(-REF_PI, dtype=pose7.dtype, device=pose7.device)
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    M = torch.stack([torch.stack([o, z, z]), torch.stack([z, c, s]), torch.stack([z, s, c])])
+    return _euler_vector_fixup(pose7, M, geo.quat_to_rpy(pose7[..., 3:]))
+
+
+def pose_cam_to_robot_odom(pose7: Tensor) -> Tensor:
+    """ORB-SLAM camera-frame odometry -> robot frame, ``ros_utils.hpp:143-190``:
+    the Euler-angle vector and the translation rotated by Rz(-90)Rx(-90)."""
+    a = torch.tensor(-REF_HALF_PI, dtype=pose7.dtype, device=pose7.device)
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    rot_x = torch.stack([torch.stack([o, z, z]), torch.stack([z, c, -s]), torch.stack([z, s, c])])
+    rot_z = torch.stack([torch.stack([c, -s, z]), torch.stack([s, c, z]), torch.stack([z, z, o])])
+    return _euler_vector_fixup(pose7, rot_z @ rot_x, geo.quat_to_rpy(pose7[..., 3:]))
+
+
+def rot_pose_z(pose7: Tensor, first_yaw) -> Tensor:
+    """Jackal odometry yaw-rebase + 90deg yaw rotation, ``ros_utils.hpp:233-271``."""
+    a = torch.tensor(REF_HALF_PI_SHORT, dtype=pose7.dtype, device=pose7.device)
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    M = torch.stack([torch.stack([c, -s, z]), torch.stack([s, c, z]), torch.stack([z, z, o])])
+    rpy = geo.quat_to_rpy(pose7[..., 3:])
+    yaw = rpy[..., 2] - torch.as_tensor(first_yaw, dtype=pose7.dtype, device=pose7.device)
+    return _euler_vector_fixup(pose7, M, torch.cat([rpy[..., :2], yaw[..., None]], dim=-1))
+
+
+def rebase_to_origin(pose7: Tensor, origin_t: Tensor) -> Tensor:
+    """Subtract the first-sample translation, ``ros_utils.hpp:273-286``."""
+    return torch.cat([pose7[..., :3] - origin_t, pose7[..., 3:]], dim=-1)

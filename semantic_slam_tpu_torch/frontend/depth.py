@@ -13,10 +13,11 @@ Tensor = torch.Tensor
 
 
 def backproject_depth(depth: Tensor, intr4: Tensor, depth_scale: Tensor) -> tuple[Tensor, Tensor]:
-    """Pinhole backprojection: (points [H,W,3], valid [H,W]). Invalid pixels
-    become zero points with valid=False. ``depth`` is any integer or float
-    tensor; the points take ``intr4``'s dtype."""
-    H, W = depth.shape
+    """Pinhole backprojection: (points [..., H, W, 3], valid [..., H, W])
+    of a depth image [..., H, W] (or a batch of them, one camera). Invalid
+    pixels become zero points with valid=False. ``depth`` is any integer or
+    float tensor; the points take ``intr4``'s dtype."""
+    H, W = depth.shape[-2:]
     dtype = intr4.dtype
     fx, fy, cx, cy = intr4[0], intr4[1], intr4[2], intr4[3]
     z = depth.to(dtype) * depth_scale

@@ -39,7 +39,7 @@ class PlaneSet(NamedTuple):
 
 def classify_and_canonicalize(m: Tensor, d: Tensor, h: Tensor):
     """Reference h/v classification + normal-sign canonicalization
-    (plane_segmentation.cpp:195-253), batched: m [B,3], d [B], h [3].
+    (plane_segmentation.cpp:195-253), batched: m [B,3], d [B], h [3] or [B,3].
     The per-component test is one-sided (``|m_i| - |h_i| < 0.3``); vertical
     also needs ``h.m < 0.5``; horizontal planes flip when m[1] > 0, vertical
     when m[0] > 0, the whole 4-vector flipping.
@@ -74,7 +74,7 @@ def extract_planes(
     pts: Tensor,  # [D, N, 3]
     nrm: Tensor,  # [D, N, 3]
     cand0: Tensor,  # [D, N] bool: valid point AND valid normal AND in-bbox
-    horiz_normal_cam: Tensor,  # [3] gravity normal in cam frame
+    horiz_normal_cam: Tensor,  # [3] or [D, 3] gravity normal in cam frame
     count_scale: Tensor,  # [D]: bbox_pixels / N (sampling correction)
     min_inliers: float,
     min_area: float,

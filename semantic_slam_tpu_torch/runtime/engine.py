@@ -9,6 +9,11 @@ work runs eagerly on ``device``:
   * ``_process_keyframe``  -- node + odometry-edge append, frontend
     (normals, batched plane extraction), association, landmark ingest;
   * ``_ingest_keyframes_batch`` -- a run of detection-less keyframes;
+  * ``_process_keyframes_window`` -- a run of detection keyframes that share
+    a sensor (window ingest, ``ingest_window > 1``, which pools W keyframes
+    a tick): the frontend once over the run (``segmentation.segment_window``,
+    one plane extraction over its B*D detections), then association and
+    landmark ingest row by row (``_window_assoc_scan``);
   * ``segment_keyframe`` -- the frontend alone (``_segment_only``) re-run
     on a stored keyframe after the session (the viz bag's detections);
   * ``_optimize_tick``     -- the LM (dense Schur, or with
@@ -39,8 +44,16 @@ work runs eagerly on ``device``:
     session's keyframes carry no cloud (``cloud=None``). A keyframe's cloud
     is the engine's own copy of the arrays ``set_point_cloud`` was given.
 
+Odometry edges carry the constant information matrix, or with
+``use_const_inf_matrix=False`` one fitness-weighted matrix each
+(``_edge_info6``, formed on the device). ``pcg_precond="tridiag"`` swaps the
+PCG loops' block-Jacobi preconditioner for the odometry chain's block
+tridiagonal (``ellk_soa.soa_schur_step_tridiag`` in K4's place on the
+resident loop; the row-range loop's ``precond_kind``).
+
 Host traffic per tick: two flags per LM iteration and the ``info`` vector,
-and one small fetch per marginalization.
+and one small fetch per marginalization (with ``--precond tridiag`` also a
+flag every 8 CG steps).
 The reference's optimize gate (at least ``min_edges`` edges) is decided on
 the host from the count mirrors; only while they are below the gate does
 the solver fetch the edge count.
@@ -72,6 +85,7 @@ from semantic_slam_tpu_torch.graph.state import set_rows
 from semantic_slam_tpu_torch.runtime.keyframe_gate import KeyframeGate
 from semantic_slam_tpu_torch.solver import ellk_soa as soa_mod
 from semantic_slam_tpu_torch.solver import fixed_lag as fl
+from semantic_slam_tpu_torch.solver import information as info_mod
 from semantic_slam_tpu_torch.solver import lm as lm_mod
 from semantic_slam_tpu_torch.solver import soa_dist as soa_dist_mod
 from semantic_slam_tpu_torch.utils.profiling import log_optimize
@@ -97,20 +111,11 @@ class KeyframeMeta:
 
 def _unported(cfg: SlamConfig) -> list[str]:
     """Paths this configuration needs that the port does not have yet."""
-    s = cfg.solver
     missing = []
-    if s.linear_solver not in ("dense", "pcg"):
-        missing.append(f"linear_solver={s.linear_solver!r}")
-    if s.linear_solver == "pcg" and s.pcg_precond != "jacobi":
-        missing.append(f"pcg_precond={s.pcg_precond!r} (block-tridiagonal PCG preconditioner)")
+    if cfg.solver.linear_solver not in ("dense", "pcg"):
+        missing.append(f"linear_solver={cfg.solver.linear_solver!r}")
     if cfg.mesh.num_devices > 1:
         missing.append("mesh.num_devices > 1 (sharded solver)")
-    if s.ingest_window > 1:
-        missing.append("ingest_window > 1 (windowed ingest)")
-    if not cfg.information.use_const_inf_matrix:
-        missing.append("use_const_inf_matrix=False (fitness information)")
-    if cfg.segmentation.adaptive_normals:
-        missing.append("adaptive_normals (adaptive-window normals)")
     return missing
 
 
@@ -125,7 +130,8 @@ def _soa_dispatch(K: int) -> str:
 def _ingest_keyframes_batch(graph: gs.GraphState, odoms: Tensor, prev_odom7: Tensor, has_prev: bool, info6: Tensor):
     """Append a run of B keyframe nodes ``odoms [B,7]`` and the odometry
     chain edges ``prev^-1 * odom`` (semantic_graph_slam.cpp:104-150); row 0
-    gets no edge when the graph was empty."""
+    gets no edge when the graph was empty. ``info6`` is one [6,6] matrix for
+    every edge, or one [B,6,6] per row (fitness information)."""
     B = odoms.shape[0]
     dev = odoms.device
     tgt = graph.num_poses + torch.arange(B, device=dev)
@@ -133,6 +139,8 @@ def _ingest_keyframes_batch(graph: gs.GraphState, odoms: Tensor, prev_odom7: Ten
     meas = geo.pose_mul(geo.pose_inv(prevs), odoms)
     first = 0 if has_prev else 1
     n_e = B - first
+    if info6.dim() == 3:
+        info6 = info6[first:]
     e_tgt = graph.num_odom + torch.arange(n_e, device=dev)
     return graph.replace(
         poses=set_rows(graph.poses, tgt, odoms),
@@ -205,16 +213,20 @@ def _process_keyframe_planes(pn, dets, res, kf_idx, robot_xyzrpy, cam_angle, lm_
 def _segment_only(
     points, cloud_valid, cam_intr, depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle,
     seg_params: dict, *, samp_h, samp_w, max_planes, num_hypotheses, smoothing_size, strict_frames, depth_input,
+    adaptive_normals=False,
 ):
-    """The frontend of one keyframe: (depth backprojection,) normals and the
-    per-box plane extraction (K5 on the card). Returns its detections."""
+    """The frontend of one keyframe, or with a leading batch dim on every
+    per-keyframe input of a run of keyframes (``segmentation.segment_window``):
+    (depth backprojection,) normals and the per-box plane extraction (K5 on
+    the card). Returns its detections."""
     if depth_input:
         points, cloud_valid = depth_mod.backproject_depth(points, cam_intr, depth_scale)
-    return seg_mod.segment_all(
+    segment = seg_mod.segment_window if boxes.dim() == 3 else seg_mod.segment_all
+    return segment(
         points, cloud_valid, boxes, class_ids, probs, robot_xyzrpy, cam_angle,
         **seg_params, samp_h=samp_h, samp_w=samp_w, max_planes=max_planes,
         num_hypotheses=num_hypotheses, smoothing_size=smoothing_size,
-        strict_frames=strict_frames,
+        strict_frames=strict_frames, adaptive_normals=adaptive_normals,
     )
 
 
@@ -222,7 +234,7 @@ def _process_keyframe(
     graph, table, odom7, prev_odom7, has_prev, info6, points, cloud_valid, cam_intr,
     depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle, seg_params: dict,
     assoc_params: dict, lm_info3, *, samp_h, samp_w, max_planes, num_hypotheses,
-    smoothing_size, strict_frames, use_rtabmap_offset, depth_input,
+    smoothing_size, strict_frames, use_rtabmap_offset, depth_input, adaptive_normals=False,
 ):
     """One detection-bearing keyframe: node+edge append, (depth
     backprojection,) frontend, association, landmark ingest. Returns (graph,
@@ -233,6 +245,7 @@ def _process_keyframe(
         points, cloud_valid, cam_intr, depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle, seg_params,
         samp_h=samp_h, samp_w=samp_w, max_planes=max_planes, num_hypotheses=num_hypotheses,
         smoothing_size=smoothing_size, strict_frames=strict_frames, depth_input=depth_input,
+        adaptive_normals=adaptive_normals,
     )
     table, res = assoc_mod.associate(
         table, dets, robot_xyzrpy, cam_angle, **assoc_params,
@@ -244,15 +257,58 @@ def _process_keyframe(
     return graph, table, dets, res, kf_idx
 
 
+def _process_keyframes_window(
+    graph, table, odoms, prev_odom7, has_prev, info6, points, cloud_valid, cam_intr, depth_scale, boxes, class_ids,
+    probs, robot_xyzrpy, cam_angle, seg_params: dict, assoc_params: dict, lm_info3, *, samp_h, samp_w, max_planes,
+    num_hypotheses, smoothing_size, strict_frames, use_rtabmap_offset, depth_input, adaptive_normals=False,
+):
+    """A run of B detection-bearing keyframes (window ingest; the JAX
+    engine's ``_process_keyframes_window``): the B nodes and chain edges in
+    one append (``info6`` [6,6] or [B,6,6]), the frontend once over the
+    whole run (``odoms [B,7]`` and every sensor input with a leading B; one
+    plane extraction over B*D detections), then association and landmark
+    ingest row by row (``_window_assoc_scan``), so that landmarks created by
+    row i are matchable by row i+1. B is the run's length: the JAX engine's
+    power-of-two padding rows are an XLA compile-bucket device and are not
+    ported. Returns (graph, table, the last row's detections)."""
+    base = graph.num_poses
+    graph = _ingest_keyframes_batch(graph, odoms, prev_odom7, has_prev, info6)
+    dets = _segment_only(
+        points, cloud_valid, cam_intr, depth_scale, boxes, class_ids, probs, robot_xyzrpy, cam_angle, seg_params,
+        samp_h=samp_h, samp_w=samp_w, max_planes=max_planes, num_hypotheses=num_hypotheses,
+        smoothing_size=smoothing_size, strict_frames=strict_frames, depth_input=depth_input,
+        adaptive_normals=adaptive_normals,
+    )
+    graph, table = _window_assoc_scan(graph, table, dets, robot_xyzrpy, base, cam_angle, assoc_params, lm_info3,
+                                      strict_frames=strict_frames, use_rtabmap_offset=use_rtabmap_offset)
+    return graph, table, seg_mod.DetectedObjects(*(f[-1] for f in dets))
+
+
+def _window_assoc_scan(graph, table, dets, robot_xyzrpy, base, cam_angle, assoc_params: dict, lm_info3, *,
+                       strict_frames: bool, use_rtabmap_offset: bool):
+    """The sequential tail of a window: association and landmark ingest row
+    by row over ``dets`` (fields [B, M, ...]); row b is keyframe ``base +
+    b``. Returns (graph, table)."""
+    for b in range(dets.valid.shape[0]):
+        table, res = assoc_mod.associate(
+            table, seg_mod.DetectedObjects(*(f[b] for f in dets)), robot_xyzrpy[b], cam_angle, **assoc_params,
+            strict_frames=strict_frames, rtabmap_y_offset=use_rtabmap_offset,
+        )
+        graph = _ingest_landmarks(graph, res.valid, res.lm_id, res.is_new, res.local_pose, res.world_pose,
+                                  base + b, lm_info3)
+    return graph, table
+
+
 def _optimize_tick(
     graph, table, marginals, last_idx: int, *, do_opt: bool, init_lambda: float,
     max_iterations: int, min_edges: int, rel_tol: float, robust_kind: str,
     robust_delta: float, need_marginals: bool, linear_solver: str, pcg_iters: int,
-    ell_rows: tuple, prior: fl.MarginalPrior | None = None,
+    ell_rows: tuple, prior: fl.MarginalPrior | None = None, pcg_precond: str = "jacobi",
 ):
     """LM optimize (with the fixed-lag ``prior`` folded in, if any), marginal
-    recovery, table sync, packed stats. Returns (graph, table, marginals,
-    info [8+7] on the device, iterations)."""
+    recovery, table sync, packed stats. ``pcg_precond`` picks the PCG
+    loops' preconditioner (``"jacobi"`` or ``"tridiag"``). Returns (graph,
+    table, marginals, info [8+7] on the device, iterations)."""
     zero = graph.poses.new_zeros(())
     stats = lm_mod.LMStats(0, zero, zero, zero)
     if do_opt:
@@ -263,9 +319,10 @@ def _optimize_tick(
         )
         if linear_solver == "pcg" and _soa_dispatch(graph.poses.shape[0]) == "tiled":
             out = soa_dist_mod.lm_optimize_soa_tiled(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, prior=prior,
-                                                     **kw)
+                                                     precond_kind=pcg_precond, **kw)
         elif linear_solver == "pcg":
-            out = soa_mod.lm_optimize_soa(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, prior=prior, **kw)
+            out = soa_mod.lm_optimize_soa(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, prior=prior,
+                                          precond_kind=pcg_precond, **kw)
         elif prior is not None:
             out = fl.lm_optimize_prior(graph, prior, **kw)
         else:
@@ -306,7 +363,7 @@ def _optimize_tick(
 def _optimize_tick_planes(
     graph, table, pn, last_idx: int, *, do_opt: bool, init_lambda: float, max_iterations: int, min_edges: int,
     rel_tol: float, robust_kind: str, robust_delta: float, need_marginals: bool, linear_solver: str, pcg_iters: int,
-    ell_rows: tuple, prior: fl.MarginalPrior | None = None,
+    ell_rows: tuple, prior: fl.MarginalPrior | None = None, pcg_precond: str = "jacobi",
 ):
     """The plane-landmark tick: the joint pose, point and plane LM (the
     dense plane LM, or the row-range loop's plane half with ``pcg``, with
@@ -322,7 +379,7 @@ def _optimize_tick_planes(
         marg = None
         if linear_solver == "pcg":
             out = soa_dist_mod.lm_optimize_soa_planes(graph, pn, max_cg_iters=pcg_iters, ell_rows=ell_rows,
-                                                      with_marginals=need_marginals, **kw)
+                                                      with_marginals=need_marginals, precond_kind=pcg_precond, **kw)
             g2, pn2, st = out[:3]
             if need_marginals:
                 marg = out[3]
@@ -352,6 +409,19 @@ def _optimize_tick_planes(
 
 def _is_det(kf: KeyframeMeta) -> bool:
     return kf.boxes is not None and kf.cloud is not None and len(kf.boxes) > 0
+
+
+def _same_sensor(a: KeyframeMeta, b: KeyframeMeta) -> bool:
+    """Two detection keyframes one window may hold: the same cloud or depth
+    mode and frame size, and in depth mode the same intrinsics and scale
+    (the JAX engine's run break)."""
+    if (a.depth_intr is None) != (b.depth_intr is None):
+        return False
+    if np.shape(a.cloud[0]) != np.shape(b.cloud[0]):
+        return False
+    if a.depth_intr is not None:
+        return np.array_equal(a.depth_intr, b.depth_intr) and a.depth_scale == b.depth_scale
+    return True
 
 
 class SlamEngine:
@@ -413,6 +483,11 @@ class SlamEngine:
 
         self._export_marg = None
         self._export_marg_tick = -1
+        # finalize() sets it to flush a partial ingest window
+        self._flush_pending = False
+        # window rows a frontend call may hold: K5's grid takes at most 65535
+        # detections (frontend/kernels.py)
+        self._max_window_rows = max(1, 65535 // config.capacity.max_detections_per_frame)
         # ticks run by this engine; not checkpointed (nor in the JAX package),
         # so optimize_every_n_ticks counts from 0 again after a resume
         self._ticks_done = 0
@@ -560,6 +635,7 @@ class SlamEngine:
             need_marginals=bool(self.cfg.association.use_maha_dist),
             linear_solver=s.linear_solver,
             pcg_iters=s.pcg_iters,
+            pcg_precond=s.pcg_precond,
             ell_rows=self._ell_rows(planes=self.cfg.use_plane_landmarks),
             prior=self._prior_arg(),
         )
@@ -571,7 +647,13 @@ class SlamEngine:
     def run(self) -> bool:
         if not self.keyframe_queue:
             return False
-        n = min(len(self.keyframe_queue), self.cfg.capacity.max_keyframes_per_update)
+        w = self.cfg.solver.ingest_window
+        if w > 1 and not self._flush_pending and len(self.keyframe_queue) < w:
+            # offline-throughput mode: keyframes pool until a whole window is
+            # queued, so that its detection keyframes share one frontend call
+            # (finalize() flushes a partial window)
+            return False
+        n = min(len(self.keyframe_queue), max(self.cfg.capacity.max_keyframes_per_update, w))
         batch, self.keyframe_queue = self.keyframe_queue[:n], self.keyframe_queue[n:]
 
         self._ensure_capacity(batch)
@@ -582,14 +664,25 @@ class SlamEngine:
         init_lam = self._last_lambda if self.cfg.solver.warm_start_lambda else 0.0
 
         t0 = time.perf_counter()
+        # plane-landmark sessions take detection keyframes one by one, as the
+        # JAX engine does (it has no plane window program)
+        max_rows = 1 if self.cfg.use_plane_landmarks else self._max_window_rows
         i = 0
         while i < len(batch):
             kf = batch[i]
             has_prev = len(self.keyframes) > 0
             prev_odom = self.keyframes[-1].odom if has_prev else kf.odom
             if _is_det(kf):
-                self._process_keyframe_with_detections(kf, prev_odom, has_prev)
-                run = [kf]
+                # contiguous run of detection keyframes that share a sensor ->
+                # one window: the frontend once over the whole run
+                j = i + 1
+                while j < min(len(batch), i + max_rows) and _is_det(batch[j]) and _same_sensor(kf, batch[j]):
+                    j += 1
+                run = batch[i:j]
+                if len(run) == 1:
+                    self._process_keyframe_with_detections(kf, prev_odom, has_prev)
+                else:
+                    self._process_keyframe_window(run, prev_odom, has_prev)
             else:
                 # contiguous run of detection-less keyframes -> one batched append
                 j = i
@@ -601,7 +694,7 @@ class SlamEngine:
                     self._tensor(np.stack([r.odom for r in run])),
                     self._tensor(prev_odom),
                     has_prev,
-                    self._info6,
+                    self._run_info6(run),
                 )
             for b, r in enumerate(run):
                 r.node_idx = self._n_poses + self._kf_base
@@ -680,11 +773,16 @@ class SlamEngine:
         )
 
     def finalize(self) -> bool:
-        """Drain the queue, then force one optimize pass over the current
-        graph (for ``optimize_every_n_ticks > 1`` sessions). No-op on an
-        empty graph."""
-        while self.keyframe_queue:
-            self.run()
+        """Drain the queue (a partial ingest window too), then force one
+        optimize pass over the current graph (for ``optimize_every_n_ticks >
+        1`` or ``ingest_window > 1`` sessions). No-op on an empty graph."""
+        if self.keyframe_queue:
+            self._flush_pending = True
+            try:
+                while self.keyframe_queue:
+                    self.run()
+            finally:
+                self._flush_pending = False
         if not self.keyframes:
             return False
         t0 = time.perf_counter()
@@ -696,13 +794,10 @@ class SlamEngine:
 
     # ------------------------------------------------------------------
 
-    def _frontend_args(self, kf: KeyframeMeta) -> tuple[dict, dict]:
-        """The frontend's inputs for one detection keyframe, from its stored
-        cloud, boxes and ``robot_pose`` snapshot: (tensors, statics), the
-        keyword arguments of ``_segment_only``."""
-        cfg = self.cfg
-        seg = cfg.segmentation
-        D = cfg.capacity.max_detections_per_frame
+    def _frontend_host(self, kf: KeyframeMeta) -> dict:
+        """One detection keyframe's per-keyframe frontend inputs on the host,
+        padded to the profile's D detections, in the engine's dtypes."""
+        D = self.cfg.capacity.max_detections_per_frame
         boxes = np.zeros((D, 4), np.float64)
         cids = np.full((D,), -1, np.int32)
         probs = np.zeros((D,), np.float64)
@@ -710,25 +805,44 @@ class SlamEngine:
         boxes[:nd] = kf.boxes[:nd]
         cids[:nd] = kf.class_ids[:nd]
         probs[:nd] = kf.probs[:nd]
-
         points, valid = kf.cloud
+        depth = kf.depth_intr is not None
+        return dict(
+            points=np.asarray(points) if depth else np.asarray(points, self._npdt),  # u16 depth: widened on the device
+            cloud_valid=None if depth else np.asarray(valid, bool),
+            boxes=boxes.astype(self._npdt),
+            class_ids=cids,
+            probs=probs.astype(self._npdt),
+            robot_xyzrpy=npg.pose_to_xyzrpy(kf.robot_pose).astype(self._npdt),
+        )
+
+    def _frontend_args(self, kfs: KeyframeMeta | list[KeyframeMeta]) -> tuple[dict, dict]:
+        """The frontend's inputs for one detection keyframe, or stacked for a
+        run of them that share a sensor (a window), from their stored clouds,
+        boxes and ``robot_pose`` snapshots: (tensors, statics), the keyword
+        arguments of ``_segment_only``. A run's arrays are stacked on the host
+        and go to the device once."""
+        one = isinstance(kfs, KeyframeMeta)
+        run = [kfs] if one else kfs
+        hosts = [self._frontend_host(k) for k in run]
+        kf = run[0]
+        seg = self.cfg.segmentation
         depth_input = kf.depth_intr is not None
-        if depth_input:
-            points_t = self._tensor(points, torch.int32)  # u16 depth, widened
-            valid_t = None
-            cam_intr = self._tensor(kf.depth_intr.astype(self._npdt))
-            depth_scale = self._tensor(self._npdt(kf.depth_scale))
-        else:
-            points_t = self._tensor(np.asarray(points, self._npdt))
-            valid_t = self._tensor(valid, torch.bool)
-            cam_intr = depth_scale = None
+
+        def put(key, dtype=None):
+            if hosts[0][key] is None:
+                return None
+            return self._tensor(hosts[0][key] if one else np.stack([h[key] for h in hosts]), dtype)
 
         tensors = dict(
-            points=points_t, cloud_valid=valid_t, cam_intr=cam_intr, depth_scale=depth_scale,
-            boxes=self._tensor(boxes.astype(self._npdt)),
-            class_ids=self._tensor(cids, torch.int32),
-            probs=self._tensor(probs.astype(self._npdt)),
-            robot_xyzrpy=self._tensor(npg.pose_to_xyzrpy(kf.robot_pose).astype(self._npdt)),
+            points=put("points", torch.int32 if depth_input else None),
+            cloud_valid=put("cloud_valid", torch.bool),
+            cam_intr=self._tensor(kf.depth_intr.astype(self._npdt)) if depth_input else None,
+            depth_scale=self._tensor(self._npdt(kf.depth_scale)) if depth_input else None,
+            boxes=put("boxes"),
+            class_ids=put("class_ids", torch.int32),
+            probs=put("probs"),
+            robot_xyzrpy=put("robot_xyzrpy"),
             cam_angle=self._cam_angle, seg_params=self._seg_params,
         )
         statics = dict(
@@ -737,10 +851,49 @@ class SlamEngine:
             max_planes=seg.max_planes_per_detection,
             num_hypotheses=seg.num_hypotheses,
             smoothing_size=seg.normal_smoothing_size,
-            strict_frames=cfg.strict_reference_frames,
+            strict_frames=self.cfg.strict_reference_frames,
             depth_input=depth_input,
+            adaptive_normals=seg.adaptive_normals,
         )
         return tensors, statics
+
+    def _edge_info6(self, kf: KeyframeMeta, prev: KeyframeMeta | None) -> Tensor:
+        """The odometry information of the edge ``prev`` -> ``kf``: the
+        constant matrix (the reference's default), or with
+        ``use_const_inf_matrix=False`` the fitness-weighted matrix from the
+        two keyframes' clouds (``solver/information.py``; the constant when
+        either keyframe lacks an xyz cloud, depth-image mode included). The
+        JAX engine fetches the score to form the matrix on the host; here it
+        is formed on the device, so the tick keeps its one fetch."""
+        inf = self.cfg.information
+        if (
+            inf.use_const_inf_matrix or prev is None or prev.cloud is None or kf.cloud is None
+            or kf.depth_intr is not None or prev.depth_intr is not None
+        ):
+            return self._info6
+        S = inf.fitness_samples
+
+        def sub(cloud):
+            # the strided subsample on the host: S points go to the device
+            pts, valid = (np.asarray(a) for a in cloud)
+            idx = info_mod.subsample_index(valid.size, S, self._npdt)
+            return (self._tensor(pts.reshape(-1, 3)[idx].astype(self._npdt)),
+                    self._tensor(valid.reshape(-1)[idx].astype(self._npdt)))
+
+        rel = npg.pose_mul(npg.pose_inv(prev.odom), kf.odom)
+        score = info_mod.fitness_score_sub(*sub(prev.cloud), *sub(kf.cloud), self._tensor(rel.astype(self._npdt)),
+                                           max_range=inf.fitness_max_range)
+        return info_mod.fitness_info6(score, inf.var_gain_a, inf.min_stddev_x, inf.max_stddev_x,
+                                        inf.min_stddev_q, inf.max_stddev_q, inf.fitness_score_thresh, self.dtype)
+
+    def _run_info6(self, run: list[KeyframeMeta]) -> Tensor:
+        """The odometry information of a run's edges: the constant [6,6], or
+        with fitness information one [B,6,6] matrix a row, row b's edge
+        pairing row b-1 (row 0 the last keyframe ingested)."""
+        if self.cfg.information.use_const_inf_matrix:
+            return self._info6
+        prevs = [self.keyframes[-1] if self.keyframes else None] + run[:-1]
+        return torch.stack([self._edge_info6(r, p) for r, p in zip(run, prevs)])
 
     def _process_keyframe_with_detections(self, kf: KeyframeMeta, prev_odom, has_prev: bool) -> None:
         cfg = self.cfg
@@ -749,13 +902,27 @@ class SlamEngine:
             self.graph, self.table,
             odom7=self._tensor(kf.odom.astype(self._npdt)),
             prev_odom7=self._tensor(np.asarray(prev_odom, self._npdt)),
-            has_prev=has_prev, info6=self._info6, assoc_params=self._assoc_params, lm_info3=self._lm_info3,
+            has_prev=has_prev, info6=self._edge_info6(kf, self.keyframes[-1] if self.keyframes else None),
+            assoc_params=self._assoc_params, lm_info3=self._lm_info3,
             use_rtabmap_offset=cfg.association.use_rtab_map_odom, **fa, **statics,
         )
         if cfg.use_plane_landmarks:
             self.plane_nodes = _process_keyframe_planes(
                 self.plane_nodes, dets, res, kf_idx, fa["robot_xyzrpy"], self._cam_angle, self._lm_info3,
                 strict_frames=cfg.strict_reference_frames)
+        self.last_detected_objects = dets  # observability (seg_obj_vec_)
+
+    def _process_keyframe_window(self, run: list[KeyframeMeta], prev_odom, has_prev: bool) -> None:
+        """A run of detection keyframes that share a sensor, as one window
+        (``_process_keyframes_window``)."""
+        fa, statics = self._frontend_args(run)
+        self.graph, self.table, dets = _process_keyframes_window(
+            self.graph, self.table,
+            odoms=self._tensor(np.stack([k.odom for k in run]).astype(self._npdt)),
+            prev_odom7=self._tensor(np.asarray(prev_odom, self._npdt)),
+            has_prev=has_prev, info6=self._run_info6(run), assoc_params=self._assoc_params,
+            lm_info3=self._lm_info3, use_rtabmap_offset=self.cfg.association.use_rtab_map_odom, **fa, **statics,
+        )
         self.last_detected_objects = dets  # observability (seg_obj_vec_)
 
     def segment_keyframe(self, kf: KeyframeMeta) -> dict | None:

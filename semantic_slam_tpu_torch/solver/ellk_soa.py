@@ -1,5 +1,5 @@
 """Structure-of-arrays Schur-PCG LM (port of ``semantic_slam_tpu.solver.ellk_soa``
-for one device, jacobi preconditioner).
+for one device, block-Jacobi or block-tridiagonal preconditioner).
 
 Landmark slots live in channel tensors ``[C, R, K]`` (slot (r, k) is the r-th
 observation of pose k; r-major, so slot e = r*K + k), the odometry chain in
@@ -16,6 +16,10 @@ run these plain versions on CPU tensors):
   * ``soa_chi2``       -- K3, the trial-point objective;
   * ``soa_schur_step`` -- K4, the damped Schur-reduced PCG solve and the
     landmark back-substitution.
+
+With ``precond_kind="tridiag"`` the solve is ``soa_schur_step_tridiag``
+instead, the JAX package's XLA branch (neither K4 nor the TPU kernel has a
+tridiagonal preconditioner), in plain PyTorch; K1-K3 still run.
 
 The TPU path's one-hot landmark factors and digit vectors are not ported:
 landmark gathers are indexed loads, and landmark sums are ``index_add_``
@@ -41,6 +45,7 @@ from semantic_slam_tpu_torch.core import geometry as geo
 from semantic_slam_tpu_torch.graph.state import GraphState
 from semantic_slam_tpu_torch.solver import chain_soa as chs
 from semantic_slam_tpu_torch.solver import fixed_lag as fl
+from semantic_slam_tpu_torch.solver import tridiag as td
 from semantic_slam_tpu_torch.solver.lm import LMStats, _free_masks, inv33, inv66
 from semantic_slam_tpu_torch.solver.pcg import (
     EllBlocks,
@@ -355,19 +360,21 @@ def _masked_eye(M: Tensor, lam, free: Tensor, n: int) -> Tensor:
     return (M + lam * eye) * free[:, None, None] + eye * (1.0 - free)[:, None, None]
 
 
-def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free: Tensor,
-                   max_cg_iters: int, cg_tol: float = 1e-8, prior_Hp: Tensor | None = None,
-                   prior_idx: Tensor | None = None) -> tuple[Tensor, Tensor]:
-    """Plain version of the K4 kernel: damped Schur-reduced PCG (jacobi)
-    over ``max_cg_iters`` fixed steps, then the landmark back-substitution.
-    With a fixed-lag prior (``prior_Hp [6PB,6PB]``, ``prior_idx [PB]``) the
-    matvec adds the dense boundary block; ``lin`` already carries the
-    prior's gradient, diagonal and landmark part. Returns (dp [K,6],
-    db [L,3])."""
-    dtype = lin.gp.dtype
-    pf = pose_free.to(dtype)
+# the tridiagonal solves fetch their CG's convergence flag once every this many
+# steps and stop when it is down (the block-Jacobi steps never fetch)
+TRIDIAG_CHECK_EVERY = 8
+
+
+def _schur_pcg(lin: SoALin, se: SoAEdges, lam, pf: Tensor, lmf: Tensor, precond: Callable, max_cg_iters: int,
+               cg_tol: float, prior_Hp: Tensor | None, prior_idx: Tensor | None,
+               check_every: int = 0) -> tuple[Tensor, Tensor]:
+    """The damped Schur-reduced PCG under the preconditioner ``precond``
+    ([6, K] -> [6, K]) over ``max_cg_iters`` masked steps, then the landmark
+    back-substitution: (dp [K,6], db [L,3]). With ``check_every`` the loop
+    fetches the convergence flag before every ``check_every``-th step and
+    stops once it is down; the masked steps it skips would leave the state
+    as it is, so the result is the same."""
     pf_soa = pf[None, :]
-    lmf = block_free.to(dtype)
     Rt4 = lin.Rt[:, :, None, :]
 
     Ainv = inv33(_masked_eye(lin.Hll, lam, lmf, 3))
@@ -375,10 +382,6 @@ def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free
     y = torch.einsum("lij,lj->li", Ainv, gl)
     c = _obs_apply_jpT(lin.v, _m33_vec(lin.Ow, _m33_vec(Rt4, _gather(se.ll, y))))  # sum_r W y
     b = -(lin.gp - c) * pf_soa
-    Minv = inv66(_masked_eye(lin.diag.permute(2, 0, 1), lam, pf, 6)).permute(1, 2, 0)
-
-    def precond(r):
-        return _m66_vec(Minv, r) * pf_soa
 
     x = torch.zeros_like(b)
     r = b
@@ -386,9 +389,11 @@ def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free
     p = z
     rz = torch.sum(r * z)
     b2 = torch.clamp(torch.sum(b * b), min=1e-30)
-    zero = torch.zeros((), dtype=dtype, device=b.device)
-    for _ in range(max_cg_iters):
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    for step in range(max_cg_iters):
         active = torch.sum(r * r) > cg_tol * b2
+        if check_every and step % check_every == 0 and not bool(active):  # a host fetch
+            break
         Ap = _soa_matvec_inner(lin, se.ll, Ainv, lam, pf_soa, p, prior_Hp, prior_idx)
         alpha = torch.where(active, rz / torch.clamp(torch.sum(p * Ap), min=1e-30), zero)
         x = x + alpha * p
@@ -404,6 +409,55 @@ def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free
     t = _seg_sum(se.ll, wd, lin.gl.shape[0])
     db = torch.einsum("lij,lj->li", Ainv, -gl - t) * lmf[:, None]
     return dpk.T, db
+
+
+def soa_schur_step(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free: Tensor,
+                   max_cg_iters: int, cg_tol: float = 1e-8, prior_Hp: Tensor | None = None,
+                   prior_idx: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Plain version of the K4 kernel: damped Schur-reduced PCG (jacobi)
+    over ``max_cg_iters`` fixed steps, then the landmark back-substitution.
+    With a fixed-lag prior (``prior_Hp [6PB,6PB]``, ``prior_idx [PB]``) the
+    matvec adds the dense boundary block; ``lin`` already carries the
+    prior's gradient, diagonal and landmark part. Returns (dp [K,6],
+    db [L,3])."""
+    pf = pose_free.to(lin.gp.dtype)
+    Minv = inv66(_masked_eye(lin.diag.permute(2, 0, 1), lam, pf, 6)).permute(1, 2, 0)
+
+    def precond(r):
+        return _m66_vec(Minv, r) * pf[None, :]
+
+    return _schur_pcg(lin, se, lam, pf, block_free.to(pf.dtype), precond, max_cg_iters, cg_tol, prior_Hp, prior_idx)
+
+
+def chain_tridiag_factor(diag: Tensor, Hij: Tensor, lam, pf: Tensor) -> td.PCRFactor:
+    """The damped odometry-chain block tridiagonal, factored by parallel
+    cyclic reduction (``solver/tridiag.py``): the diagonal blocks ``diag``
+    [K,6,6] plus lam I (identity at fixed poses), the chain's couplings
+    ``Hij`` [K,6,6] (row k joins poses k and k+1) zeroed where either pose
+    is fixed (the JAX package's ``ellk_soa.py:661-672``)."""
+    D = _masked_eye(diag, lam, pf, 6)
+    pf_next = torch.cat([pf[1:], torch.zeros_like(pf[:1])])
+    return td.pcr_factor(D, Hij * (pf * pf_next)[:, None, None])
+
+
+def soa_schur_step_tridiag(lin: SoALin, se: SoAEdges, lam, pose_free: Tensor, block_free: Tensor,
+                           max_cg_iters: int, cg_tol: float = 1e-8, prior_Hp: Tensor | None = None,
+                           prior_idx: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """The resident loop's solve with the block-tridiagonal preconditioner
+    (``pcg_precond="tridiag"``): the JAX package's XLA branch of
+    ``soa_schur_step`` (K4, like the TPU kernel, has no such
+    preconditioner), in plain PyTorch on any device. The CG is ``_schur_pcg``
+    with ``chain_tridiag_factor``'s solve in place of the block-Jacobi one,
+    stopping at its tolerance (checked every ``TRIDIAG_CHECK_EVERY`` steps:
+    the JAX loop's early exit); the signature is ``soa_schur_step``'s."""
+    pf = pose_free.to(lin.gp.dtype)
+    fac = chain_tridiag_factor(lin.diag.permute(2, 0, 1), lin.Hij.permute(2, 0, 1), lam, pf)
+
+    def precond(r):
+        return td.pcr_solve(fac, r.T).T * pf[None, :]
+
+    return _schur_pcg(lin, se, lam, pf, block_free.to(pf.dtype), precond, max_cg_iters, cg_tol, prior_Hp, prior_idx,
+                      check_every=TRIDIAG_CHECK_EVERY)
 
 
 # ---------------------------------------------------------------------------
@@ -424,12 +478,15 @@ class SoAOps(NamedTuple):
 PLAIN_OPS = SoAOps(soa_linearize, soa_schur_step, soa_chi2)
 
 
-def kernel_ops() -> SoAOps:
+def kernel_ops(precond_kind: str = "jacobi") -> SoAOps:
     """The kernels' wrappers (``solver/kernels.py``): the plain versions on
-    CPU tensors, the CUDA kernels on CUDA tensors."""
+    CPU tensors, the CUDA kernels on CUDA tensors. With ``precond_kind=
+    "tridiag"`` the solve is ``soa_schur_step_tridiag`` (K1-K3 still
+    linearize and score; K4 does not launch)."""
     from semantic_slam_tpu_torch.solver import kernels
 
-    return SoAOps(kernels.resident_linearize, kernels.resident_solve, kernels.resident_chi2)
+    solve = {"jacobi": kernels.resident_solve, "tridiag": soa_schur_step_tridiag}[precond_kind]
+    return SoAOps(kernels.resident_linearize, solve, kernels.resident_chi2)
 
 
 def run_lm_loop_soa(
@@ -519,10 +576,11 @@ def lm_optimize_soa(
     g: GraphState, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
     max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
     with_marginals: bool = False, ell_rows: tuple = (1, 1, 8), cg_tol: float = 1e-8,
-    prior: fl.MarginalPrior | None = None,
+    prior: fl.MarginalPrior | None = None, precond_kind: str = "jacobi",
 ):
     """Single-device matrix-free LM (drop-in for ``lm.lm_optimize``), with an
-    optional fixed-lag ``prior``.
+    optional fixed-lag ``prior`` and the CG's preconditioner ``precond_kind``
+    (``"jacobi"``, in K4, or ``"tridiag"``, ``soa_schur_step_tridiag``).
 
     Below ``min_edges`` edges the graph comes back unchanged with
     ``iterations == 0`` (the count is fetched unless ``min_edges`` is 0, as
@@ -540,6 +598,7 @@ def lm_optimize_soa(
     poses, landmarks, stats, lin_f = run_lm_loop_soa(
         g.poses, g.landmarks, se, pose_free, lm_free, max_iterations, rel_tol, max_cg_iters,
         robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, cg_tol=cg_tol, prior=prior,
+        ops=kernel_ops(precond_kind),
     )
     g = g.replace(poses=poses, landmarks=landmarks)
     if with_marginals:

@@ -27,10 +27,18 @@ the next range's first pose. The plain versions of K6-K10 are the
 ``*_plain`` functions here (the JAX loop's XLA channel-math branch); the
 kernels' wrappers in ``solver/tiled_kernels.py`` run them on CPU tensors.
 
-The CG is a fixed count of ``max_cg_iters`` steps under an ``active`` mask
-(an inactive step leaves x, r, p and rz unchanged), which gives the JAX
-early-exit loop's result with no host fetch; the LM fetches its
-(accepted, done) pair once per iteration. The vector work between the
+The CG's preconditioner is block-Jacobi, or with ``precond_kind="tridiag"``
+the damped odometry-chain block tridiagonal over all rows, factored by
+parallel cyclic reduction once per solve (plain PyTorch, as the JAX package
+leaves it to XLA; the JAX engine's TPU route takes no preconditioner choice
+here, its CPU route honours it through ``pcg.lm_optimize_pcg``).
+
+The block-Jacobi CG is a fixed count of ``max_cg_iters`` steps under an
+``active`` mask (an inactive step leaves x, r, p and rz unchanged), which
+gives the JAX early-exit loop's result with no host fetch; the tridiagonal
+one, which reaches its tolerance in a few steps, fetches the mask every
+``ellk_soa.TRIDIAG_CHECK_EVERY`` steps and stops once it is down (the same
+result). The LM fetches its (accepted, done) pair once per iteration. The vector work between the
 kernels (z = A^-1 T, the shift, the preconditioner, the dots and updates)
 is plain PyTorch, as the JAX package leaves it to XLA.
 
@@ -68,6 +76,7 @@ from semantic_slam_tpu_torch.graph.state import GraphState
 from semantic_slam_tpu_torch.solver import chain_soa as chs
 from semantic_slam_tpu_torch.solver import ellk_soa as soa
 from semantic_slam_tpu_torch.solver import fixed_lag as fl
+from semantic_slam_tpu_torch.solver import tridiag as td
 from semantic_slam_tpu_torch.solver.ellk_soa import (
     ChainLin,
     SoAEdges,
@@ -292,6 +301,7 @@ def run_lm_loop_soa_dist(
     robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0, prior=None,
     cg_tol: float = 1e-8, allreduce: Callable = _identity, off: int = 0, ops: TiledOps | None = None,
     pe: EllEdgesPlanes | None = None, planes: Tensor | None = None, plane_free: Tensor | None = None,
+    precond_kind: str = "jacobi",
 ):
     """The Nielsen LM over the replicated state with the edge primitives of
     rows ``[off, off + Kl)`` (``de``). ``allreduce`` takes a tensor or a
@@ -383,7 +393,8 @@ def run_lm_loop_soa_dist(
     def solve(lg: _LinG, lam):
         lin, gp, diag, gl, Hll = lg.lin, lg.gp, lg.diag, lg.gl, lg.Hll
         Ainv = inv33(_masked_eye(Hll, lam, lmf, 3))  # [L, 3, 3]
-        Minv = inv66(_masked_eye(diag.permute(2, 0, 1), lam, pf[0], 6)).permute(1, 2, 0)
+        if precond_kind == "jacobi":
+            Minv = inv66(_masked_eye(diag.permute(2, 0, 1), lam, pf[0], 6)).permute(1, 2, 0)
         if has_planes:
             # A_pl^-1 with the inactive planes' rows zeroed (plf is 0/1): z_pl
             # of an inactive plane is 0 without a mask op a CG step
@@ -410,8 +421,18 @@ def run_lm_loop_soa_dist(
                 u = prior_matvec(u, xm, prior.Hp, prior.p_idx)
             return (u + lam * xm) * pf
 
-        def precond(r):
-            return _m66_vec(Minv, r) * pf
+        if precond_kind == "tridiag":
+            # the damped chain tridiagonal over all Kg rows: the range's
+            # couplings embedded at off and reduced (with one range, the
+            # whole chain), factored by parallel cyclic reduction
+            fac = soa.chain_tridiag_factor(diag.permute(2, 0, 1),
+                                           allreduce(_dus(lin.Hij, off, Kg)).permute(2, 0, 1), lam, pf[0])
+
+            def precond(r):
+                return td.pcr_solve(fac, r.T).T * pf
+        else:
+            def precond(r):
+                return _m66_vec(Minv, r) * pf
 
         # b = -(gp - c), c = Jp^T O' Rt (A^-1 gl) summed over each pose's
         # slots (K9 with Oa = 0 and x = 0 gives -c), plus W A_pl^-1 gpl
@@ -429,8 +450,13 @@ def run_lm_loop_soa_dist(
         rz = torch.sum(r * p_)
         b2 = torch.clamp(torch.sum(b * b), min=1e-30)
         zero = b.new_zeros(())
-        for _ in range(max_cg_iters):
+        # the tridiagonal CG stops at its tolerance (a fetch every
+        # TRIDIAG_CHECK_EVERY steps); the block-Jacobi one runs every step
+        check = soa.TRIDIAG_CHECK_EVERY if precond_kind == "tridiag" else 0
+        for step in range(max_cg_iters):
             active = torch.sum(r * r) > cg_tol * b2
+            if check and step % check == 0 and not bool(active):  # a host fetch
+                break
             Ap = full_matvec(p_)
             alpha = torch.where(active, rz / torch.clamp(torch.sum(p_ * Ap), min=1e-30), zero)
             x = x + alpha * p_
@@ -500,10 +526,11 @@ def lm_optimize_soa_tiled(
     g: GraphState, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
     max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
     prior=None, with_marginals: bool = False, ell_rows: tuple = (1, 1, 8), cg_tol: float = 1e-8,
-    ops: TiledOps | None = None,
+    ops: TiledOps | None = None, precond_kind: str = "jacobi",
 ):
     """Single-device large-K entry (drop-in for ``ellk_soa.lm_optimize_soa``):
-    the row-range loop over all K rows with identity reductions.
+    the row-range loop over all K rows with identity reductions, the CG
+    preconditioned by ``precond_kind`` (``"jacobi"`` or ``"tridiag"``).
 
     Below ``min_edges`` edges the graph comes back unchanged with
     ``iterations == 0`` (the count is fetched unless ``min_edges`` is 0).
@@ -525,7 +552,7 @@ def lm_optimize_soa_tiled(
     poses, landmarks, stats = run_lm_loop_soa_dist(
         g.poses, g.landmarks, pose_free, lm_free, de, max_iterations, rel_tol, max_cg_iters,
         robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, prior=prior, cg_tol=cg_tol,
-        ops=ops,
+        ops=ops, precond_kind=precond_kind,
     )
     g = g.replace(poses=poses, landmarks=landmarks)
     if with_marginals:
@@ -542,7 +569,7 @@ def lm_optimize_soa_planes(
     g: GraphState, pn, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
     max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
     prior=None, with_marginals: bool = False, ell_rows: tuple = (1, 1, 8, 8), cg_tol: float = 1e-8,
-    ops: TiledOps | None = None,
+    ops: TiledOps | None = None, precond_kind: str = "jacobi",
 ):
     """The joint LM over poses, point landmarks and plane landmarks ``pn``
     (``graph/planes.PlaneNodes``) on the row-range loop at any K: the point
@@ -573,7 +600,7 @@ def lm_optimize_soa_planes(
     poses, landmarks, planes, stats = run_lm_loop_soa_dist(
         g.poses, g.landmarks, pose_free, lm_free, de, max_iterations, rel_tol, max_cg_iters,
         robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, prior=prior, cg_tol=cg_tol,
-        ops=ops, pe=pe, planes=pn.planes, plane_free=pn.plane_mask(),
+        ops=ops, pe=pe, planes=pn.planes, plane_free=pn.plane_mask(), precond_kind=precond_kind,
     )
     g, pn = g.replace(poses=poses, landmarks=landmarks), pn.replace(planes=planes)
     if not with_marginals:

@@ -1,8 +1,81 @@
-"""The reference's verbose optimize print (the port's copy of
-``log_optimize`` from ``semantic_slam_tpu.utils.profiling``; the port's
-timing and tracing live in ``semantic_slam_tpu_torch.profile_slice``)."""
+"""Observability: timers, counters and a profiler trace (port of
+``semantic_slam_tpu.utils.profiling``).
+
+``Metrics`` and ``log_optimize`` are copies of the JAX package's jax-free
+originals (``tests/test_torch_isolation.py`` holds them equal). The trace
+context is the port's own: the JAX package captures an XLA profiler trace,
+the port a ``torch.profiler`` trace of the host and, on a machine with a
+card, its CUDA activity (every kernel launch and copy), written as a Chrome
+trace file. The per-layer breakdowns of a session are in
+``semantic_slam_tpu_torch.profile_slice``.
+"""
 
 from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from collections import defaultdict
+
+TRACE_FILE = "trace.json"
+
+
+class Metrics:
+    """Lightweight accumulating timers/counters (host-side)."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counts[name] += n
+
+    def summary(self) -> dict:
+        return {
+            k: {
+                "total_s": self.totals[k],
+                "count": self.counts[k],
+                "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1),
+            }
+            for k in sorted(set(self.totals) | set(self.counts))
+        }
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.summary(), f, indent=1)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the block: host operators and,
+    when torch sees a CUDA device, the card's kernels and copies. On exit it
+    writes ``<log_dir>/trace.json`` (Chrome trace format: chrome://tracing
+    or ui.perfetto.dev) and yields nothing else."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 def log_optimize(verbose: bool, stats, solve_seconds: float, num_nodes: int, num_edges: int) -> None:

@@ -802,6 +802,85 @@ def test_small_plane_session_card_matches_cpu(cuda, case):
     np.testing.assert_allclose(pg.planes[:P].cpu().numpy(), pc.planes[:P].numpy(), atol=1e-3)
 
 
+BREADTH_SESSIONS = {
+    # window ingest: each run of detection keyframes one frontend call (K5 over B*D detections a round)
+    "window": dict(solver_kw=dict(ingest_window=4)),
+    # the tridiagonal preconditioner: the resident loop (K1-K3, no K4) and the row-range loop (K6-K10)
+    "tridiag-resident": dict(solver_kw=dict(linear_solver="pcg", pcg_precond="tridiag")),
+    "tridiag-tiled": dict(solver_kw=dict(linear_solver="pcg", pcg_precond="tridiag"), tiled=True),
+    "adaptive-normals": dict(seg_kw=dict(adaptive_normals=True)),
+    "fitness": dict(info_kw=dict(use_const_inf_matrix=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BREADTH_SESSIONS))
+def test_breadth_session_card_matches_cpu(cuda, case, monkeypatch):
+    """Window ingest, the tridiagonal preconditioner on both PCG loops,
+    adaptive normals and fitness information on the card and on the CPU,
+    same log and config (f32): the same map (keyframes, landmarks, edges,
+    landmark ids) and trajectories within 1e-3. The window session's K5
+    launches are two rounds a frontend call (a window's call holds its
+    rows' detections); tridiag sessions launch no K4."""
+    import dataclasses
+
+    from semantic_slam_tpu_torch import cli
+    from semantic_slam_tpu_torch.frontend import kernels as fk
+    from semantic_slam_tpu_torch.runtime import engine as eng_mod
+    from semantic_slam_tpu_torch.solver import kernels as sk
+    from semantic_slam_tpu_torch.solver import soa_dist
+    from semantic_slam_tpu_torch.solver import tiled_kernels as tk
+
+    spec = BREADTH_SESSIONS[case]
+    if spec.get("tiled"):
+        monkeypatch.setattr(soa_dist, "TILED_FROM_K", 0)
+    cfg = small_config(MAHA, (16, 64), 32, "dense", 0)
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, **spec.get("solver_kw", {})),
+                      segmentation=dataclasses.replace(cfg.segmentation, **spec.get("seg_kw", {})),
+                      information=dataclasses.replace(cfg.information, **spec.get("info_kw", {})))
+    log = cli.make_synthetic_log(seed=3, n_steps=120, sensor_every=5, drift_noise=0.008, H=120, W=160)
+    rows = []
+    orig = eng_mod._process_keyframes_window
+
+    def window(*a, **kw):
+        rows.append(int(kw["odoms"].shape[0]))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(eng_mod, "_process_keyframes_window", window)
+    before = (fk.score_hypotheses.launches, sk.resident_solve.launches, sk.fused_linearize.launches,
+              tk.tiled_mv_bwd.launches)
+    gpu = cli.run_session(log, cfg, "cuda", finalize=True)
+    k5, k4, k12, k9 = (fk.score_hypotheses.launches - before[0], sk.resident_solve.launches - before[1],
+                       sk.fused_linearize.launches - before[2], tk.tiled_mv_bwd.launches - before[3])
+    card_rows = list(rows)
+    cpu = cli.run_session(log, cfg, "cpu", finalize=True)
+    n_det = sum(1 for kf in gpu.keyframes if eng_mod._is_det(kf))
+    assert k5 == 2 * (n_det - sum(card_rows) + len(card_rows)) > 0
+    if case == "window":
+        assert card_rows and max(card_rows) >= 2
+    if case.startswith("tridiag"):
+        assert k4 == 0 and (k9 > 0) == bool(spec.get("tiled")) and k12 > 0
+    assert gpu.graph.poses.device.type == "cuda"
+    assert int(cpu.table.count) > 0
+    assert (len(gpu.keyframes), int(gpu.table.count), int(gpu.graph.num_edges())) == (
+        len(cpu.keyframes), int(cpu.table.count), int(cpu.graph.num_edges()))
+    n = int(cpu.graph.num_lme)
+    np.testing.assert_array_equal(gpu.graph.lme_l[:n].cpu().numpy(), cpu.graph.lme_l[:n].numpy())
+    # two sessions are more sensitive to rounding than the others: adaptive
+    # windows threshold z differences (a depth edge at |dz| = 0.03 |z| +
+    # 0.02), so a rounding moves a window's scale; fitness information weighs
+    # the odometry 10^2-10^5 times less than the constant matrix, so the
+    # frontend's rounding moves the poses more. On the CPU alone their f32
+    # and f64 poses differ by 2.8e-3 and 2.8e-4 (the constant-information,
+    # fixed-window session's by 3.0e-5); the card against the CPU, 1e-2
+    atol = 1e-2 if case in ("adaptive-normals", "fitness") else 1e-3
+    np.testing.assert_allclose(gpu.get_keyframe_poses(), cpu.get_keyframe_poses(), atol=atol)
+    if case == "fitness":
+        m = int(cpu.graph.num_odom)
+        np.testing.assert_allclose(gpu.graph.odom_info[:m].cpu().numpy(), cpu.graph.odom_info[:m].numpy(),
+                                   rtol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # the ROS surface on the card: a .bag session, segment_keyframe, the voxel map
 # ---------------------------------------------------------------------------
@@ -827,8 +906,11 @@ def bag_sessions(cuda, tmp_path, monkeypatch):
     orig = eng_mod._segment_only
 
     def recording(*a, **kw):
-        seen.append(orig(*a, **kw))
-        return seen[-1]
+        out = orig(*a, **kw)
+        # a window's call returns [B, M] fields: one keyframe's detections a row
+        seen.extend([out] if out.valid.dim() == 1 else
+                    [type(out)(*(f[b] for f in out)) for b in range(out.valid.shape[0])])
+        return out
 
     before = sk.resident_solve.launches
     with monkeypatch.context() as mp:

@@ -77,7 +77,8 @@ def test_sampler_covers_crop_region():
     pts = torch.as_tensor(_cloud_xyz(), dtype=torch.float32)
     valid = torch.ones(pts.shape[:2], dtype=torch.bool)
     box = torch.tensor([[c["tl_x"], c["tl_y"], c["w"], c["h"]]], dtype=torch.float32)
-    spts, _, ok = seg_mod._bbox_sample(pts, valid, torch.zeros_like(pts), valid, box, 32, 32)
+    spts, _, ok = seg_mod._bbox_sample(pts[None], valid[None], torch.zeros_like(pts)[None], valid[None], box[None],
+                                       32, 32)
     ours = spts[0][ok[0]].double().mean(dim=0).numpy()
     ref_mean = np.array([c["sum_x"], c["sum_y"], c["sum_z"]]) / c["points"]
     np.testing.assert_allclose(ours, ref_mean, atol=2e-2)

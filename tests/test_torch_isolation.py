@@ -6,9 +6,10 @@ imports ``jax``, the JAX package ``semantic_slam_tpu`` or ``__graft_entry__``
 ``importlib.import_module`` call with a literal name). And the port's copies
 of the JAX package's jax-free modules (``config``, ``core/np_geometry``,
 ``runtime/keyframe_gate``, ``io/{replay,synthetic,tum,dump}``, ``eval/ate``,
-``io/{rosbag,rosbag_write}``, ``viz/rviz_bag``) give what their originals
-give on the same inputs, exactly, and ``native/slamlog.cpp`` is the JAX
-package's source byte for byte.
+``io/{rosbag,rosbag_write}``, ``viz/rviz_bag``, ``utils/profiling``'s
+``Metrics`` and ``log_optimize``) give what their originals give on the
+same inputs, exactly, and ``native/slamlog.cpp`` is the JAX package's
+source byte for byte.
 """
 
 import ast
@@ -25,6 +26,7 @@ from semantic_slam_tpu.io import replay as jreplay
 from semantic_slam_tpu.io import synthetic as jsyn
 from semantic_slam_tpu.io import tum as jtum
 from semantic_slam_tpu.runtime.keyframe_gate import KeyframeGate as JGate
+from semantic_slam_tpu.utils import profiling as jprof
 from semantic_slam_tpu_torch import config as tcfg
 from semantic_slam_tpu_torch.core import np_geometry as tnpg
 from semantic_slam_tpu_torch.eval import ate as tate
@@ -33,6 +35,7 @@ from semantic_slam_tpu_torch.io import replay as treplay
 from semantic_slam_tpu_torch.io import synthetic as tsyn
 from semantic_slam_tpu_torch.io import tum as ttum
 from semantic_slam_tpu_torch.runtime.keyframe_gate import KeyframeGate as TGate
+from semantic_slam_tpu_torch.utils import profiling as tprof
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "semantic_slam_tpu", "__graft_entry__"}
@@ -60,6 +63,9 @@ def test_no_jax_imports():
     # and the ROS surface's
     assert {f"semantic_slam_tpu_torch/{m}.py" for m in ("io/rosbag", "io/rosbag_write", "viz/rviz_bag", "mapping/voxel",
                                                          "native/__init__")} <= rel
+    # and the breadth modules': fitness information, the profiling copy
+    assert {f"semantic_slam_tpu_torch/{m}.py" for m in ("solver/information", "utils/profiling", "core/frames",
+                                                         "frontend/normals", "frontend/segmentation")} <= rel
     bad = {str(f.relative_to(REPO)): n for f in files for n in _imported_names(f) if n.split(".")[0] in FORBIDDEN}
     assert not bad, bad
     # the scan sees what it looks for
@@ -194,3 +200,12 @@ def test_bag_copies_equal(tmp_path):
                 == jviz.write_viz_bag(str(tmp_path / "j.bag"), engine, grid, path_stride=stride,
                                       voxel_centers=centers))
         assert (tmp_path / "t.bag").read_bytes() == (tmp_path / "j.bag").read_bytes()
+
+
+def test_profiling_copies_equal():
+    """``Metrics`` and ``log_optimize`` are the JAX package's source, line
+    for line (the port's module adds its own trace context beside them)."""
+    import inspect
+
+    for name in ("Metrics", "log_optimize"):
+        assert inspect.getsource(getattr(tprof, name)) == inspect.getsource(getattr(jprof, name)), name

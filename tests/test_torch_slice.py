@@ -4,8 +4,8 @@ session replayed through both engines on the CPU, in f64.
 Two configurations: ``tests/test_e2e.py``'s lowered-threshold config
 (Euclidean gating) on the session's u16 depth images (backprojected on the
 device), replayed without the tick grid so that every tick takes a batch of
-up to 10 keyframes (the JAX engine's window program; the port's loop of
-``_process_keyframe``); and its Mahalanobis variant on the XYZ clouds, one
+up to 10 keyframes (in both engines a run of detection keyframes is one
+window: its frontend in one call, association row by row); and its Mahalanobis variant on the XYZ clouds, one
 keyframe per tick, at ``--max-keyframes 8``
 capacities, which forces capacity growth, runs the marginal recovery every
 optimizing tick, seeds the first pose and landmark (``add_first_lan``) and
@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from semantic_slam_tpu.config import AssociationConfig, CapacityConfig, SolverConfig
+from semantic_slam_tpu.config import AssociationConfig, CapacityConfig
 from semantic_slam_tpu.io import replay as replay_mod
 from semantic_slam_tpu.io import synthetic as synth_mod
 from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
@@ -115,12 +115,12 @@ def _with(section: str, **kw):
     return lambda cfg: cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **kw)})
 
 
+# the sharded solver is the one path left (the tridiagonal preconditioner,
+# window ingest, fitness information and adaptive normals are ported: see
+# test_torch_tridiag.py, test_torch_window.py, test_torch_breadth.py and
+# test_torch_breadth_cli.py)
 UNPORTED = {
-    "pcg": lambda cfg: cfg.replace(solver=SolverConfig(linear_solver="pcg", pcg_precond="tridiag")),
     "mesh.num_devices": _with("mesh", num_devices=4),
-    "ingest_window": _with("solver", ingest_window=4),
-    "use_const_inf_matrix": _with("information", use_const_inf_matrix=False),
-    "adaptive_normals": _with("segmentation", adaptive_normals=True),
 }
 
 
