@@ -130,7 +130,31 @@ before the result line:
              VIO's, ms per LM iteration and CG steps to tolerance beside
              jacobi's; fitness-weighted odometry information and
              ``--adaptive-normals`` on the dense log; ``--xla-trace`` on the
-             dense session, whose trace holds K5's kernel events.
+             dense session, whose trace holds K5's kernel events;
+14. several ranks on the card -- ``parallel/dist.py``'s meshes: NCCL at
+             world size 1, then gloo ranks sharing the card (2 and 4; gloo
+             stages CUDA tensors through the host), each worker checked to
+             hold no JAX module. At the tiled session's graph (K=8192,
+             L=2048, R=4) ``soa_dist.sharded_lm_optimize_soa`` at fixed
+             work (8 LM iterations of 128 CG steps) on world size 1 against
+             ``lm_optimize_soa_tiled`` and on 2 and 4 ranks (rows
+             [r K/n, (r+1) K/n), off > 0) against world size 1, poses within
+             1e-4 of scale; each rank's K6-K10 launches as the iterations
+             imply, the collectives per CG step and their bytes, ms per LM
+             iteration. On 2 ranks: the tiled session (``--solver pcg
+             --max-keyframes 8192 --devices 2``, every rank's K6-K10 as its
+             solves imply) with the tiled slice's keyframes, landmarks and
+             edges and poses within 1e-4 of scale, its distributed
+             checkpoint read back bit for bit; the sharded window step at
+             full width (8 rows of 8 detections on 640x480 clouds, 256x256
+             crops, 128 hypotheses: K5 at D' = 32, N = 65,536, S = 128 once a
+             plane round on each rank) against the single-device window
+             program; ``sharded_lm_optimize_soa_planes`` at fixed work with
+             the marginals on plane sessions B's (K=4096) and C's (K=512,
+             a fixed-lag prior with a plane part) final states against
+             ``lm_optimize_soa_planes``, each rank's K6-K10 launches those
+             of one device; ``joint_bundle_adjust`` of the lifecycle's two
+             checkpoints on the mesh against one device (chi2 within 1e-3).
 The counters are reset just before each session and checked against the LM's
 iteration counts just after (a window's frontend call counted once).
 
@@ -970,38 +994,33 @@ def check_fixed_lm_prior(torch) -> None:
 # 5./6. the slices
 # ---------------------------------------------------------------------------
 
-WRAPPERS = (
-    ("fused_linearize", "semantic_slam_tpu_torch.solver.kernels"),
-    ("obs_linearize", "semantic_slam_tpu_torch.solver.kernels"),
-    ("resident_chi2", "semantic_slam_tpu_torch.solver.kernels"),
-    ("resident_solve", "semantic_slam_tpu_torch.solver.kernels"),
-    ("score_hypotheses", "semantic_slam_tpu_torch.frontend.kernels"),
-    ("tiled_fused_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
-    ("tiled_obs_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
-    ("tiled_mv_fwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
-    ("tiled_mv_bwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
-    ("tiled_chi2", "semantic_slam_tpu_torch.solver.tiled_kernels"),
-)
 RESIDENT = ("fused_linearize", "resident_chi2", "resident_solve")
 PAIR = ("obs_linearize", "chain_linearize")  # K1 and K2, the kernels line's names of the pair
 TILED = ("tiled_fused_linearize", "tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
 TILED_PAIR = ("tiled_obs_linearize", "tiled_chain_linearize")  # K6 and K7, the kernels line's names of the pair
+# K5-K10 run on each rank of phase 14's meshes: the kernels line gives their launches per rank there
+MESH_KERNELS = ("score_hypotheses",) + TILED_PAIR + ("tiled_mv_fwd", "tiled_mv_bwd", "tiled_chi2")
 
 
 def _wrappers():
     import importlib
 
-    return {name: getattr(importlib.import_module(mod), name) for name, mod in WRAPPERS}
+    from semantic_slam_tpu_torch.utils.profiling import KERNEL_WRAPPERS
+
+    return {name: getattr(importlib.import_module(mod), name) for name, mod in KERNEL_WRAPPERS}
 
 
-def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = True, min_margs: int = 3) -> dict:
+def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = True, min_margs: int = 3,
+              mesh=None) -> dict:
     """``cli run`` with ``extra`` on ``log`` through ``cli.run_from_args`` (the
     replay, then the shutdown work), the launch counters set to 0 just before
     it and read just after. Checks this run's own ticks (a resumed engine also
     holds its checkpoint's): chi2 finite and never rising, at least one
     optimizing tick unless ``must_optimize`` is False, the kernels' launches
     as the LM iterations imply, and under a fixed-lag window at least
-    ``min_margs`` marginalizations in this run."""
+    ``min_margs`` marginalizations in this run. With ``mesh`` (a mesh the
+    flags' ``--devices`` name) every solve runs on its ranks: each rank's
+    counters are set to 0 and read too, and checked (``rank_launches``)."""
     import numpy as np
 
     from semantic_slam_tpu_torch import cli
@@ -1029,6 +1048,14 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
     calls = {"resident": [], "tiled": []}
     entries = {("resident", 1): (ellk_soa, "lm_optimize_soa"), ("tiled", 1): (soa_dist, "lm_optimize_soa_tiled"),
                ("tiled", 2): (soa_dist, "lm_optimize_soa_planes")}
+    if mesh is not None:
+        # every solve is a sharded one (a gated solve runs the single-device
+        # entry's gate on the controller, inside the sharded entry)
+        entries = {("tiled", 1): (soa_dist, "sharded_lm_optimize_soa"),
+                   ("tiled", 2): (soa_dist, "sharded_lm_optimize_soa_planes")}
+        from semantic_slam_tpu_torch.utils.profiling import mesh_kernel_launches
+
+        mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
     origs = {key: getattr(mod, fn) for key, (mod, fn) in entries.items()}
 
     def recording(key):
@@ -1078,7 +1105,7 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
         wrappers["resident_solve"].prior_launches = 0
         wrappers["resident_solve"].shapes = {"cluster": 0, "grid": 0}
         t0 = time.perf_counter()
-        engine, summary = cli.run_from_args(args, log)
+        engine, summary = cli.run_from_args(args, log, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
@@ -1090,6 +1117,9 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
         for fn, orig in orig_margs.items():
             setattr(fixed_lag, fn, orig)
         engine_mod._process_keyframes_window = orig_window
+    rank_launches = [launches]
+    if mesh is not None:
+        rank_launches += mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)[1:]
     print(f"[{label}] summary:", json.dumps(summary))
 
     g, t = engine.graph, engine.table
@@ -1144,7 +1174,7 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
     planes = cfg.use_plane_landmarks
     if cfg.solver.linear_solver == "pcg":
         # plane landmarks take the row-range loop at every K
-        loop = "tiled" if planes or cap.max_keyframes > soa_dist.TILED_FROM_K else "resident"
+        loop = "tiled" if mesh is not None or planes or cap.max_keyframes > soa_dist.TILED_FROM_K else "resident"
         other = "resident" if loop == "tiled" else "tiled"
         ran = [it for it in calls[loop] if it > 0]
         skipped = sum(1 for it in calls[loop] if it == 0)
@@ -1176,22 +1206,27 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
                         f"[{label}] K8/K9 launches {n8} / {launches['tiled_mv_bwd']} do not match "
                         f"{sum(ran)} LM iterations of up to {steps} CG steps, a multiple of {every}")
                 steps = (n8 - sum(ran)) // max(sum(ran), 1)  # the mean, printed
+            # the marginals' final linearization: K1 + K2 over all rows on one
+            # device; on a mesh K6 + K7 over each rank's rows
+            margs = len(ran) if cfg.association.use_maha_dist else 0
             expect = {
-                "tiled_fused_linearize": sum(ran),
+                "tiled_fused_linearize": sum(ran) + (margs if mesh is not None else 0),
                 "tiled_obs_linearize": 0,
                 "tiled_mv_fwd": launches["tiled_mv_fwd"] if tridiag else sum(it * (steps + 1) for it in ran),
                 "tiled_mv_bwd": launches["tiled_mv_bwd"] if tridiag else sum(it * (steps + 1) for it in ran),
                 "tiled_chi2": sum(ran) + skipped,
-                "fused_linearize": len(ran),
+                "fused_linearize": 0 if mesh is not None else margs,
                 "obs_linearize": 0,
                 "resident_solve": 0,
                 "resident_chi2": 0,
             }
-            formula = (f"K6 + K7 = sum(it) over solves (one call of two launches each), K6 alone = 0, K8/K9 = "
+            formula = (f"K6 + K7 = sum(it) over solves (one call of two launches each)"
+                       f"{' + one marginals linearization per solve on each rank' if mesh is not None else ''}, "
+                       f"K6 alone = 0, K8/K9 = "
                        f"sum(it x ({'~' + str(steps) + ' CG steps run (tridiag, to tolerance)' if tridiag else steps} "
                        "CG steps + 1)), "
-                       "K10 = sum(it) + skipped solves, K1 + K2 = one marginals linearization "
-                       "per solve, K1 alone, K3, K4 = 0")
+                       "K10 = sum(it) + skipped solves, K1 + K2 = "
+                       f"{'0' if mesh is not None else 'one marginals linearization per solve'}, K1 alone, K3, K4 = 0")
         print(f"[{label}] {loop} LM calls (iterations): {calls[loop]}; expected launches: {formula} = {expect}")
         for name, n in expect.items():
             require(launches[name] == n, f"[{label}] {name}: {launches[name]} launches, expected {n}")
@@ -1200,7 +1235,15 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
               f"launches per shape {k4_shapes}")
         require(prior_launches == want_prior, f"[{label}] K4 took the prior on {prior_launches} launches, "
                                               f"expected {want_prior}")
-        on_path = RESIDENT if loop == "resident" else TILED + ("fused_linearize",)
+        if mesh is not None:
+            # a worker runs every solve the controller does not gate, and no
+            # frontend: K10 without the gated solves' calls, no K5
+            want_w = dict(expect, tiled_chi2=sum(ran), score_hypotheses=0)
+            print(f"[{label}] each worker rank's launches {rank_launches[1:]}; expected {want_w}")
+            for r, got in enumerate(rank_launches[1:], start=1):
+                for name, n in want_w.items():
+                    require(got[name] == n, f"[{label}] rank {r}: {name} {got[name]} launches, expected {n}")
+        on_path = RESIDENT if loop == "resident" else TILED + (() if mesh is not None else ("fused_linearize",))
         for name in [n for n in on_path if not (tridiag and n == "resident_solve")] if ran else ():
             require(launches[name] > 0, f"[{label}] {name} was launched no time on its path")
     else:
@@ -1227,7 +1270,8 @@ def run_slice(torch, log, extra: list[str], label: str, must_optimize: bool = Tr
         print(f"[{label}] median optimizing tick ms over the first 30 {statistics.median(opt_ms[:30]):.2f} and the "
               f"last 30 {statistics.median(opt_ms[-30:]):.2f} (of {len(opt_ms)}); ms per marginalization "
               f"{[round(x, 2) for x in marg_ms]}, median {statistics.median(marg_ms):.2f}")
-    return {"launches": launches, "summary": summary, "keyframes": len(engine.keyframes), "loop": loop,
+    return {"launches": launches, "rank_launches": rank_launches, "poses": poses,
+            "summary": summary, "keyframes": len(engine.keyframes), "loop": loop,
             "k4_shapes": k4_shapes, "engine": engine, "out": args.out, "iterations": iters, "marg_ms": marg_ms,
             "windows": windows, "wall_s": wall, "tick_ms": tick_ms,
             "opt_ms_per_iteration": sum(opt_ms) / max(sum(iters), 1),
@@ -1395,7 +1439,8 @@ def check_lifecycle(torch, log) -> dict:
     require(merged["poses"] == n1 + whole["summary"]["keyframes"], f"merge: poses {merged['poses']}")
     wall = time.perf_counter() - t0
     print(f"lifecycle: phase wall {wall:.2f} s")
-    return {"wall_s": wall, "checkpoint_bytes": ckpt_bytes, "tensors": n_tensors}
+    return {"wall_s": wall, "checkpoint_bytes": ckpt_bytes, "tensors": n_tensors,
+            "checkpoints": (ckpt, os.path.join(whole["out"], "checkpoint.npz"))}
 
 
 # ---------------------------------------------------------------------------
@@ -1794,7 +1839,8 @@ def check_plane_slices(torch, plane_log, fl_log, fl_point: dict) -> dict:
     the fixed-lag log with --plane-landmarks --fixed-lag 64 --solver pcg
     (K=512: K6-K10 at Kl=512 with a prior that has a plane part), its
     checkpoint and .g2o read back. A and B are held to the point-landmark
-    dense session on their log, run here first; C to ``fl_point``."""
+    dense session on their log, run here first; C to ``fl_point``. B's and
+    C's final states go to phase 14 (``states``)."""
     t0 = time.perf_counter()
     twin = run_slice(torch, plane_log, [], "plane_log_point_dense")
     a = run_slice(torch, plane_log, ["--plane-landmarks"], "plane_dense")
@@ -1805,6 +1851,7 @@ def check_plane_slices(torch, plane_log, fl_log, fl_point: dict) -> dict:
             and b["engine"].plane_nodes.max_planes == BENCH["L"], f"plane_pcg: not the K=4096 row-range loop")
     _check_plane_session(b, twin, "plane_pcg", same_keyframes=True)
     step_b = plane_cg_step_cost(torch, b["engine"], "plane_pcg")
+    states = {"plane_pcg": _plane_state(b["engine"], with_prior=False)}
     del b["engine"]
     c_flags = ["--plane-landmarks", "--fixed-lag", str(FL_WINDOW), "--solver", "pcg", "--checkpoint", "--save-graph"]
     c = run_slice(torch, fl_log, c_flags, "plane_fixed_lag_pcg", min_margs=2)
@@ -1815,11 +1862,20 @@ def check_plane_slices(torch, plane_log, fl_log, fl_point: dict) -> dict:
     _check_checkpoint(torch, os.path.join(c["out"], "checkpoint.npz"), eng, "plane_fixed_lag_pcg")
     _check_g2o(torch, os.path.join(c["out"], "semantic_graph.g2o"), eng, "plane_fixed_lag_pcg")
     step_c = plane_cg_step_cost(torch, eng, "plane_fixed_lag_pcg")
+    states["plane_fixed_lag_pcg"] = _plane_state(eng, with_prior=True)
     del c["engine"]
     wall = time.perf_counter() - t0
     print(f"plane slices: phase wall {wall:.2f} s")
     return {"wall_s": wall, "step": {"plane_pcg": step_b, "plane_fixed_lag_pcg": step_c},
-            "launches": {"plane_pcg": b["launches"], "plane_fixed_lag_pcg": c["launches"]}, "twin": twin}
+            "launches": {"plane_pcg": b["launches"], "plane_fixed_lag_pcg": c["launches"]}, "twin": twin,
+            "states": states}
+
+
+def _plane_state(engine, with_prior: bool) -> dict:
+    """What phase 14 solves again on the mesh: a plane session's final
+    graph, planes, ELL rows and (``with_prior``) its fixed-lag prior."""
+    return {"g": engine.graph, "pn": engine.plane_nodes, "rows": engine._ell_rows(planes=True),
+            "prior": engine.prior if with_prior else None}
 
 
 # ---------------------------------------------------------------------------
@@ -1985,6 +2041,358 @@ def check_breadth(torch, log, plane_log, twin: dict, pcg: dict, tiled: dict) -> 
     print(f"breadth: phase wall {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# 14. several ranks on the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = (2, 4)  # gloo ranks sharing the card
+
+
+def _fixed_lm(torch, g, R: int, mesh=None) -> tuple:
+    """8 LM iterations of LM_STEPS CG steps on ``g``: ``sharded_lm_optimize_soa``
+    on ``mesh``, else ``lm_optimize_soa_tiled``; returns (graph, LMStats, ms
+    per LM iteration on the host clock, synced)."""
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+
+    kw = dict(max_iterations=8, min_edges=0, rel_tol=0.0, max_cg_iters=LM_STEPS, cg_tol=0.0, ell_rows=(1, 1, R))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sd.lm_optimize_soa_tiled(g, **kw) if mesh is None else sd.sharded_lm_optimize_soa(g, mesh, **kw)
+    torch.cuda.synchronize()
+    return out[0], out[1], 1e3 * (time.perf_counter() - t0) / max(out[1].iterations, 1)
+
+
+def _workers_clean(mesh, label: str) -> None:
+    """No JAX module in any rank of ``mesh`` (rank 0 is this script)."""
+    loaded = mesh.forbidden_modules()
+    print(f"[{label}] JAX modules loaded per rank: {[len(x) for x in loaded]}")
+    require(not any(loaded), f"[{label}] a rank loaded JAX or the JAX package: {[x[:4] for x in loaded]}")
+
+
+def _pose_err(torch, got, want) -> float:
+    """max |got - want| over the poses, relative to their largest entry."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _mesh_lm(torch, g, R: int, mesh, ref, label: str) -> dict:
+    """The fixed-work LM on ``mesh`` against ``ref`` (graph, stats), each
+    rank's K6-K10 launches against the iterations, and the collectives."""
+    from semantic_slam_tpu_torch.utils.profiling import mesh_kernel_launches
+
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+    mesh.recording, mesh.log = True, []
+    try:
+        gm, sm, ms = _fixed_lm(torch, g, R, mesh)
+    finally:
+        mesh.recording = False
+    ranks = mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+    err = _pose_err(torch, gm.poses, ref[0].poses)
+    it = sm.iterations
+    print(f"[{label}] {mesh.size} ranks ({mesh.backend}), Kl={K // mesh.size}: {it} LM iterations x {LM_STEPS} CG "
+          f"steps, chi2 {float(sm.chi2_initial):.7g} -> {float(sm.chi2_final):.7g} (reference "
+          f"{float(ref[1].chi2_final):.7g}); poses within {err:.3g} of scale of the reference (bound {LIN_RTOL:g}); "
+          f"{ms:.3f} ms per LM iteration (host clock, synced)")
+    require(it == 8 and err <= LIN_RTOL, f"[{label}] the sharded LM disagrees with its reference")
+    want = {"tiled_fused_linearize": it, "tiled_mv_fwd": it * (LM_STEPS + 1), "tiled_mv_bwd": it * (LM_STEPS + 1),
+            "tiled_chi2": it}
+    print(f"[{label}] launches per rank (K6 + K7, K8, K9, K10): {[[r[k] for k in want] for r in ranks]}; "
+          f"expected each {list(want.values())}")
+    for r, got in enumerate(ranks):
+        for k, n in want.items():
+            require(got[k] == n, f"[{label}] rank {r}: {k} {got[k]} launches, expected {n}")
+    per_step = [(k, n, b) for k, n, b in mesh.log if n in (3 * L, 12 * K)]
+    n_t = sum(1 for _, n, _ in per_step if n == 3 * L)
+    n_u = sum(1 for _, n, _ in per_step if n == 12 * K)
+    step_bytes = 4 * (3 * L + 12 * K)
+    print(f"[{label}] collectives of the solve: {len(mesh.log)} ({sum(b for _, _, b in mesh.log) / 2**20:.1f} MiB); "
+          f"per CG step 2 all-reduces, [3L]={3 * L} and [12K]={12 * K} elements, {step_bytes} bytes "
+          f"({n_t} and {n_u} in all: it x (steps + 1) and it x steps)")
+    require(n_u == it * LM_STEPS and n_t == it * (LM_STEPS + 1), f"[{label}] collectives per CG step differ")
+    return {"ms_per_lm_iteration": ms, "err": err, "ranks": ranks, "collectives": len(mesh.log),
+            "step_bytes": step_bytes}
+
+
+def check_mesh(torch, log, refs: dict) -> dict:
+    """Phase 14 (module docstring). ``refs``: the tiled slice (its poses and
+    summary), the lifecycle's two checkpoints and the final states of plane
+    sessions B and C. Each CG step's two all-reduces go through the host
+    under gloo (~2.7 ms a step at K=8192 on 2 ranks), so the plane and
+    fixed-lag pcg sessions themselves, with 300-900 LM iterations of 129
+    steps each, run on gloo CPU ranks in ``tests/test_torch_mesh_engine.py``;
+    here their final states take a fixed-work plane LM on 2 ranks."""
+    import numpy as np
+
+    from semantic_slam_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    g, _, _, _, R = _soa_case(torch, **TILED_BENCH)
+    ref = _fixed_lm(torch, g, R)
+    print(f"[mesh] one device, lm_optimize_soa_tiled: {ref[1].iterations} LM iterations, chi2 "
+          f"{float(ref[1].chi2_final):.7g}, {ref[2]:.3f} ms per LM iteration")
+    m = dist.make_mesh(1, device="cuda")
+    require(m.backend == "nccl", f"world size 1 took {m.backend}")
+    try:
+        nccl = _mesh_lm(torch, g, R, m, ref, "mesh_nccl_1")
+        ws1 = _fixed_lm(torch, g, R, m)
+    finally:
+        m.close()
+    out["lm"] = {1: nccl}
+
+    m = dist.make_mesh(2, backend="gloo", devices=["cuda:0"] * 2)
+    try:
+        _workers_clean(m, "mesh_gloo_2")
+        out["lm"][2] = _mesh_lm(torch, g, R, m, ws1, "mesh_gloo_2")
+        out["launches"]["lm_2"] = out["lm"][2]["ranks"]
+
+        tiled = run_slice(torch, log, ["--solver", "pcg", "--max-keyframes", "8192", "--devices", "2"],
+                          "mesh_tiled", mesh=m)
+        want = refs["tiled"]
+        for k in ("keyframes", "landmarks", "edges"):
+            require(tiled["summary"][k] == want["summary"][k], f"[mesh_tiled] {k}: {tiled['summary'][k]} != "
+                                                               f"{want['summary'][k]} (tiled slice)")
+        err = float(np.abs(tiled["poses"] - want["poses"]).max() / np.abs(want["poses"]).max())
+        print(f"[mesh_tiled] the tiled slice's keyframes, landmarks and edges; poses within {err:.3g} of scale "
+              f"(bound {LIN_RTOL:g}); ms per LM iteration {tiled['opt_ms_per_iteration']:.3f} against "
+              f"{want['opt_ms_per_iteration']:.3f} on one device")
+        require(err <= LIN_RTOL, "[mesh_tiled] poses differ from the tiled slice's")
+        out["launches"]["mesh_tiled"] = tiled["rank_launches"]
+        _mesh_checkpoint(torch, tiled["engine"], m)
+        del tiled["engine"]
+
+        out["launches"]["window_2"] = _mesh_window(torch, m)
+        for label, ranks in _mesh_planes(torch, refs["planes"], m).items():
+            out["launches"][f"{label}_2"] = ranks
+        _mesh_merge(torch, refs["life_checkpoints"], m)
+    finally:
+        m.close()
+
+    m = dist.make_mesh(4, backend="gloo", devices=["cuda:0"] * 4)
+    try:
+        _workers_clean(m, "mesh_gloo_4")
+        out["lm"][4] = _mesh_lm(torch, g, R, m, ws1, "mesh_gloo_4")
+        out["launches"]["lm_4"] = out["lm"][4]["ranks"]
+    finally:
+        m.close()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"mesh: ms per LM iteration at K=8192 (host clock; gloo staged through the host) one device "
+          f"{ref[2]:.3f}, NCCL 1 rank {nccl['ms_per_lm_iteration']:.3f}, gloo 2 ranks "
+          f"{out['lm'][2]['ms_per_lm_iteration']:.3f}, 4 ranks {out['lm'][4]['ms_per_lm_iteration']:.3f}; "
+          f"phase wall {out['wall_s']:.2f} s")
+    return out
+
+
+def _mesh_checkpoint(torch, engine, mesh) -> None:
+    """The mesh session's distributed checkpoint read back into a fresh
+    engine on the mesh, every tensor bit for bit."""
+    import dataclasses
+
+    from semantic_slam_tpu_torch.io import checkpoint as ck
+    from semantic_slam_tpu_torch.runtime.engine import SlamEngine
+
+    path = os.path.join(OUT_DIR, "mesh_checkpoint")
+    t0 = time.perf_counter()
+    ck.save_checkpoint_dist(path, engine)
+    fresh = SlamEngine(engine.cfg, device=DEVICE, mesh=mesh)
+    ck.load_checkpoint_dist(path, fresh)
+    n = 0
+    for name in ("graph", "table", "prior"):
+        a, b = getattr(engine, name), getattr(fresh, name)
+        names = [f.name for f in dataclasses.fields(a)] if dataclasses.is_dataclass(a) else a._fields
+        for f in names:
+            x, y = getattr(a, f), getattr(b, f)
+            require(y.device.type == DEVICE and torch.equal(x, y), f"distributed checkpoint: {name}.{f} differs")
+            n += 1
+    require(torch.equal(engine.marginals, fresh.marginals), "distributed checkpoint: marginals differ")
+    size = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(path) for f in fs)
+    print(f"[mesh_tiled] distributed checkpoint (torch.distributed.checkpoint + host_state.json): {n + 1} tensors "
+          f"bit for bit on the card, {size} bytes, {time.perf_counter() - t0:.2f} s")
+
+
+MESH_WINDOW_B = 8  # phase 14's window rows: WINDOW keyframes, B / n a rank
+# its boxes: D = 8 a row (yolo_detector's max_detections_per_frame), a 4 x 2
+# grid of 150 x 220 px boxes [tl_x, tl_y, w, h] over the 640x480 cloud, and
+# their classes: the 7 whitelisted ones, the last box sharing the first's at
+# the far corner; and the keyframes' spacing along x. The association matches
+# a detection to a landmark of its class within 1.5 m of the landmark's first
+# sighting: with one class for all boxes the grid's rows lie 1.5 m apart on
+# the plane, and at window_inputs' 0.5 m spacing a box's track meets that
+# distance 3 keyframes on, ties that float rounding decides either way. At
+# 0.4 m the track's distances are 0.4 to 1.2 m, then 1.6 m (a new landmark)
+MESH_WINDOW_BOXES = [[8.0 + 157.0 * c, 10.0 + 240.0 * r, 150.0, 220.0] for r in range(2) for c in range(4)]
+MESH_WINDOW_CLASSES = [0, 1, 2, 3, 4, 5, 6, 0]
+MESH_WINDOW_STEP = 0.4
+
+
+def _full_width_window(torch):
+    """``parallel/window_inputs.py``'s run of ``MESH_WINDOW_B`` keyframes at
+    the dense log's shapes: 640x480 clouds, ``MESH_WINDOW_BOXES`` a row
+    (classes ``MESH_WINDOW_CLASSES``), keyframes ``MESH_WINDOW_STEP`` apart, and
+    the yolo_detector profile's frontend (256x256 crops, so K5 scores N =
+    65,536 points against S = 128 hypotheses, 4 plane rounds, its
+    segmentation thresholds and normal window), with a graph and table
+    sized for every detection's planes. Returns (graph, table, args,
+    statics) as ``make_window_inputs`` does."""
+    from semantic_slam_tpu_torch.assoc import association as assoc_mod
+    from semantic_slam_tpu_torch.config import PROFILES
+    from semantic_slam_tpu_torch.graph import state as gs
+    from semantic_slam_tpu_torch.parallel.window_inputs import make_window_inputs
+
+    B, D = MESH_WINDOW_B, len(MESH_WINDOW_BOXES)
+    prof = PROFILES["yolo_detector"]
+    seg = prof.segmentation
+    _, _, args, _ = make_window_inputs(B, torch.float32, device=DEVICE, H=seg.image_height, W=seg.image_width)
+    obs = B * D * seg.max_planes_per_detection
+    graph = gs.make_graph(16, obs, 16, obs, dtype=torch.float32, device=DEVICE)
+    table = assoc_mod.make_table(obs, dtype=torch.float32, device=DEVICE)
+    x = MESH_WINDOW_STEP * torch.arange(B, dtype=torch.float32, device=DEVICE)
+    args["odoms"][:, 0] = x
+    args["robot_xyzrpy"][:, 0] = x
+    args.update(
+        boxes=torch.tensor([MESH_WINDOW_BOXES] * B, dtype=torch.float32, device=DEVICE),
+        class_ids=torch.tensor([MESH_WINDOW_CLASSES] * B, dtype=torch.int32, device=DEVICE),
+        probs=args["probs"].expand(B, D).contiguous(),
+        seg_params={"num_point_seg": float(seg.num_point_seg), "norm_point_thres": float(seg.norm_point_thres),
+                    "planar_area": float(seg.planar_area), "distance_thres": float(seg.distance_thres),
+                    "cos_angular_thres": math.cos(math.radians(seg.angular_thres_deg))},
+    )
+    statics = dict(samp_h=seg.crop_height, samp_w=seg.crop_width, max_planes=seg.max_planes_per_detection,
+                   num_hypotheses=seg.num_hypotheses, smoothing_size=seg.normal_smoothing_size,
+                   strict_frames=prof.strict_reference_frames, use_rtabmap_offset=False, depth_input=False)
+    return graph, table, args, statics
+
+
+def _mesh_window(torch, mesh) -> list:
+    """``sharded_window_step`` on the mesh at full width (``_full_width_window``)
+    against the single-device window program and row-range LM on the same
+    inputs; K5 once a plane round on each rank, over that rank's B / n rows."""
+    from semantic_slam_tpu_torch.parallel import sharded as psh
+    from semantic_slam_tpu_torch.runtime import engine as eng
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.utils.profiling import mesh_kernel_launches
+
+    graph, table, args, statics = _full_width_window(torch)
+    B, D = args["boxes"].shape[:2]
+    solve = dict(max_iterations=4, min_edges=1, rel_tol=1e-6, max_cg_iters=16)
+    t0 = time.perf_counter()
+    g1, t1, _ = eng._process_keyframes_window(graph, table, **args, **statics)
+    g1, s1 = sd.lm_optimize_soa_tiled(g1, ell_rows=(1, 1, D * statics["max_planes"]), **solve)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    kw = {k: v for k, v in args.items() if k not in ("odoms", "cam_intr", "depth_scale")}
+    st = {k: v for k, v in statics.items() if k != "depth_input"}
+    mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+    t0 = time.perf_counter()
+    gm, tm, sm = psh.sharded_window_step(graph, table, args["odoms"], torch.ones(B, dtype=torch.bool), **kw,
+                                         mesh=mesh, **st, **solve)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    ranks = mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+    k5 = [r["score_hypotheses"] for r in ranks]
+    err = _pose_err(torch, gm.poses, g1.poses)
+    H, W = args["points"].shape[1:3]
+    print(f"[mesh_window] sharded_window_step, B={B} rows of {D} detections, {W}x{H} clouds, "
+          f"{statics['samp_w']}x{statics['samp_h']} crops on {mesh.size} ranks (K5 at D'={B // mesh.size * D}, N={statics['samp_h'] * statics['samp_w']}, "
+          f"S={statics['num_hypotheses']} a rank): {int(gm.num_poses)} poses, {int(tm.count)} landmarks, "
+          f"{int(gm.num_lme)} observations (one device: {int(g1.num_poses)}, {int(t1.count)}, {int(g1.num_lme)}); "
+          f"LM iterations {sm.iterations} (one device {s1.iterations}); poses within {err:.3g} of scale (bound "
+          f"{LIN_RTOL:g}); K5 launches per rank {k5}; {t_mesh:.2f} s on the mesh, {t_one:.2f} s on one device "
+          f"(host clock, synced)")
+    require(int(tm.count) == int(t1.count) > 0 and int(gm.num_lme) == int(g1.num_lme) and err <= LIN_RTOL,
+            "[mesh_window] the sharded window step differs from one device's")
+    require(k5 == [statics["max_planes"]] * mesh.size, f"[mesh_window] K5 launches per rank {k5}")
+    return ranks
+
+
+def _mesh_planes(torch, states: dict, mesh) -> dict:
+    """``sharded_lm_optimize_soa_planes`` at fixed work on the final states
+    of plane sessions B (K=4096, no prior) and C (K=512, a fixed-lag prior
+    with a plane part), their live poses moved by ~5 cm and ~0.01 (seeded,
+    so that the LM has steps to take), with the marginals, against
+    ``lm_optimize_soa_planes`` on one device: poses and planes within
+    LIN_RTOL of scale, chi2 within LM_RTOL, the marginals within LM_RTOL in
+    norm, and every rank's launches those of the one-device loop (each rank
+    runs it over its rows), but for the marginals' final linearization: K6 +
+    K7 on each rank's range where one device takes K1 + K2. Returns the
+    launches per rank by session."""
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.utils.profiling import kernel_launches, mesh_kernel_launches
+
+    out = {}
+    for label, st in states.items():
+        g, pn, rows, prior = st["g"], st["pn"], st["rows"], st["prior"]
+        n = int(g.num_poses)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        t = g.poses[:n, :3] + 0.05 * torch.randn(n, 3, generator=gen, device=DEVICE)
+        q = torch.nn.functional.normalize(g.poses[:n, 3:] + 0.01 * torch.randn(n, 4, generator=gen, device=DEVICE),
+                                          dim=-1)
+        g = g.replace(poses=torch.cat([torch.cat([t, q], dim=1), g.poses[n:]]))
+        kw = dict(max_iterations=4, min_edges=0, rel_tol=0.0, max_cg_iters=LM_STEPS, cg_tol=0.0, prior=prior,
+                  with_marginals=True, ell_rows=rows)
+        before = kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g1, pn1, s1, m1 = sd.lm_optimize_soa_planes(g, pn, **kw)
+        torch.cuda.synchronize()
+        ms1 = 1e3 * (time.perf_counter() - t0) / max(s1.iterations, 1)
+        one = {k: n - before[k] for k, n in kernel_launches().items()}
+        mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+        t0 = time.perf_counter()
+        gm, pnm, sm, mm = sd.sharded_lm_optimize_soa_planes(g, pn, mesh, **kw)
+        torch.cuda.synchronize()
+        msm = 1e3 * (time.perf_counter() - t0) / max(sm.iterations, 1)
+        ranks = mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+        P = int(pn.num_planes)
+        e_pose = _pose_err(torch, gm.poses, g1.poses)
+        e_plane = _pose_err(torch, pnm.planes[:P], pn1.planes[:P])
+        e_chi2 = abs(float(sm.chi2_final) - float(s1.chi2_final)) / abs(float(s1.chi2_final))
+        e_marg = float((mm - m1).norm() / m1.norm())
+        K = g.poses.shape[0]
+        print(f"[mesh_{label}] sharded_lm_optimize_soa_planes, K={K} (Kl={K // mesh.size}), {P} planes, "
+              f"{int(pn.num_pe)} plane edges, prior {'with' if prior is not None else 'without'} a plane part, "
+              f"marginals: {sm.iterations} LM iterations x {LM_STEPS} CG steps (one device {s1.iterations}), chi2 "
+              f"{float(s1.chi2_initial):.7g} -> {float(sm.chi2_final):.7g} (one device {float(s1.chi2_final):.7g}, "
+              f"rel {e_chi2:.3g}, bound {LM_RTOL:g}); poses within {e_pose:.3g}, planes {e_plane:.3g} of scale "
+              f"(bound {LIN_RTOL:g}); marginals {e_marg:.3g} in norm (bound {LM_RTOL:g}); {msm:.3f} ms per LM "
+              f"iteration on {mesh.size} ranks, {ms1:.3f} on one device (host clock, synced)")
+        require(sm.iterations == s1.iterations > 0 and e_pose <= LIN_RTOL and e_plane <= LIN_RTOL
+                and e_chi2 <= LM_RTOL and e_marg <= LM_RTOL, f"[mesh_{label}] the sharded plane LM differs")
+        want = dict(one, fused_linearize=0, tiled_fused_linearize=one["tiled_fused_linearize"] + 1)
+        print(f"[mesh_{label}] launches per rank {[[r[k] for k in TILED] for r in ranks]} of {list(TILED)} "
+              f"(K6 + K7, K8, K9, K10); one device {[one[k] for k in TILED]} and K1 + K2 "
+              f"{one['fused_linearize']} (the marginals' linearization, K6 + K7 on a rank)")
+        require(all(one[k] > 0 for k in TILED) and one["fused_linearize"] == 1,
+                f"[mesh_{label}] the one-device loop's launches: {one}")
+        for r, got in enumerate(ranks):
+            require(got == want, f"[mesh_{label}] rank {r}: launches {got}, expected {want}")
+        out[label] = ranks
+    return out
+
+
+def _mesh_merge(torch, ckpts, mesh) -> None:
+    """``joint_bundle_adjust`` of the lifecycle's two checkpoints on the
+    mesh against one device: chi2 within LM_RTOL."""
+    from semantic_slam_tpu_torch.config import PROFILES
+    from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
+    from semantic_slam_tpu_torch.runtime import multisession as ms
+    from semantic_slam_tpu_torch.runtime.engine import SlamEngine
+
+    engines = []
+    for path in ckpts:
+        e = SlamEngine(PROFILES["yolo_detector"], device=DEVICE)
+        load_checkpoint(path, e)
+        engines.append(e)
+    merged, _ = ms.merge_graphs([e.graph for e in engines], [e.table for e in engines])
+    g1, s1 = ms.joint_bundle_adjust(merged)
+    gm, sm = ms.joint_bundle_adjust(merged, mesh=mesh)
+    rel = abs(float(sm.chi2_final) - float(s1.chi2_final)) / abs(float(s1.chi2_final))
+    print(f"[mesh_merge] joint BA of {int(merged.num_poses)} poses: one device chi2 {float(s1.chi2_initial):.7g} -> "
+          f"{float(s1.chi2_final):.7g} ({s1.iterations} iterations), {mesh.size} ranks {float(sm.chi2_final):.7g} "
+          f"({sm.iterations}); rel diff {rel:.3g} (bound {LM_RTOL:g})")
+    require(rel <= LM_RTOL and math.isfinite(float(sm.chi2_final)), "[mesh_merge] the sharded merge differs")
+
+
 def check_isolation() -> None:
     jaxish = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "__graft_entry__"
                     or m == "semantic_slam_tpu" or m.startswith("semantic_slam_tpu."))
@@ -2049,7 +2457,7 @@ def main() -> int:
         for r in (dense, pcg, tiled):  # free each engine before the next session
             del r["engine"]
         phase("session lifecycle on the card")
-        check_lifecycle(torch, log)
+        life = check_lifecycle(torch, log)
         phase("the ROS surface on the card")
         check_ros_surface(torch, log, pcg)
 
@@ -2082,6 +2490,9 @@ def main() -> int:
         del fl_log
         phase("breadth on the card")
         check_breadth(torch, log, plane_log, planes["twin"], pcg, tiled)
+        phase("several ranks on the card")
+        mesh = check_mesh(torch, log, {"tiled": tiled, "life_checkpoints": life["checkpoints"],
+                                       "planes": planes.pop("states")})
         del plane_log, log
 
         check_isolation()
@@ -2090,6 +2501,10 @@ def main() -> int:
         return 1
 
     tiled_py = "semantic_slam_tpu/solver/pallas_tiled.py"
+
+    def wrapper_of(name: str) -> str:
+        return "fused_linearize" if name in PAIR else "tiled_fused_linearize" if name in TILED_PAIR else name
+
     meta = {  # name: (source, TPU kernel replaced, the session whose path runs it)
         "obs_linearize": ("soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:603", pcg),
         "chain_linearize": ("soa_linearize.cu", "semantic_slam_tpu/solver/pallas_cg.py:747", pcg),
@@ -2108,10 +2523,12 @@ def main() -> int:
         {
             "name": name, "route": "cuda", "source": f"semantic_slam_tpu_torch/csrc/{src}", "replaces": rep,
             # K1 and K2, and K6 and K7, launch only through the one wrapper of their pair on the path
-            "launches": session["launches"]["fused_linearize" if name in PAIR else
-                                            "tiled_fused_linearize" if name in TILED_PAIR else name],
+            "launches": session["launches"][wrapper_of(name)],
             **{k: numbers[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
+            **({"mesh_launches_per_rank": {label: [r[wrapper_of(name)] for r in ranks]
+                                           for label, ranks in mesh["launches"].items()}}
+               if name in MESH_KERNELS else {}),
             **{k: numbers[name][k] for k in ("device_ms", "device_us_per_step", "pair_device_ms", "window_D",
                                              "window_ms", "window_plain_ms", "window_device_ms", "window_bound_ms",
                                              "window_max_abs_err")

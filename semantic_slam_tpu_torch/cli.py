@@ -15,6 +15,7 @@
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --ingest-window 8 --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --solver pcg --precond tridiag --device cuda
   python -m semantic_slam_tpu_torch.cli run --log lab.npz --adaptive-normals --xla-trace trace/ --device cuda
+  python -m semantic_slam_tpu_torch.cli run --log lab.npz --devices 2 --device cpu
 
 ``run`` replays a log through the port's engine on the 30 Hz tick grid and
 writes what ``semantic_slam_tpu.cli run`` writes: ``summary.json``,
@@ -54,7 +55,11 @@ block tridiagonal, ``--adaptive-normals`` shrinks the normal windows at
 depth edges, and ``--xla-trace DIR`` writes a ``torch.profiler`` trace of
 the replay to ``DIR/trace.json``. The profile's
 ``use_const_inf_matrix=False`` (fitness-weighted odometry information) is a
-config field with no flag, as in the JAX CLI.
+config field with no flag, as in the JAX CLI. ``--devices N`` runs every
+optimize's solve over N ranks (the row-range loop with the pose rows split;
+``parallel/dist.py``): NCCL over N GPUs with ``--device cuda`` (fewer
+visible GPUs is an error), N gloo CPU ranks with ``--device cpu``; the
+summary and the outputs are the single-device run's.
 """
 
 from __future__ import annotations
@@ -70,11 +75,15 @@ import numpy as np
 
 
 def make_config(args):
-    from semantic_slam_tpu_torch.config import PROFILES, CapacityConfig
+    from semantic_slam_tpu_torch.config import PROFILES, CapacityConfig, MeshConfig
 
     if args.profile not in PROFILES:
         sys.exit(f"unknown profile {args.profile!r}; have {sorted(PROFILES)}")
     cfg = PROFILES[args.profile]
+    if args.devices > 1:
+        # every optimize tick's solve over an N-rank mesh (runtime/engine.py):
+        # NCCL over cuda:0..N-1 with --device cuda, gloo ranks with --device cpu
+        cfg = cfg.replace(mesh=MeshConfig(num_devices=args.devices))
     if args.compute_ate:
         cfg = cfg.replace(compute_txt_for_ate=True)
     if args.max_keyframes:
@@ -154,24 +163,29 @@ def make_synthetic_log(**kwargs):
     return synth_mod.make_synthetic_log(**kwargs)
 
 
-def run_session(log, cfg, device: str, resume: str = "", finalize: bool = False):
-    """Replay ``log`` through a fresh engine, restored from the checkpoint
-    ``resume`` first if given, and with a closing ``finalize()`` pass if
-    asked; returns the engine."""
+def run_session(log, cfg, device: str, resume: str = "", finalize: bool = False, mesh=None):
+    """Replay ``log`` through a fresh engine (on ``mesh``, a mesh the caller
+    keeps, if given), restored from the checkpoint ``resume`` first if
+    given, and with a closing ``finalize()`` pass if asked; returns the
+    engine."""
     from semantic_slam_tpu_torch.io import replay as replay_mod
     from semantic_slam_tpu_torch.runtime.engine import SlamEngine
 
-    engine = SlamEngine(cfg, device=device)
-    if resume:
-        from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
+    engine = SlamEngine(cfg, device=device, mesh=mesh)
+    try:
+        if resume:
+            from semantic_slam_tpu_torch.io.checkpoint import load_checkpoint
 
-        load_checkpoint(resume, engine)
-    if isinstance(log, SlogLog):
-        replay_mod.replay_slog(log.path, engine)
-    else:
-        replay_mod.replay(log, engine)
-    if finalize:
-        engine.finalize()
+            load_checkpoint(resume, engine)
+        if isinstance(log, SlogLog):
+            replay_mod.replay_slog(log.path, engine)
+        else:
+            replay_mod.replay(log, engine)
+        if finalize:
+            engine.finalize()
+    except BaseException:
+        engine.close()
+        raise
     return engine
 
 
@@ -330,9 +344,11 @@ def cmd_synth(args) -> None:
     )
 
 
-def run_from_args(args, log):
+def run_from_args(args, log, mesh=None):
     """``run`` on a log already in memory: the session, then its shutdown
-    work. Returns (engine, summary)."""
+    work. ``mesh``: a mesh of ``--devices`` ranks the caller opened and
+    keeps (the Python API's way to gloo ranks sharing one card; the flags
+    open their own). Returns (engine, summary)."""
     cfg = make_config(args)
     trace = contextlib.nullcontext()
     if args.xla_trace:
@@ -341,11 +357,14 @@ def run_from_args(args, log):
         trace = device_trace(args.xla_trace)
     with trace:
         engine = run_session(log, cfg, args.device, resume=args.resume,
-                             finalize=args.optimize_every > 1 or args.ingest_window > 1)
-    grid = build_voxel_map(engine, carve=args.carve) if args.voxel else None
-    summary = write_outputs(args.out, args.profile, cfg, engine, log, save_graph=args.save_graph,
-                            checkpoint=args.checkpoint, dump_keyframes=args.dump_keyframes, grid=grid,
-                            viz_bag=args.viz_bag, viz_bag_detections=args.viz_bag_detections)
+                             finalize=args.optimize_every > 1 or args.ingest_window > 1, mesh=mesh)
+    try:
+        grid = build_voxel_map(engine, carve=args.carve) if args.voxel else None
+        summary = write_outputs(args.out, args.profile, cfg, engine, log, save_graph=args.save_graph,
+                                checkpoint=args.checkpoint, dump_keyframes=args.dump_keyframes, grid=grid,
+                                viz_bag=args.viz_bag, viz_bag_detections=args.viz_bag_detections)
+    finally:
+        engine.close()  # a mesh's workers stop with the session
     return engine, summary
 
 
@@ -447,6 +466,12 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--max-keyframes", type=int, default=0, help="cap graph capacities")
     r.add_argument("--crop-size", type=int, default=0, help="override bbox crop grid")
     r.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    r.add_argument(
+        "--devices", type=int, default=1,
+        help="run every optimize tick's solve sharded over an N-device mesh (multi-chip product path; "
+        "1 = single-chip). Forces the pcg solver. With --device cuda NCCL over N GPUs; for CPU testing "
+        "combine with --device cpu (N gloo ranks)",
+    )
     r.add_argument("--solver", default="", choices=["", "dense", "pcg"],
                    help="linear solver (default: the profile's, dense)")
     r.add_argument("--precond", default="jacobi", choices=["jacobi", "tridiag"],

@@ -25,13 +25,23 @@ Arrays load at the capacities saved in the file, which may exceed a fresh
 engine's after capacity doubling. Keyframe clouds are not checkpointed (they
 are replay-log data); neither is sensor data still pending, nor the
 engine's tick counter, so ``optimize_every_n_ticks`` counts from 0 after a
-resume, as in the JAX package. The JAX package's orbax backend is not
-ported.
+resume, as in the JAX package.
+
+``save_checkpoint_dist`` / ``load_checkpoint_dist`` are the counterpart of
+the JAX package's orbax route (``save_checkpoint_orbax``): a directory with
+the device state (graph, table, plane nodes, marginals, prior) written by
+``torch.distributed.checkpoint`` under ``device_state/`` and the host state
+beside it in ``host_state.json``, with the keys and values of the JAX
+package's ``_engine_host_meta``. The engine's state lives on the controller
+(rank 0 of a mesh), which writes it. Orbax's ``device_state/`` is a JAX
+library's format, so neither package loads the other's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import warnings
 
 import numpy as np
 import torch
@@ -129,6 +139,11 @@ def load_checkpoint(path: str, engine) -> None:
     engine.robot_traj = [(float(s), p.copy()) for s, p in zip(z["robot_traj_t"], z["robot_traj_p"])]
     engine.vio_traj = [(float(s), p.copy()) for s, p in zip(z["vio_traj_t"], z["vio_traj_p"])]
 
+    _restore_keyframes_and_gate(engine, meta)
+    _restore_count_mirrors(engine)
+
+
+def _restore_keyframes_and_gate(engine, meta: dict) -> None:
     from semantic_slam_tpu_torch.runtime.engine import KeyframeMeta
 
     engine.first_key_added = bool(meta["first_key_added"])
@@ -153,7 +168,6 @@ def load_checkpoint(path: str, engine) -> None:
     engine.gate.accum_distance = float(gate["accum_distance"])
     engine.gate.prev_keypose = np.asarray(gate["prev_keypose"])
     engine.gate.prev_time = float(gate["prev_time"])
-    _restore_count_mirrors(engine)
 
 
 def _restore_count_mirrors(engine) -> None:
@@ -164,3 +178,152 @@ def _restore_count_mirrors(engine) -> None:
     engine._n_landmarks = int(engine.graph.num_landmarks)
     engine._n_odom = int(engine.graph.num_odom)
     engine._n_lme = int(engine.graph.num_lme)
+
+
+# ---------------------------------------------------------------------------
+# the distributed checkpoint (torch.distributed.checkpoint + host_state.json)
+# ---------------------------------------------------------------------------
+
+LEGACY_PRIOR = tuple(f for f in fl.MarginalPrior._fields if f not in PLANE_PRIOR)
+
+
+def _engine_host_meta(engine) -> dict:
+    """``host_state.json``: the JAX package's ``_engine_host_meta`` keys and
+    values. Its engine keeps plane nodes and a plane prior part in point
+    sessions too (at the initial landmark and edge capacities, the prior's
+    plane part as wide as its landmark part), so those capacities are
+    written as it writes them."""
+    gate = engine.gate
+    pn, prior = engine.plane_nodes, engine.prior
+    Pl, E3 = (pn.max_planes, pn.max_edges) if pn is not None else engine._plane_caps0
+    return {
+        "keyframes": [
+            {"stamp": k.stamp, "odom": k.odom.tolist(), "robot_pose": k.robot_pose.tolist(),
+             "accum_distance": k.accum_distance, "node_idx": k.node_idx}
+            for k in engine.keyframes
+        ],
+        "gate": {"is_first": gate.is_first, "accum_distance": gate.accum_distance,
+                 "prev_keypose": gate.prev_keypose.tolist(), "prev_time": gate.prev_time},
+        "first_key_added": engine.first_key_added,
+        "stats_history": engine.stats_history,
+        "kf_base": engine._kf_base,
+        "archived_poses": [np.asarray(p).tolist() for p in engine.archived_poses],
+        "robot_pose": engine.robot_pose.tolist(),
+        "vio_pose": engine.vio_pose.tolist(),
+        "prev_odom": engine.prev_odom.tolist(),
+        "map2odom": engine.map2odom.tolist(),
+        "robot_traj": [[s, p.tolist()] for s, p in engine.robot_traj],
+        "vio_traj": [[s, p.tolist()] for s, p in engine.vio_traj],
+        "capacities": {
+            "K": engine.graph.poses.shape[0], "L": engine.graph.landmarks.shape[0],
+            "E1": engine.graph.odom_i.shape[0], "E2": engine.graph.lme_k.shape[0], "Pl": Pl, "E3": E3,
+            "PB": prior.max_poses, "PL": prior.Hl.shape[0],
+            "PPl": prior.Hpl.shape[0] if pn is not None else prior.Hl.shape[0],
+        },
+    }
+
+
+@contextlib.contextmanager
+def _single_process():
+    """``torch.distributed.checkpoint`` without its warning that no process
+    group takes part: one process writes and reads the whole state."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def _device_state(engine) -> dict:
+    """The state dict ``torch.distributed.checkpoint`` writes: nested dicts
+    of the engine's tensors (a point session's empty plane prior left out)."""
+    prior = engine.prior
+    state = {
+        "graph": {k: getattr(engine.graph, k) for k in gs.FIELDS},
+        "table": {k: getattr(engine.table, k) for k in TABLE_FIELDS},
+        "marginals": engine.marginals,
+        "prior": {k: getattr(prior, k) for k in fl.MarginalPrior._fields
+                  if prior.Hpl.shape[0] or k not in PLANE_PRIOR},
+    }
+    if engine.plane_nodes is not None:
+        state["planes"] = {k: getattr(engine.plane_nodes, k) for k in gp.FIELDS}
+    return state
+
+
+def save_checkpoint_dist(path: str, engine) -> None:
+    """The engine's state as a directory: ``device_state/`` through
+    ``torch.distributed.checkpoint`` and ``host_state.json``."""
+    import os
+
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    # the controller holds the whole (replicated) state and writes it alone
+    with _single_process():
+        dcp.save(_device_state(engine), checkpoint_id=os.path.join(path, "device_state"), no_dist=True)
+    with open(os.path.join(path, "host_state.json"), "w") as f:
+        json.dump(_engine_host_meta(engine), f)
+
+
+def load_checkpoint_dist(path: str, engine) -> None:
+    """Restore ``save_checkpoint_dist``'s directory in place into a freshly
+    constructed engine (same config), at the saved capacities. A prior saved
+    without its plane part (a ``host_state.json`` without ``PPl``, the JAX
+    package's legacy prior) gets an empty one."""
+    import os
+
+    import torch.distributed.checkpoint as dcp
+
+    from semantic_slam_tpu_torch.assoc.association import make_table
+
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "host_state.json")) as f:
+        meta = json.load(f)
+    caps = meta["capacities"]
+    dev, dt = engine.device, engine.dtype
+    saved = set(dcp.FileSystemReader(os.path.join(path, "device_state")).read_metadata().state_dict_metadata)
+    planes = engine.cfg.use_plane_landmarks
+
+    # the template at the saved capacities; the loader fills it in place
+    g = gs.make_graph(caps["K"], caps["L"], caps["E1"], caps["E2"], dtype=dt, device=dev)
+    t = make_table(caps["L"], dtype=dt, device=dev)
+    template = {
+        "graph": {k: getattr(g, k) for k in gs.FIELDS},
+        "table": {k: getattr(t, k) for k in TABLE_FIELDS},
+        "marginals": torch.eye(3, dtype=dt, device=dev).repeat(caps["L"], 1, 1),
+    }
+    if "planes.planes" in saved:
+        pn = gp.make_planes(caps["Pl"], caps["E3"], dtype=dt, device=dev)
+        template["planes"] = {k: getattr(pn, k) for k in gp.FIELDS}
+    plane_prior = "prior.Hpl" in saved and "PPl" in caps
+    if "prior.Hp" in saved:
+        full = fl.empty_prior(caps.get("PL", caps["L"]), PB=caps["PB"], Pl=caps["PPl"] if plane_prior else 0,
+                              dtype=dt, device=dev)
+        template["prior"] = {k: getattr(full, k) for k in (fl.MarginalPrior._fields if plane_prior else LEGACY_PRIOR)}
+    with _single_process():
+        dcp.load(template, checkpoint_id=os.path.join(path, "device_state"), no_dist=True)
+
+    engine.graph = gs.GraphState(**template["graph"])
+    engine.table = LandmarkTable(**template["table"])
+    engine.marginals = template["marginals"]
+    if "planes" in template:
+        engine.plane_nodes = gp.PlaneNodes(**template["planes"])
+    if "prior" in template:
+        fields = dict(template["prior"])
+        if not plane_prior:
+            # empty plane blocks at the engine's plane capacity (none in a
+            # point session)
+            fresh = fl.empty_prior(fields["Hl"].shape[0], PB=fields["p_idx"].shape[0],
+                                   Pl=engine.plane_nodes.max_planes if planes else 0, dtype=dt, device=dev)
+            fields.update({k: getattr(fresh, k) for k in PLANE_PRIOR})
+        engine.prior = fl.MarginalPrior(**fields)
+    if engine.cfg.solver.fixed_lag_window > 0:
+        engine.prior = fl.grow_prior(engine.prior, engine.graph.max_landmarks)
+    engine.archived_poses = [np.asarray(p, np.float64) for p in meta.get("archived_poses", [])]
+    engine.robot_pose = np.asarray(meta["robot_pose"], np.float64)
+    engine.vio_pose = np.asarray(meta["vio_pose"], np.float64)
+    engine.prev_odom = np.asarray(meta["prev_odom"], np.float64)
+    engine.map2odom = np.asarray(meta["map2odom"], np.float64)
+    engine.robot_traj = [(float(s), np.asarray(p, np.float64)) for s, p in meta["robot_traj"]]
+    engine.vio_traj = [(float(s), np.asarray(p, np.float64)) for s, p in meta["vio_traj"]]
+    _restore_keyframes_and_gate(engine, meta)
+    _restore_count_mirrors(engine)

@@ -1,6 +1,6 @@
 """The SLAM engine: keyframe queue, tick loop, graph growth, state sync (port
-of ``semantic_slam_tpu.runtime.engine`` for one device: the dense Schur LM
-and the SoA Schur-PCG solver, point or plane landmarks).
+of ``semantic_slam_tpu.runtime.engine``: the dense Schur LM and the SoA
+Schur-PCG solver, point or plane landmarks, on one device or a mesh).
 
 The host drives the same sequential loop as the JAX engine (keyframe gate,
 latest-wins sensor pairing, queue bookkeeping, in numpy), and the device
@@ -58,14 +58,26 @@ The reference's optimize gate (at least ``min_edges`` edges) is decided on
 the host from the count mirrors; only while they are below the gate does
 the solver fetch the edge count.
 
-Configurations that need a path not ported yet raise ``NotImplementedError``
-naming it. Method names match the JAX engine, since ``io.replay`` drives
-either engine by duck typing.
+Several ranks (``MeshConfig.num_devices = n > 1``, the JAX engine's mesh):
+the constructor opens a mesh of n ranks (``parallel/dist.py``: this process
+is rank 0, n - 1 workers; NCCL over ``cuda:0..n-1`` on the card, gloo ranks
+with ``device="cpu"``, or a mesh the caller passes), forces
+``linear_solver="pcg"`` and rounds the pose and edge capacities up to a
+multiple of n (doubling keeps them so). Every optimize then takes the
+row-range loop over the ranks' pose rows (``soa_dist.sharded_lm_optimize_soa``
+and ``_planes``: the per-tick point and plane solves, the window flush, the
+fixed-lag solve with the prior replicated) at every K and preconditioner;
+the frontend, the association and the marginalization stay on rank 0.
+``close()`` stops the workers of a mesh the engine opened (the CLI calls it
+when the session ends; an open mesh also stops at interpreter exit). Method
+names match the JAX engine, since ``io.replay`` drives either engine by duck
+typing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any
 
@@ -109,14 +121,8 @@ class KeyframeMeta:
     depth_scale: float = 1e-3
 
 
-def _unported(cfg: SlamConfig) -> list[str]:
-    """Paths this configuration needs that the port does not have yet."""
-    missing = []
-    if cfg.solver.linear_solver not in ("dense", "pcg"):
-        missing.append(f"linear_solver={cfg.solver.linear_solver!r}")
-    if cfg.mesh.num_devices > 1:
-        missing.append("mesh.num_devices > 1 (sharded solver)")
-    return missing
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def _soa_dispatch(K: int) -> str:
@@ -303,12 +309,13 @@ def _optimize_tick(
     graph, table, marginals, last_idx: int, *, do_opt: bool, init_lambda: float,
     max_iterations: int, min_edges: int, rel_tol: float, robust_kind: str,
     robust_delta: float, need_marginals: bool, linear_solver: str, pcg_iters: int,
-    ell_rows: tuple, prior: fl.MarginalPrior | None = None, pcg_precond: str = "jacobi",
+    ell_rows: tuple, prior: fl.MarginalPrior | None = None, pcg_precond: str = "jacobi", mesh=None,
 ):
     """LM optimize (with the fixed-lag ``prior`` folded in, if any), marginal
     recovery, table sync, packed stats. ``pcg_precond`` picks the PCG
-    loops' preconditioner (``"jacobi"`` or ``"tridiag"``). Returns (graph,
-    table, marginals, info [8+7] on the device, iterations)."""
+    loops' preconditioner (``"jacobi"`` or ``"tridiag"``); with ``mesh`` the
+    solve is the sharded row-range loop. Returns (graph, table, marginals,
+    info [8+7] on the device, iterations)."""
     zero = graph.poses.new_zeros(())
     stats = lm_mod.LMStats(0, zero, zero, zero)
     if do_opt:
@@ -317,7 +324,10 @@ def _optimize_tick(
             robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda,
             with_marginals=need_marginals,
         )
-        if linear_solver == "pcg" and _soa_dispatch(graph.poses.shape[0]) == "tiled":
+        if mesh is not None:
+            out = soa_dist_mod.sharded_lm_optimize_soa(graph, mesh, max_cg_iters=pcg_iters, ell_rows=ell_rows,
+                                                       prior=prior, precond_kind=pcg_precond, **kw)
+        elif linear_solver == "pcg" and _soa_dispatch(graph.poses.shape[0]) == "tiled":
             out = soa_dist_mod.lm_optimize_soa_tiled(graph, max_cg_iters=pcg_iters, ell_rows=ell_rows, prior=prior,
                                                      precond_kind=pcg_precond, **kw)
         elif linear_solver == "pcg":
@@ -363,11 +373,12 @@ def _optimize_tick(
 def _optimize_tick_planes(
     graph, table, pn, last_idx: int, *, do_opt: bool, init_lambda: float, max_iterations: int, min_edges: int,
     rel_tol: float, robust_kind: str, robust_delta: float, need_marginals: bool, linear_solver: str, pcg_iters: int,
-    ell_rows: tuple, prior: fl.MarginalPrior | None = None, pcg_precond: str = "jacobi",
+    ell_rows: tuple, prior: fl.MarginalPrior | None = None, pcg_precond: str = "jacobi", mesh=None,
 ):
     """The plane-landmark tick: the joint pose, point and plane LM (the
-    dense plane LM, or the row-range loop's plane half with ``pcg``, with
-    the fixed-lag ``prior`` folded in), then the point path's table sync
+    dense plane LM, or the row-range loop's plane half with ``pcg``, over
+    the ``mesh``'s ranks if given, with the fixed-lag ``prior`` folded in),
+    then the point path's table sync
     with the point landmarks' marginals. Returns (graph, table, pn, info
     [8+7] on the device, iterations); info's slots 5 and 7 hold the plane
     and plane-edge counts (the JAX engine's plane tick)."""
@@ -377,9 +388,11 @@ def _optimize_tick_planes(
         kw = dict(max_iterations=max_iterations, min_edges=min_edges, rel_tol=rel_tol, robust_kind=robust_kind,
                   robust_delta=robust_delta, init_lambda=init_lambda, prior=prior)
         marg = None
-        if linear_solver == "pcg":
-            out = soa_dist_mod.lm_optimize_soa_planes(graph, pn, max_cg_iters=pcg_iters, ell_rows=ell_rows,
-                                                      with_marginals=need_marginals, precond_kind=pcg_precond, **kw)
+        if mesh is not None or linear_solver == "pcg":
+            solve = (soa_dist_mod.lm_optimize_soa_planes if mesh is None else
+                     functools.partial(soa_dist_mod.sharded_lm_optimize_soa_planes, mesh=mesh))
+            out = solve(graph, pn, max_cg_iters=pcg_iters, ell_rows=ell_rows, with_marginals=need_marginals,
+                        precond_kind=pcg_precond, **kw)
             g2, pn2, st = out[:3]
             if need_marginals:
                 marg = out[3]
@@ -429,17 +442,33 @@ class SlamEngine:
 
     ``device`` is where the graph, the table and every kernel live. A CUDA
     device that does not exist is an error: nothing falls back to the CPU.
+    With ``config.mesh.num_devices = n > 1`` the engine opens a mesh of n
+    ranks on ``device``'s kind (``parallel.dist.make_mesh``; fewer GPUs than
+    n is a ``ValueError``), or takes ``mesh``, one the caller opened with n
+    ranks and keeps (e.g. gloo ranks sharing one card).
     """
 
-    def __init__(self, config: SlamConfig, device: str | torch.device = "cuda"):
-        missing = _unported(config)
-        if missing:
-            raise NotImplementedError(
-                "not ported to semantic_slam_tpu_torch yet: " + "; ".join(missing)
-            )
+    def __init__(self, config: SlamConfig, device: str | torch.device = "cuda", mesh=None):
+        if config.solver.linear_solver not in ("dense", "pcg"):
+            raise ValueError(f"linear_solver must be 'dense' or 'pcg', got {config.solver.linear_solver!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but torch sees no CUDA device")
+        n_mesh = config.mesh.num_devices
+        if mesh is not None and mesh.size != n_mesh:
+            raise ValueError(f"MeshConfig.num_devices={n_mesh} but the mesh given has {mesh.size} ranks")
+        self._mesh, self._owns_mesh = mesh, mesh is None
+        if n_mesh > 1:
+            if mesh is None:
+                from semantic_slam_tpu_torch.parallel import dist as dist_mod
+
+                # raises ValueError, naming both counts, before anything is allocated
+                dist_mod.mesh_devices(n_mesh, self.device.type)
+            if config.solver.linear_solver != "pcg":
+                # the sharded solver is the matrix-free PCG (the JAX engine's rule)
+                if config.verbose:
+                    print("[mesh] linear_solver forced to 'pcg' for multi-chip")
+                config = config.replace(solver=dataclasses.replace(config.solver, linear_solver="pcg"))
         self.cfg = config
         self.dtype = torch.float64 if config.solver.dtype == "float64" else torch.float32
         self._npdt = np.float64 if config.solver.dtype == "float64" else np.float32
@@ -450,6 +479,13 @@ class SlamEngine:
         l0 = min(cap.initial_landmarks or cap.max_landmarks, cap.max_landmarks)
         e10 = min(cap.initial_odom_edges or cap.max_odom_edges, cap.max_odom_edges)
         e20 = min(cap.initial_landmark_edges or cap.max_landmark_edges, cap.max_landmark_edges)
+        if n_mesh > 1:
+            # the ranks split the pose rows (and a merge's edges) evenly;
+            # capacity doubling keeps the multiples
+            k0, e10, e20 = _round_up(k0, n_mesh), _round_up(e10, n_mesh), _round_up(e20, n_mesh)
+        # the JAX engine's point sessions keep plane nodes of these sizes
+        # (its checkpoints' host state names them)
+        self._plane_caps0 = (l0, e20)
         self.graph = gs.make_graph(k0, l0, e10, e20, dtype=dt, device=dev)
         self.table = assoc_mod.make_table(l0, dtype=dt, device=dev)
         # plane-landmark sessions: plane nodes sized like the landmark table
@@ -533,6 +569,17 @@ class SlamEngine:
 
         if config.add_first_lan:
             self.add_first_pose_and_landmark()
+        if n_mesh > 1 and self._mesh is None:
+            from semantic_slam_tpu_torch.parallel import dist as dist_mod
+
+            self._mesh = dist_mod.make_mesh(n_mesh, device=self.device.type)
+
+    def close(self) -> None:
+        """Stop the workers of the mesh the engine opened (a no-op on one
+        device, and for a mesh the caller passed); the engine solves on no
+        mesh after it."""
+        if self._owns_mesh and self._mesh is not None:
+            self._mesh.close()
 
     def _tensor(self, a, dtype=None) -> Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype or self.dtype)
@@ -638,6 +685,7 @@ class SlamEngine:
             pcg_precond=s.pcg_precond,
             ell_rows=self._ell_rows(planes=self.cfg.use_plane_landmarks),
             prior=self._prior_arg(),
+            mesh=self._mesh,
         )
 
     def _prior_arg(self) -> fl.MarginalPrior | None:
@@ -775,7 +823,7 @@ class SlamEngine:
     def finalize(self) -> bool:
         """Drain the queue (a partial ingest window too), then force one
         optimize pass over the current graph (for ``optimize_every_n_ticks >
-        1`` or ``ingest_window > 1`` sessions). No-op on an empty graph."""
+        1`` or ``ingest_window > 1`` sessions; a no-op on an empty graph)."""
         if self.keyframe_queue:
             self._flush_pending = True
             try:

@@ -15,7 +15,11 @@ Sessions are engine checkpoints; merging
 
 With plane landmarks (``merge_graphs_planes``) the plane nodes ride the same
 landmark unification, and the joint BA is the dense plane LM
-(``graph/planes.py``). The sharded joint BA is not ported and raises.
+(``graph/planes.py``). Given a mesh (``parallel.dist.make_mesh``) the joint
+BA runs over its ranks: the points' dense LM with the edges split
+(``parallel.sharded.sharded_lm_optimize``), the planes' on the row-range
+loop with the pose rows split (``soa_dist.sharded_lm_optimize_soa_planes``;
+the JAX package runs its edge-sharded ELL PCG there, the same optimum).
 """
 
 from __future__ import annotations
@@ -27,8 +31,6 @@ from semantic_slam_tpu_torch.assoc.association import table_to_numpy
 from semantic_slam_tpu_torch.graph import planes as gp
 from semantic_slam_tpu_torch.graph import state as gs
 from semantic_slam_tpu_torch.solver import lm as lm_mod
-
-MESH_UNPORTED = "not ported to semantic_slam_tpu_torch yet: the sharded joint BA over a mesh (P8, several GPUs)"
 
 
 def merge_graphs(graphs: list[gs.GraphState], tables: list, merge_radius: float = 1.0,
@@ -158,17 +160,41 @@ def merge_graphs_planes(graphs: list[gs.GraphState], tables: list, plane_nodes: 
     return merged, pn.replace(**fields, num_planes=count(len(uni)), num_pe=count(E3)), owner
 
 
+def _by_pose(fields: dict, k: torch.Tensor, count) -> tuple[dict, int]:
+    """Edge arrays ``fields`` (with pose column ``k``) with their first
+    ``count`` rows stably sorted by pose (the row-range layout's contract,
+    ``pcg.build_slots``; the order of a sum's terms is all that changes),
+    and the largest number of edges of one pose."""
+    n = int(count)
+    if n == 0:
+        return fields, 1
+    order = torch.cat([torch.sort(k[:n].long(), stable=True).indices, torch.arange(n, k.shape[0], device=k.device)])
+    return {f: v[order] for f, v in fields.items()}, int(torch.bincount(k[:n].long()).max())
+
+
 def joint_bundle_adjust_planes(merged: gs.GraphState, pn, mesh=None, max_iterations: int = 64):
-    """Joint BA over the merged graph and plane nodes: the dense plane LM.
-    Returns (graph, plane nodes, LMStats)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_UNPORTED)
-    return gp.lm_optimize_with_planes(merged, pn, max_iterations=max_iterations)
+    """Joint BA over the merged graph and plane nodes: the dense plane LM,
+    or over ``mesh`` the row-range loop's plane LM with the pose rows split
+    (the merged pose capacity must divide the mesh size; the edges are
+    sorted by pose and bounded per pose as the merged graph has them; the
+    returned graph and plane nodes hold them in that order). Returns
+    (graph, plane nodes, LMStats)."""
+    if mesh is None:
+        return gp.lm_optimize_with_planes(merged, pn, max_iterations=max_iterations)
+    from semantic_slam_tpu_torch.solver import soa_dist
+
+    lme, R = _by_pose({f: getattr(merged, f) for f in ("lme_k", "lme_l", "lme_meas", "lme_info")}, merged.lme_k,
+                      merged.num_lme)
+    pe, R4 = _by_pose({f: getattr(pn, f) for f in ("pe_k", "pe_p", "pe_meas", "pe_info")}, pn.pe_k, pn.num_pe)
+    return soa_dist.sharded_lm_optimize_soa_planes(merged.replace(**lme), pn.replace(**pe), mesh,
+                                                   max_iterations=max_iterations, ell_rows=(1, 1, R, R4))
 
 
 def joint_bundle_adjust(merged: gs.GraphState, mesh=None, max_iterations: int = 64):
-    """Joint BA over the merged graph: the dense Schur LM. Returns (graph,
-    LMStats)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_UNPORTED)
-    return lm_mod.lm_optimize(merged, max_iterations=max_iterations)
+    """Joint BA over the merged graph: the dense Schur LM, over ``mesh`` with
+    the edges split (``parallel.sharded``). Returns (graph, LMStats)."""
+    if mesh is None:
+        return lm_mod.lm_optimize(merged, max_iterations=max_iterations)
+    from semantic_slam_tpu_torch.parallel.sharded import shard_graph_edges, sharded_lm_optimize
+
+    return sharded_lm_optimize(shard_graph_edges(merged, mesh), mesh, max_iterations=max_iterations)

@@ -290,6 +290,7 @@ def run_lm_loop(
     init_lambda_tau: float = 1e-5,
     init_lambda: float = 0.0,
     retract_fn: Callable = retract,
+    agree: Callable = lambda t: t,
 ):
     """The damped LM iteration over node variables (edges fixed inside
     ``linearize_fn``). Each step relinearizes at the trial point, so the new
@@ -297,7 +298,9 @@ def run_lm_loop(
     one linearize; a rejected step retries the carried system with a larger
     lambda. ``init_lambda > 0`` overrides the tau*diag heuristic.
     ``retract_fn(poses, landmarks, dp, dl)`` applies a step; the plane LM
-    passes its own, with ``landmarks`` a (points, planes) pair.
+    passes its own, with ``landmarks`` a (points, planes) pair. ``agree``
+    maps the iteration's flags to the ones every rank takes (on a mesh rank
+    0's, broadcast; the identity on one device).
 
     Returns (poses, landmarks, LMStats, final linearization); the final
     linearization always matches the returned estimate.
@@ -334,7 +337,7 @@ def run_lm_loop(
         converged = accept & ((lin.chi2 - chi2_new) <= rel_tol * torch.clamp(lin.chi2, min=1e-12))
         done = converged | (lam > 1e12)
         # the one host fetch of the iteration: it decides the carry and the exit
-        accepted, stop = torch.stack([accept, done]).tolist()
+        accepted, stop = agree(torch.stack([accept, done])).tolist()
         if accepted:
             p, l, lin, nu = p_new, l_new, lin_new, 2.0
         else:

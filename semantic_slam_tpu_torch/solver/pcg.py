@@ -16,8 +16,11 @@ reduction (``solver/tridiag.py``) applies its inverse, and only the
 landmark-reduced information ``S = Hll - W^T Hpp^-1 W`` ([3L, 3L], bounded by
 the landmark table) is factored densely. Nothing dense grows with the
 trajectory. A fixed-lag prior's off-diagonal boundary coupling joins by a
-Woodbury fold (``prior_woodbury``). The sharded forms are not
-ported.
+Woodbury fold (``prior_woodbury``). Over a mesh the pose rows are split:
+``soa_dist.range_marginal_parts`` sums each rank's W columns and chain
+couplings (the JAX package's ``landmark_marginals_mf_ellk`` with
+``allreduce``/``shard``) and ``_sigma_from_chain_parts`` finishes on the
+controller.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
-"""Large-K SoA LM loop over a row range of poses (port of the single-device
-subset of ``semantic_slam_tpu.solver.soa_dist``: no mesh).
+"""Large-K SoA LM loop over a row range of poses (port of
+``semantic_slam_tpu.solver.soa_dist``: one device, or several ranks of a
+mesh, ``parallel/dist.py``).
 
-The loop is the JAX package's distributed one with identity reductions:
-poses, landmarks and the CG vectors are replicated ``[*, K]``/``[L, *]``,
-and the edge primitives cover one contiguous run of pose rows
-``[off, off + Kl)`` (on one device the whole graph, ``off = 0``). Every
-per-range step hands partial results to the host, which inserts
-``allreduce`` (the identity here; an all-reduce across devices later):
+The loop is the JAX package's distributed one: poses, landmarks and the CG
+vectors are replicated ``[*, K]``/``[L, *]``, and the edge primitives cover
+one contiguous run of pose rows ``[off, off + Kl)`` (on one device the whole
+graph, ``off = 0``; on rank r of n ranks ``off = r K / n``, the
+``sharded_lm_optimize_soa(_planes)`` entries). Every per-range step hands
+partial results to the host, which inserts ``allreduce`` (the identity on
+one device; the mesh's all-reduce across ranks):
 
   * the linearization (kernels K6 + K7, ``tiled_linearize``: one call of
     two launches, the chain as blocks of the first): the per-pose gradient
@@ -301,15 +303,18 @@ def run_lm_loop_soa_dist(
     robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0, prior=None,
     cg_tol: float = 1e-8, allreduce: Callable = _identity, off: int = 0, ops: TiledOps | None = None,
     pe: EllEdgesPlanes | None = None, planes: Tensor | None = None, plane_free: Tensor | None = None,
-    precond_kind: str = "jacobi",
+    precond_kind: str = "jacobi", agree: Callable = _identity, final_lin: bool = False,
 ):
     """The Nielsen LM over the replicated state with the edge primitives of
     rows ``[off, off + Kl)`` (``de``). ``allreduce`` takes a tensor or a
     tuple of tensors and returns the sums over all ranges (the identity on
-    one device). ``ops`` defaults to the kernels' wrappers; ``PLAIN_OPS``
-    runs the plain versions on any device. With ``pe`` (the range's plane
-    slots), ``planes`` [Pl, 4] and ``plane_free`` [Pl] the plane half joins
-    the solve (module docstring).
+    one device); ``agree`` maps a tensor of host decisions to the one every
+    range takes (on a mesh rank 0's, broadcast: the loop's flags and the
+    tridiagonal CG's stop test). ``ops`` defaults to the kernels' wrappers;
+    ``PLAIN_OPS`` runs the plain versions on any device. With ``pe`` (the
+    range's plane slots), ``planes`` [Pl, 4] and ``plane_free`` [Pl] the
+    plane half joins the solve (module docstring). ``final_lin=True`` also
+    returns a fresh linearization (``_LinG``) at the final state, last.
 
     Per LM iteration: one linearization (K6 + K7; the first iteration reuses
     the damping seed's, built at the same state), the right-hand side (K9),
@@ -455,7 +460,7 @@ def run_lm_loop_soa_dist(
         check = soa.TRIDIAG_CHECK_EVERY if precond_kind == "tridiag" else 0
         for step in range(max_cg_iters):
             active = torch.sum(r * r) > cg_tol * b2
-            if check and step % check == 0 and not bool(active):  # a host fetch
+            if check and step % check == 0 and not bool(agree(active)):  # a host fetch
                 break
             Ap = full_matvec(p_)
             alpha = torch.where(active, rz / torch.clamp(torch.sum(p_ * Ap), min=1e-30), zero)
@@ -510,7 +515,7 @@ def run_lm_loop_soa_dist(
         lam = torch.where(accept, lam_acc, lam * nu)
         converged = accept & ((chi2_cur - chi2_new) <= rel_tol * torch.clamp(chi2_cur, min=1e-12))
         done = converged | (lam > 1e12)
-        accepted, stop = torch.stack([accept, done]).tolist()  # the iteration's one host fetch
+        accepted, stop = agree(torch.stack([accept, done])).tolist()  # the iteration's one host fetch
         if accepted:
             p, l, pl, chi2_cur, nu = p_new, l_new, pl_new, chi2_new, 2.0
         else:
@@ -519,7 +524,8 @@ def run_lm_loop_soa_dist(
         if stop:
             break
     stats = LMStats(it, chi2_0, chi2_cur, lam)
-    return (p, l, pl, stats) if has_planes else (p, l, stats)
+    out = (p, l, pl, stats) if has_planes else (p, l, stats)
+    return out + (build(p, l, pl),) if final_lin else out
 
 
 def lm_optimize_soa_tiled(
@@ -614,3 +620,200 @@ def lm_optimize_soa_planes(
         eb = apply_prior_blocks_planes(eb, prior)
     block_free = torch.cat([lm_free, pn.plane_mask()])
     return g, pn, stats, landmark_marginals_mf_ellk(eb, pose_free, block_free, prior)[:L]
+
+
+# ---------------------------------------------------------------------------
+# several ranks: the pose rows split over a mesh (parallel/dist.py)
+# ---------------------------------------------------------------------------
+
+
+def _dus_rows(block: Tensor, off: int, Kg: int) -> Tensor:
+    """Embed a [Kl, ...] row block at row ``off`` of a zero [Kg, ...] array."""
+    if block.shape[0] == Kg:
+        return block
+    out = block.new_zeros((Kg,) + block.shape[1:])
+    out[off:off + block.shape[0]] = block
+    return out
+
+
+def range_marginal_parts(lg: _LinG, de: SoAEdges, off: int, pose_free: Tensor, block_free: Tensor, n_live: tuple,
+                         allreduce: Callable = _identity, pe: EllEdgesPlanes | None = None):
+    """The marginal recovery's pose-chain factor and W columns from one
+    range's linearization ``lg`` (``run_lm_loop_soa_dist(final_lin=True)``:
+    K6 + K7 on rows ``[off, off + Kl)``, reduced, with any prior folded):
+    the range's W blocks per slot and its chain couplings embed at ``off``
+    and are summed in ONE reduction (the JAX package's
+    ``landmark_marginals_mf_ellk`` with ``shard=(off, K)``).
+
+    Only the live blocks travel: ``n_live = (n_landmarks, n_planes)`` (the
+    prefixes the masks keep; ``n_planes`` with ``pe`` only). An inactive
+    block is decoupled from the rest (its rows and columns of S are
+    masked), so the live blocks' marginals are those of the live part
+    alone; the columns of the capacity's dead blocks, almost all of
+    [Kg, 6, 3B] in a session, stay home. Returns (factor, U [Kg, 6, 3b],
+    Hll [b, 3, 3], block_free [b]) over the b = n_landmarks (+ n_planes)
+    live blocks, points first, for ``pcg._sigma_from_chain_parts``."""
+    lin = lg.lin
+    dtype = lg.diag.dtype
+    Kg = pose_free.shape[0]
+    Kl, R = de.ll.shape
+    n_lm, n_pl = n_live
+    ORt = soa._m33_mul(lin.Ow, lin.Rt[:, :, None, :])
+    W_kl = torch.cat([-ORt, -chs.hat_mul(lin.v, ORt)], dim=0).permute(3, 2, 0, 1)  # [Kl, R, 6, 3]
+    L = lg.Hll.shape[0]
+    # each slot's live block id, or -1
+    ll = torch.where(de.ll < n_lm, de.ll, -1)
+    Hll, bfree = lg.Hll[:n_lm], block_free[:n_lm]
+    if pe is not None:
+        R4 = pe.pl.shape[1]
+        W_kp = lg.Wb.reshape(Kl, 6, R4, 3).permute(0, 2, 1, 3)
+        ll = torch.cat([ll, torch.where(pe.pl < n_pl, pe.pl + n_lm, -1)], dim=1)
+        W_kl = torch.cat([W_kl, W_kp.to(W_kl.dtype)], dim=1)
+        Hll = torch.cat([Hll, lg.Hpl[:n_pl].to(lg.Hll.dtype)])
+        bfree = torch.cat([bfree, block_free[L:L + n_pl]])
+    B = Hll.shape[0]
+    pf = pose_free.to(dtype)
+    pf_loc = pf[off:off + Kl]
+    pf_next = torch.cat([pf[1:], pf.new_zeros(1)])[off:off + Kl]
+    live = ll >= 0
+    ll = torch.where(live, ll, 0)
+    W_m = W_kl.to(dtype) * (pf_loc[:, None] * bfree.to(dtype)[ll] * live)[:, :, None, None]
+    kl = (torch.arange(Kl, device=pf.device)[:, None] * B + ll).reshape(-1)
+    Ukl = torch.zeros((Kl * B, 6, 3), dtype=dtype, device=pf.device)
+    Ukl.index_add_(0, kl, W_m.reshape(-1, 6, 3))
+    U_loc = Ukl.view(Kl, B, 6, 3).permute(0, 2, 1, 3).reshape(Kl, 6, 3 * B)
+    up_loc = lin.Hij.permute(2, 0, 1).to(dtype) * (pf_loc * pf_next)[:, None, None]
+    U, upper = allreduce((_dus_rows(U_loc, off, Kg), _dus_rows(up_loc, off, Kg)))
+    eye6 = torch.eye(6, dtype=dtype, device=pf.device)
+    Dm = lg.diag.permute(2, 0, 1) * pf[:, None, None] + eye6[None] * (1.0 - pf)[:, None, None]
+    return td.pcr_factor(Dm, upper), U, Hll, bfree
+
+
+def _mesh_ops(ops: TiledOps | None) -> bool:
+    """Whether a sharded solve runs the plain versions (``PLAIN_OPS``) or
+    the kernels' wrappers (None): other ops do not cross processes."""
+    if ops is not None and ops is not PLAIN_OPS:
+        raise ValueError("a sharded solve takes ops=None (the kernels' wrappers) or PLAIN_OPS")
+    return ops is PLAIN_OPS
+
+
+def _sharded_soa_body(mesh, payload: dict, *, R: int, R4: int, max_iterations: int, rel_tol: float,
+                      max_cg_iters: int, robust_kind: str, robust_delta: float, init_lambda: float,
+                      with_marginals: bool, cg_tol: float, plain: bool, precond_kind: str, n_live: tuple = (0, 0)):
+    """One rank's share of ``sharded_lm_optimize_soa(_planes)``: the loop
+    over pose rows ``[rank Kl, (rank + 1) Kl)`` with the mesh's reductions,
+    and with marginals the range's parts of their recovery (the dense tail
+    on rank 0 only, the one rank whose result is read)."""
+    from semantic_slam_tpu_torch.graph.planes import PlaneNodes
+    from semantic_slam_tpu_torch.parallel.dist import unpack
+    from semantic_slam_tpu_torch.solver.pcg import _sigma_from_chain_parts
+
+    g = unpack(GraphState, "g", payload)
+    pn = unpack(PlaneNodes, "pn", payload)
+    prior = unpack(fl.MarginalPrior, "prior", payload)
+    K, L = g.poses.shape[0], g.landmarks.shape[0]
+    Kl = K // mesh.size
+    off = mesh.rank * Kl
+    pose_free, lm_free = _free_masks(g)
+    de = build_dist_edges(_edge_args(g), K, R, L, off, Kl)
+    kw = dict(robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, prior=prior,
+              cg_tol=cg_tol, allreduce=mesh.allreduce, off=off, ops=PLAIN_OPS if plain else None,
+              precond_kind=precond_kind, agree=mesh.agree, final_lin=with_marginals)
+    if pn is None:
+        out = run_lm_loop_soa_dist(g.poses, g.landmarks, pose_free, lm_free, de, max_iterations, rel_tol,
+                                   max_cg_iters, **kw)
+        block_free, pe = lm_free, None
+    else:
+        pe = build_plane_dist(plane_args(pn), K, R4, off, Kl)
+        out = run_lm_loop_soa_dist(g.poses, g.landmarks, pose_free, lm_free, de, max_iterations, rel_tol,
+                                   max_cg_iters, pe=pe, planes=pn.planes, plane_free=pn.plane_mask(), **kw)
+        block_free = torch.cat([lm_free, pn.plane_mask()])
+    if not with_marginals:
+        return out
+    fac, U, Hll, bfree = range_marginal_parts(out[-1], de, off, pose_free, block_free, n_live, mesh.allreduce, pe)
+    if mesh.rank != 0:
+        return None
+    # the live landmarks' blocks; a dead one's marginal is the identity
+    marg = torch.eye(3, dtype=U.dtype, device=U.device).repeat(L, 1, 1)
+    marg[:n_live[0]] = _sigma_from_chain_parts(fac, U, Hll, pose_free, bfree, U.dtype, prior)[:n_live[0]]
+    return out[:-1] + (marg,)
+
+
+def _sharded_soa(g: GraphState, pn, mesh, max_iterations, min_edges, rel_tol, max_cg_iters, robust_kind,
+                 robust_delta, init_lambda, prior, with_marginals, ell_rows, cg_tol, ops, precond_kind):
+    from semantic_slam_tpu_torch.parallel.dist import pack
+
+    n, K = mesh.size, g.poses.shape[0]
+    if K % n:
+        raise ValueError(f"a sharded solve splits the {K} pose rows evenly over the {n} ranks: K % n must be 0")
+    if precond_kind not in ("jacobi", "tridiag"):
+        raise ValueError(f"precond_kind must be 'jacobi' or 'tridiag', got {precond_kind!r}")
+    kw = dict(max_iterations=max_iterations, min_edges=min_edges, rel_tol=rel_tol, max_cg_iters=max_cg_iters,
+              robust_kind=robust_kind, robust_delta=robust_delta, init_lambda=init_lambda, prior=prior,
+              with_marginals=with_marginals, ell_rows=ell_rows, cg_tol=cg_tol, ops=ops, precond_kind=precond_kind)
+    n_edges = g.num_edges() + (pn.num_pe if pn is not None else 0)
+    if min_edges > 0 and int(n_edges) < min_edges:
+        # the gate, decided on the controller (one count fetch) before any
+        # rank runs: the single-device entry returns the graph unchanged
+        # with iterations == 0 and the current chi2
+        return lm_optimize_soa_tiled(g, **kw) if pn is None else lm_optimize_soa_planes(g, pn, **kw)
+    payload = {**pack("g", g), **pack("pn", pn), **pack("prior", prior)}
+    # the live landmark (and plane) counts, one fetch: the marginals send
+    # only their blocks
+    n_live = tuple(torch.stack([g.num_landmarks] + ([pn.num_planes] if pn is not None else [g.num_landmarks]))
+                   .tolist()) if with_marginals else (0, 0)
+    out = mesh.run(
+        _sharded_soa_body, payload, R=ell_rows[2], R4=ell_rows[3] if pn is not None else 0,
+        max_iterations=max_iterations, rel_tol=rel_tol, max_cg_iters=max_cg_iters, robust_kind=robust_kind,
+        robust_delta=robust_delta, init_lambda=float(init_lambda), with_marginals=with_marginals, cg_tol=cg_tol,
+        plain=_mesh_ops(ops), precond_kind=precond_kind, n_live=n_live,
+    )
+    res_ = (g.replace(poses=out[0], landmarks=out[1]),)
+    if pn is not None:
+        res_ += (pn.replace(planes=out[2]),)
+    return res_ + out[len(res_) + 1:]
+
+
+def sharded_lm_optimize_soa(
+    g: GraphState, mesh, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
+    max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
+    prior=None, with_marginals: bool = False, ell_rows: tuple = (1, 1, 8), cg_tol: float = 1e-8,
+    ops: TiledOps | None = None, precond_kind: str = "jacobi",
+):
+    """The row-range loop over a mesh (``parallel.dist.make_mesh``): rank r
+    owns pose rows ``[r Kl, (r + 1) Kl)`` (``Kl = K / n``; ``K % n`` is a
+    ``ValueError``), state and CG vectors are replicated, and every partial
+    result is all-reduced: per CG step one [3L]-class reduction (K8's table)
+    and one [12K]-class (K9's u and vj), per linearization one of the
+    gradient, diagonal and landmark tables, with ``precond_kind="tridiag"``
+    one more of the chain couplings [6, 6, K]; and one broadcast of the LM's
+    flags per iteration (every 8 CG steps the tridiagonal CG's stop flag).
+    A fixed-lag ``prior`` is replicated and folded after each reduction.
+
+    Below ``min_edges`` edges (the count is fetched unless ``min_edges`` is
+    0) no rank runs: the graph comes back unchanged with ``iterations ==
+    0`` and the current chi2, as from ``lm_optimize_soa_tiled`` (the JAX
+    package runs the loop there and drops its result; only its
+    ``lambda_final`` and marginals differ, and no caller reads them).
+    ``with_marginals=True`` also returns the landmark
+    marginals at the loop's final state: each rank linearizes its rows
+    there (K6 + K7), the live landmarks' W columns and the chain couplings
+    are reduced once (``range_marginal_parts``), and the dense tail runs on
+    rank 0. Returns (graph, LMStats[, marginals])."""
+    return _sharded_soa(g, None, mesh, max_iterations, min_edges, rel_tol, max_cg_iters, robust_kind, robust_delta,
+                        init_lambda, prior, with_marginals, ell_rows, cg_tol, ops, precond_kind)
+
+
+def sharded_lm_optimize_soa_planes(
+    g: GraphState, pn, mesh, max_iterations: int = 64, min_edges: int = 10, rel_tol: float = 1e-6,
+    max_cg_iters: int = 128, robust_kind: str = "none", robust_delta: float = 1.0, init_lambda: float = 0.0,
+    prior=None, with_marginals: bool = False, ell_rows: tuple = (1, 1, 8, 8), cg_tol: float = 1e-8,
+    ops: TiledOps | None = None, precond_kind: str = "jacobi",
+):
+    """``sharded_lm_optimize_soa`` with plane landmarks ``pn``: each rank's
+    plane slots ride its rows, the plane tables [3Pl] are reduced with the
+    landmark tables (one collective), and the marginals run over the L + Pl
+    blocks, sliced to the points. Returns (graph, planes, LMStats[,
+    marginals])."""
+    return _sharded_soa(g, pn, mesh, max_iterations, min_edges, rel_tol, max_cg_iters, robust_kind, robust_delta,
+                        init_lambda, prior, with_marginals, ell_rows, cg_tol, ops, precond_kind)

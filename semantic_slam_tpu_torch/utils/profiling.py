@@ -90,3 +90,38 @@ def log_optimize(verbose: bool, stats, solve_seconds: float, num_nodes: int, num
         f"(after){float(stats.chi2_final):.6g}\n"
         f"time: {solve_seconds:.3f}[sec]"
     )
+
+
+# each kernel wrapper counts the calls that launch its kernel in ``.launches``
+KERNEL_WRAPPERS = (
+    ("score_hypotheses", "semantic_slam_tpu_torch.frontend.kernels"),
+    ("fused_linearize", "semantic_slam_tpu_torch.solver.kernels"),
+    ("obs_linearize", "semantic_slam_tpu_torch.solver.kernels"),
+    ("resident_chi2", "semantic_slam_tpu_torch.solver.kernels"),
+    ("resident_solve", "semantic_slam_tpu_torch.solver.kernels"),
+    ("tiled_fused_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_obs_linearize", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_mv_fwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_mv_bwd", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+    ("tiled_chi2", "semantic_slam_tpu_torch.solver.tiled_kernels"),
+)
+
+
+def kernel_launches(reset: bool = False) -> dict[str, int]:
+    """This process's kernel launch counters by wrapper (read, then set to
+    0 if ``reset``)."""
+    import importlib
+
+    out = {}
+    for name, mod in KERNEL_WRAPPERS:
+        w = getattr(importlib.import_module(mod), name)
+        out[name] = w.launches
+        if reset:
+            w.launches = 0
+    return out
+
+
+def mesh_kernel_launches(mesh, payload: dict, reset: bool = False) -> dict[str, int]:
+    """``kernel_launches`` on a rank of a mesh (``Mesh.run(...,
+    gather=True)`` collects every rank's)."""
+    return kernel_launches(reset)

@@ -991,3 +991,38 @@ def test_voxel_map_card_matches_cpu(bag_sessions, carve):
     assert (sum(int(c.misses.sum()) for c in g.chunks.values()) > 0) == carve
     assert g.total_hits() == inside > 0
     assert all(c.hits.device.type == "cuda" for c in g.chunks.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", ["nccl-1", "gloo-2-sharing-cuda0"])
+def test_sharded_lm_on_the_card_matches_one_device(cuda, ranks):
+    """``soa_dist.sharded_lm_optimize_soa`` on a mesh on the card (NCCL at
+    world size 1; two gloo ranks sharing ``cuda:0``, rows [K/2, K) at
+    off > 0) against ``lm_optimize_soa_tiled`` at fixed work, f32, K=512:
+    poses within 1e-4 of scale, the same iterations, and the workers' K6
+    launches as the iterations imply."""
+    from semantic_slam_tpu_torch.graph import synthetic as syn
+    from semantic_slam_tpu_torch.parallel import dist
+    from semantic_slam_tpu_torch.solver import soa_dist as sd
+    from semantic_slam_tpu_torch.utils.profiling import mesh_kernel_launches
+
+    K, L, E2 = 512, 128, 2048
+    g = syn.build_graph(K, L, E2, torch.float32, seed=0, noise=0.05, device=cuda)
+    kw = dict(max_iterations=4, min_edges=0, rel_tol=0.0, max_cg_iters=32, cg_tol=0.0,
+              ell_rows=syn.ell_rows_for(K, E2))
+    ref, ref_stats = sd.lm_optimize_soa_tiled(g, **kw)
+    mesh = (dist.make_mesh(1, device="cuda") if ranks == "nccl-1"
+            else dist.make_mesh(2, backend="gloo", devices=["cuda:0", "cuda:0"]))
+    try:
+        assert mesh.backend == ranks.split("-")[0]
+        mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+        got, stats = sd.sharded_lm_optimize_soa(g, mesh, **kw)
+        launches = mesh.run(mesh_kernel_launches, {}, gather=True, reset=True)
+        assert mesh.forbidden_modules() == [[]] * mesh.size
+    finally:
+        mesh.close()
+    assert stats.iterations == ref_stats.iterations == 4
+    err = float((got.poses - ref.poses).abs().max() / ref.poses.abs().max())
+    assert err <= 1e-4, err
+    assert [r["tiled_fused_linearize"] for r in launches] == [4] * mesh.size
+    assert [r["tiled_mv_bwd"] for r in launches] == [4 * 33] * mesh.size

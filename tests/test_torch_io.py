@@ -35,7 +35,6 @@ from semantic_slam_tpu_torch.io import checkpoint as tckpt
 from semantic_slam_tpu_torch.io import g2o_io as tg2o
 from semantic_slam_tpu_torch.io import replay as treplay
 from semantic_slam_tpu_torch.io import synthetic as tsynth
-from semantic_slam_tpu_torch.runtime import multisession as tms
 from semantic_slam_tpu_torch.runtime.engine import SlamEngine as TorchEngine
 from semantic_slam_tpu_torch.solver import fixed_lag as tfl
 from test_e2e import e2e_config
@@ -227,7 +226,3 @@ def test_checkpoint_casts_to_engine_dtype(port_session, jax_round_trip):
     assert te.finalize()
     assert np.isfinite(te.stats_history[-1]["chi2_final"])
 
-
-def test_sharded_merge_raises():
-    with pytest.raises(NotImplementedError, match="P8"):
-        tms.joint_bundle_adjust(None, mesh=object())

@@ -66,10 +66,27 @@ def test_no_jax_imports():
     # and the breadth modules': fitness information, the profiling copy
     assert {f"semantic_slam_tpu_torch/{m}.py" for m in ("solver/information", "utils/profiling", "core/frames",
                                                          "frontend/normals", "frontend/segmentation")} <= rel
+    # and the several-rank modules' and the last frontend modules'
+    assert {f"semantic_slam_tpu_torch/{m}.py" for m in ("parallel/dist", "parallel/sharded", "frontend/filters",
+                                                         "frontend/kmeans")} <= rel
     bad = {str(f.relative_to(REPO)): n for f in files for n in _imported_names(f) if n.split(".")[0] in FORBIDDEN}
     assert not bad, bad
     # the scan sees what it looks for
     assert {"semantic_slam_tpu", "semantic_slam_tpu.io"} <= set(_imported_names(pathlib.Path(__file__)))
+
+
+def test_mesh_workers_load_no_jax():
+    """A mesh's spawned workers (``parallel/dist.py``) hold no module of
+    JAX or of the JAX package, though this process (rank 0) holds both."""
+    from semantic_slam_tpu_torch.parallel import dist
+
+    mesh = dist.make_mesh(2, device="cpu", timeout_s=30.0)
+    try:
+        loaded = mesh.forbidden_modules()
+    finally:
+        mesh.close()
+    assert "jax" in loaded[0] and "semantic_slam_tpu" in loaded[0]
+    assert loaded[1:] == [[]]
 
 
 def test_config_copy_equal():

@@ -111,25 +111,6 @@ def test_same_trajectory(engines):
     np.testing.assert_allclose(lt["normal"] * sign, lj["normal"], atol=1e-6, rtol=0)
 
 
-def _with(section: str, **kw):
-    return lambda cfg: cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **kw)})
-
-
-# the sharded solver is the one path left (the tridiagonal preconditioner,
-# window ingest, fitness information and adaptive normals are ported: see
-# test_torch_tridiag.py, test_torch_window.py, test_torch_breadth.py and
-# test_torch_breadth_cli.py)
-UNPORTED = {
-    "mesh.num_devices": _with("mesh", num_devices=4),
-}
-
-
-@pytest.mark.parametrize("path", sorted(UNPORTED))
-def test_unported_paths_raise(path):
-    with pytest.raises(NotImplementedError, match=path):
-        TorchEngine(UNPORTED[path](e2e_config()), device="cpu")
-
-
 def test_cuda_without_gpu_fails():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")

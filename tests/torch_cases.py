@@ -53,3 +53,50 @@ def row_err(got: torch.Tensor, want: torch.Tensor, without: torch.Tensor, p_idx:
     rows = p_idx[:n].long()
     return (float(torch.linalg.norm((got[rows] - want[rows]).double())),
             float(torch.linalg.norm((without[rows] - want[rows]).double())))
+
+
+class MeshCache:
+    """One open mesh of gloo CPU ranks for a test module (a process holds
+    one mesh at a time, so a module's tests run grouped by rank count):
+    ``get(n)`` reopens it at another size, ``close()`` ends it."""
+
+    def __init__(self, timeout_s: float = 30.0):
+        self.timeout_s = timeout_s
+        self.mesh = None
+
+    def get(self, n: int):
+        from semantic_slam_tpu_torch.parallel import dist
+
+        if self.mesh is not None and not self.mesh.closed and self.mesh.size == n:
+            return self.mesh
+        self.close()
+        self.mesh = dist.make_mesh(n, device="cpu", timeout_s=self.timeout_s)
+        return self.mesh
+
+    def close(self) -> None:
+        if self.mesh is not None:
+            self.mesh.close()
+            self.mesh = None
+
+
+def port_graph(g):
+    """A JAX package ``GraphState`` as the port's (CPU tensors)."""
+    from semantic_slam_tpu_torch.graph import state as tgs
+
+    return tgs.graph_from_numpy({k: np.asarray(v) for k, v in g._asdict().items()})
+
+
+def close_to(got, want, atol: float, msg: str = "") -> None:
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64), atol=atol, rtol=0,
+                               err_msg=msg)
+
+
+def collectives(mesh, run) -> list:
+    """The (kind, element count) of each collective that ``run()`` sends on
+    ``mesh``, in order."""
+    mesh.recording, mesh.log = True, []
+    try:
+        run()
+    finally:
+        mesh.recording = False
+    return [(kind, n) for kind, n, _ in mesh.log]
