@@ -9,6 +9,7 @@ marginalized twice by 4 keyframes, its priors carried across as numpy arrays
 (``fixed_lag.prior_from_numpy`` / ``prior_to_numpy``). On the CPU the kernel
 wrappers run their plain versions, so K4 with a prior is the plain
 ``soa_schur_step``, held against the TPU kernel in Pallas interpret mode.
+The JAX package's results are stored (``REF``, ``tests/jax_golden.py``).
 
 Tolerances:
   * f64 against the JAX package: 1e-8 of each quantity's scale (summation
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _build_graph, _ell_rows_for
+import jax_golden
 from semantic_slam_tpu.solver import ellk_soa as jsoa
 from semantic_slam_tpu.solver import fixed_lag as jfl
 from semantic_slam_tpu.solver import pcg as jpcg
@@ -46,6 +48,8 @@ from torch_cases import moved_prior, one_torch_thread, row_err  # noqa: F401 (a 
 K, L, E2 = 32, 16, 128
 ROWS = _ell_rows_for(K, E2)
 FIXED = dict(max_iterations=5, rel_tol=0.0, min_edges=0)
+# the JAX package's results, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_fixed_lag", tol=1e-8)
 
 
 def close(got, want, rtol, err_msg=""):
@@ -91,9 +95,9 @@ def marg():
     """The graph, once and twice marginalized by 4 keyframes in both
     packages: (graphs, priors, boundary counts) per package."""
     jg = _build_graph(K=K, L=L, E2=E2, dtype=jnp.float64, noise=0.02, seed=7)
-    jg1, jp1, jb1 = jfl.marginalize(jg, jfl.empty_prior(L, Pl=0, dtype=jnp.float64), drop=4)
+    jg1, jp1, jb1 = REF(jfl.marginalize, jg, jfl.empty_prior(L, Pl=0, dtype=jnp.float64), drop=4)
     jp1 = _count_i32(jp1)
-    jg2, jp2, jb2 = jfl.marginalize(jg1, jp1, drop=4)
+    jg2, jp2, jb2 = REF(jfl.marginalize, jg1, jp1, drop=4)
     jp2 = _count_i32(jp2)
     tg = to_torch(jg)
     tg1, tp1, tb1 = tfl.marginalize(tg, tfl.empty_prior(L, dtype=torch.float64), 4)
@@ -147,12 +151,12 @@ def test_marginalize_matches_f64(marg):
 
 def test_prior_chi2_and_fold_terms_f64(window):
     jg, tg, jp, tp = window
-    close(tfl.prior_chi2(tp, tg.poses, tg.landmarks).numpy(), jfl.prior_chi2(jp, jg.poses, jg.landmarks), 1e-8)
+    close(tfl.prior_chi2(tp, tg.poses, tg.landmarks).numpy(), REF(jfl.prior_chi2, jp, jg.poses, jg.landmarks), 1e-8)
     got = tfl.prior_fold_terms(tp, tg.poses, tg.landmarks, torch.float64)
-    want = jfl.prior_fold_terms(jp, jg.poses, jg.landmarks, jnp.float64)
+    want = REF(jfl.prior_fold_terms, jp, jg.poses, jg.landmarks, jnp.float64)
     for name, a, b in zip(("gp_add", "gl_add", "chi2"), got, want):
         close(a.numpy(), b, 1e-8, name)
-    close(tfl.prior_pose_diag(tp).numpy(), jfl.prior_pose_diag(jp), 1e-12)
+    close(tfl.prior_pose_diag(tp).numpy(), REF(jfl.prior_pose_diag, jp, tol=1e-12), 1e-12)
     assert float(tfl.prior_chi2(tp, tg.poses, tg.landmarks)) >= 0.0
 
 
@@ -218,10 +222,10 @@ def _check_lm(tout, jout, n, m):
 def test_lm_optimize_prior_f64(prior_window):
     """The dense Schur LM with the prior folded into every linearization."""
     jg, tg, jp, tp = prior_window
-    jout = jfl.lm_optimize_prior(jg, jp, with_marginals=True, **FIXED)
+    jout = REF(jfl.lm_optimize_prior, jg, jp, with_marginals=True, **FIXED)
     tout = tfl.lm_optimize_prior(tg, tp, with_marginals=True, **FIXED)
     _check_lm(tout, jout, int(jg.num_poses), int(jg.num_landmarks))
-    close(tfl.landmark_marginals_prior(tg, tp).numpy(), jfl.landmark_marginals_prior(jg, jp), 1e-8, "marginals")
+    close(tfl.landmark_marginals_prior(tg, tp).numpy(), REF(jfl.landmark_marginals_prior, jg, jp), 1e-8, "marginals")
 
 
 def test_lm_optimize_soa_prior_f64(prior_window):
@@ -235,7 +239,7 @@ def test_lm_optimize_soa_prior_f64(prior_window):
     kw = dict(ell_rows=ROWS, max_cg_iters=32, with_marginals=True, cg_tol=0.0, **FIXED)
     n, m = int(jg.num_poses), int(jg.num_landmarks)
     resident = tsoa.lm_optimize_soa(tg, prior=tp, **kw)
-    _check_lm(resident, jsoa.lm_optimize_soa(jg, prior=jp, use_pallas=False, **kw), n, m)
+    _check_lm(resident, REF(jsoa.lm_optimize_soa, jg, prior=jp, use_pallas=False, **kw), n, m)
     tiled = tsd.lm_optimize_soa_tiled(tg, prior=tp, **kw)
     _check_lm(tiled, (resident[0], resident[1], resident[2]), n, m)
 
@@ -244,7 +248,7 @@ def test_marginals_graph_with_prior_f64(prior_window):
     """``landmark_marginals_mf_ellk(prior=)`` through the on-demand recovery:
     the Woodbury fold of the boundary coupling."""
     jg, tg, jp, tp = prior_window
-    want = jpcg.landmark_marginals_graph(jg, prior=jp, ell_rows=ROWS)
+    want = REF(jpcg.landmark_marginals_graph, jg, prior=jp, ell_rows=ROWS)
     close(tsoa.landmark_marginals_graph(tg, ROWS, tp).numpy(), want, 1e-8)
 
 
@@ -260,10 +264,11 @@ def test_plain_k4_prior_matches_pallas_interpret_f32(prior_window):
     tg, tp = to_torch(jg), prior_to_torch(jp)
     jse = jsoa.build_soa_edges(jpcg._edge_args(jg), K, ROWS[2], L)
     tse = tsoa.build_soa_edges(_edge_args(tg), K, ROWS[2], L)
-    lin_j = jpcg.apply_prior_blocks(jsoa.soa_linearize(jg.poses, jg.landmarks, jse), jp, jg.poses, jg.landmarks)
+    lin_j = REF(jpcg.apply_prior_blocks, REF(jsoa.soa_linearize, jg.poses, jg.landmarks, jse, tol=1e-4), jp, jg.poses,
+                jg.landmarks, tol=1e-4)
     lin_t = apply_prior_blocks(tsoa.soa_linearize(tg.poses, tg.landmarks, tse), tp, tg.poses, tg.landmarks)
-    dp_j, db_j = jsoa.soa_schur_step(lin_j, jse, jnp.float32(1e-3), *jfree(jg), 64, prior=jp, cg_tol=1e-6,
-                                     use_pallas=True, pallas_interpret=True)
+    dp_j, db_j = REF(jsoa.soa_schur_step, lin_j, jse, jnp.float32(1e-3), *jfree(jg), 64, prior=jp, cg_tol=1e-6,
+                     use_pallas=True, pallas_interpret=True, tol=1e-4)
     dp_t, db_t = tk.resident_solve(lin_t, tse, torch.tensor(1e-3), *tfree(tg), 64, 1e-6, tp.Hp, tp.p_idx)
     for name, got, want in (("dp", dp_t, dp_j), ("db", db_t, db_j)):
         want = np.asarray(want, np.float64)

@@ -6,7 +6,7 @@ chunk of 8 (so the graph marginalizes and compacts), Mahalanobis gating (the
 prior-aware marginals run every optimizing tick), with the dense Schur LM and
 with ``linear_solver="pcg"``: the port's resident loop, and its row-range
 loop with the crossover lowered to 0 (``soa_dist.TILED_FROM_K``), against the
-JAX engine's PCG. Keyframes, ``_kf_base``, edge counts, landmark ids and LM
+JAX engine's PCG (its sessions stored: ``REF``, ``tests/jax_golden.py``). Keyframes, ``_kf_base``, edge counts, landmark ids and LM
 iterations must be equal; the trajectory (archived and active keyframes) and
 the landmark covariances agree within 1e-6, chi2 within 1e-6 relative.
 """
@@ -16,10 +16,10 @@ import dataclasses
 import numpy as np
 import pytest
 
+import jax_golden
 from semantic_slam_tpu.config import AssociationConfig, CapacityConfig
 from semantic_slam_tpu.io import replay as jreplay
 from semantic_slam_tpu.io import synthetic as jsynth
-from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
 from semantic_slam_tpu_torch.runtime.engine import SlamEngine as TorchEngine
 from semantic_slam_tpu_torch.solver import soa_dist as tsd
 from test_e2e import e2e_config
@@ -40,18 +40,34 @@ def fixed_lag_config(solver: str):
                                                   linear_solver=solver))
 
 
+LOG = dict(seed=3, n_steps=240, sensor_every=5, drift_noise=0.008, H=96, W=128)
+SOLVERS = ("dense", "pcg")
+
+
+def jax_session(cfg, log) -> dict:
+    from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
+
+    je = JaxEngine(cfg)
+    jreplay.replay(log, je)
+    return jax_golden.engine_outputs(je)
+
+
+# the JAX package's sessions, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_fixed_lag_engine", tol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def session_log():
-    return jsynth.make_synthetic_log(seed=3, n_steps=240, sensor_every=5, drift_noise=0.008, H=96, W=128)
+    return jsynth.make_synthetic_log(**LOG)
 
 
-@pytest.fixture(scope="module", params=["dense", "pcg"])
+@pytest.fixture(scope="module", params=SOLVERS)
 def sessions(request, session_log):
-    """The JAX engine and the port's, on the CPU, f64; for pcg the port's
-    resident loop and its row-range loop (the crossover lowered to 0)."""
+    """The JAX engine's stored session and the port's, on the CPU, f64; for
+    pcg the port's resident loop and its row-range loop (the crossover
+    lowered to 0)."""
     cfg = fixed_lag_config(request.param)
-    je = JaxEngine(cfg)
-    jreplay.replay(session_log, je)
+    je = jax_golden.EngineSnapshot(REF(jax_session, cfg, session_log))
     ports = {}
     for loop, tiled_from in (("resident", tsd.TILED_FROM_K), ("row-range", 0)):
         if request.param == "dense" and loop == "row-range":

@@ -8,23 +8,24 @@ engine's autosave.
 Both packages run their own ``cli`` on the same ``.npz`` logs (120x160
 clouds) under one profile registered in both for this module:
 ``tests/test_e2e.py``'s lowered-threshold config (Euclidean gating, f64,
-K=64), which maps landmarks at this size. Sensor data pending at the split
-is not checkpointed in either package, so each resumed session is held to the
-other package's resumed session. Equal: keyframes, landmarks, edges,
-per-tick LM iterations, the keyframe dumps (byte for byte) and merge's
-counts; within 1e-9: keyframe poses, landmark positions, chi2 (relative) and
-the merged trajectory.
+K=64), which maps landmarks at this size. The JAX package's output
+directories are stored (``REF``, ``tests/jax_golden.py``); the port's run
+live. Sensor data pending at the split is not checkpointed in either
+package, so each resumed session is held to the other package's resumed
+session. Equal: keyframes, landmarks, edges, per-tick LM iterations, the
+keyframe dumps (byte for byte) and merge's counts; within 1e-9: keyframe
+poses, landmark positions, chi2 (relative) and the merged trajectory.
 """
 
 import dataclasses
 import json
 import os
+import tempfile
 
 import numpy as np
 import pytest
 
-from semantic_slam_tpu import cli as jcli
-from semantic_slam_tpu import config as jcfg
+import jax_golden
 from semantic_slam_tpu_torch import cli as tcli
 from semantic_slam_tpu_torch import config as tcfg
 from semantic_slam_tpu_torch.io import checkpoint as tckpt
@@ -50,84 +51,145 @@ def to_port(cfg):
 @pytest.fixture(scope="module")
 def profile():
     with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(jcfg.PROFILES, PROFILE, e2e_config())
         mp.setitem(tcfg.PROFILES, PROFILE, to_port(e2e_config()))
         yield
 
 
-def _split(log, out_dir, whole: bool = True):
-    """The log's two halves at the middle odometry stamp
-    (``tests/test_components.py``'s split), and with ``whole`` the log
-    itself, as .npz files."""
-    t_mid = log.odom[len(log.odom) // 2].t
+def split_log(log, frac: float = 0.5):
+    """The log's two parts at the odometry stamp ``frac`` of the way
+    through (``tests/test_components.py``'s split at the middle)."""
+    t_mid = log.odom[int(len(log.odom) * frac)].t
 
-    def half(keep):
+    def part(keep):
         return dataclasses.replace(log, **{f: [e for e in getattr(log, f) if keep(e.t)]
                                            for f in ("odom", "clouds", "depths", "detections", "gt")})
 
-    parts = {"first": half(lambda t: t < t_mid), "second": half(lambda t: t >= t_mid), **({"whole": log} if whole else {})}
+    return part(lambda t: t < t_mid), part(lambda t: t >= t_mid)
+
+
+def save_parts(out_dir, **parts):
     paths = {name: os.path.join(out_dir, f"{name}.npz") for name in parts}
     for name, part in parts.items():
         treplay.save_log(paths[name], part)
     return paths
 
 
-@pytest.fixture(scope="module")
-def short_log(tmp_path_factory):
-    """38 keyframes, 19 before the split."""
-    log = tsynth.make_synthetic_log(seed=7, n_steps=480, sensor_every=6, H=120, W=160, loops=2.0)
-    return _split(log, str(tmp_path_factory.mktemp("short")))
+# 38 keyframes, 19 before the split; about 70 keyframes, at least 32 before
+# the split, so that a window of 24 with a chunk of 8 has marginalized once
+LOGS = {"short": dict(seed=7, n_steps=480, sensor_every=6, H=120, W=160, loops=2.0),
+        "long": dict(seed=7, n_steps=880, sensor_every=6, H=120, W=160, loops=880 / 240)}
+FLAGS = {"robust dcs": ["--robust", "dcs"], "optimize-every 3": ["--optimize-every", "3"],
+         "plane-gate": ["--plane-gate"]}
+# the split sessions (the dense one with its merge) and the flagged sessions
+CASES = {"dense": {"log": "short", "flags": []}, "fixed_lag": {"log": "long", "flags": ["--fixed-lag", "24"]},
+         **{name: {"log": "short", "flags": flags} for name, flags in FLAGS.items()}}
 
 
-@pytest.fixture(scope="module")
-def long_log(tmp_path_factory):
-    """About 70 keyframes, at least 32 before the split, so that a window of
-    24 with a chunk of 8 has marginalized once before it."""
-    log = tsynth.make_synthetic_log(seed=7, n_steps=880, sensor_every=6, H=120, W=160, loops=880 / 240)
-    return _split(log, str(tmp_path_factory.mktemp("long")), whole=False)
+def make_log(name: str):
+    return tsynth.make_synthetic_log(**LOGS[name])
 
 
-def run(pkg: str, out: str, log: str, *flags: str) -> str:
-    argv = ["run", "--log", log, "--out", out, "--profile", PROFILE, "--compute-ate", *flags]
+def run(pkg: str, out: str, log: str, *flags: str, profile: str = PROFILE) -> str:
+    argv = ["run", "--log", log, "--out", out, "--profile", profile, "--compute-ate", *flags]
     if pkg == "jax":
+        from semantic_slam_tpu import cli as jcli
+
         jcli.main(argv + ["--cpu"])
     else:
         tcli.main(argv + ["--device", "cpu"])
     return out
 
 
-def split_sessions(tmp, paths, *flags):
-    """Per package: the first half with --checkpoint --save-graph
-    --dump-keyframes, then the second half resumed from that checkpoint."""
-    out = {}
-    for pkg in ("jax", "port"):
-        first = run(pkg, os.path.join(tmp, pkg, "first"), paths["first"], "--checkpoint", "--save-graph",
-                    "--dump-keyframes", *flags)
-        resumed = run(pkg, os.path.join(tmp, pkg, "resumed"), paths["second"], "--checkpoint", "--resume",
-                      os.path.join(first, "checkpoint.npz"), *flags)
-        out[pkg] = {"first": first, "resumed": resumed}
+def merge(pkg: str, out: str, ckpts, *flags: str, profile: str = PROFILE) -> str:
+    argv = ["merge", *ckpts, "--out", out, "--profile", profile, *flags]
+    if pkg == "jax":
+        from semantic_slam_tpu import cli as jcli
+
+        jcli.main(argv + ["--cpu"])
+    else:
+        tcli.main(argv + ["--device", "cpu"])
     return out
 
 
-@pytest.fixture(scope="module")
-def dense(profile, short_log, tmp_path_factory):
-    return split_sessions(str(tmp_path_factory.mktemp("dense")), short_log)
+def split_session(pkg, tmp, paths, *flags):
+    """The first part with --checkpoint --save-graph --dump-keyframes, then
+    the second part resumed from that checkpoint."""
+    first = run(pkg, os.path.join(tmp, "first"), paths["first"], "--checkpoint", "--save-graph",
+                "--dump-keyframes", *flags)
+    resumed = run(pkg, os.path.join(tmp, "resumed"), paths["second"], "--checkpoint", "--resume",
+                  os.path.join(first, "checkpoint.npz"), *flags)
+    return {"first": first, "resumed": resumed}
+
+
+def jax_cli(config, log, flags, kind: str) -> dict:
+    """The JAX CLI's output directories for ``log`` under ``config`` and
+    ``flags``: for a ``split`` session ``first/`` and ``resumed/`` (and for
+    ``merge`` also ``merge/``, the merge of their checkpoints), for a
+    ``whole`` one ``run/``."""
+    from semantic_slam_tpu import config as jcfg
+
+    with tempfile.TemporaryDirectory() as tmp, pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jcfg.PROFILES, PROFILE, config)
+        first, second = split_log(log)
+        paths = save_parts(tmp, first=first, second=second, whole=log)
+        out = os.path.join(tmp, "jax")
+        if kind == "whole":
+            run("jax", os.path.join(out, "run"), paths["whole"], *flags)
+        else:
+            s = split_session("jax", out, paths, *flags)
+            if kind == "merge":
+                merge("jax", os.path.join(out, "merge"),
+                      [os.path.join(s[k], "checkpoint.npz") for k in ("first", "resumed")])
+        # what the tests read: not the resumed checkpoints (merge/ holds their merge), VIO and ground truth
+        return jax_golden.read_dir(out, skip=(".ply", "vio_pose.txt", "gt_pose.txt", "resumed/checkpoint.npz",
+                                              "merged_graph.g2o"))
+
+
+# the JAX CLI's output directories, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_lifecycle", tol=TOL)
 
 
 @pytest.fixture(scope="module")
-def fixed_lag(profile, long_log, tmp_path_factory):
-    return split_sessions(str(tmp_path_factory.mktemp("fixed_lag")), long_log, "--fixed-lag", "24")
+def logs(tmp_path_factory):
+    """Each log's parts (and the short one whole) as .npz files, and the
+    log."""
+    out = {}
+    for name in LOGS:
+        log = make_log(name)
+        first, second = split_log(log)
+        parts = dict(first=first, second=second, **({"whole": log} if name == "short" else {}))
+        out[name] = save_parts(str(tmp_path_factory.mktemp(name)), **parts), log
+    return out
 
 
-FLAGS = {"robust dcs": ["--robust", "dcs"], "optimize-every 3": ["--optimize-every", "3"],
-         "plane-gate": ["--plane-gate"]}
+def split_sessions(case, logs, tmp):
+    """The JAX package's stored directories and the port's live ones for a
+    split ``case``."""
+    paths, log = logs[CASES[case]["log"]]
+    files = REF(jax_cli, e2e_config(), log, CASES[case]["flags"], "merge" if case == "dense" else "split")
+    jax_dir = jax_golden.write_dir(files, os.path.join(tmp, "jax"))
+    port = split_session("port", os.path.join(tmp, "port"), paths, *CASES[case]["flags"])
+    return {"jax": {k: os.path.join(jax_dir, k) for k in ("first", "resumed", "merge")}, "port": port}
+
+
+@pytest.fixture(scope="module")
+def dense(profile, logs, tmp_path_factory):
+    return split_sessions("dense", logs, str(tmp_path_factory.mktemp("dense")))
+
+
+@pytest.fixture(scope="module")
+def fixed_lag(profile, logs, tmp_path_factory):
+    return split_sessions("fixed_lag", logs, str(tmp_path_factory.mktemp("fixed_lag")))
 
 
 @pytest.fixture(scope="module", params=sorted(FLAGS))
-def flagged(request, profile, short_log, tmp_path_factory):
+def flagged(request, profile, logs, tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("flags"))
-    return {pkg: run(pkg, os.path.join(tmp, pkg), short_log["whole"], *FLAGS[request.param])
-            for pkg in ("jax", "port")}, request.param
+    paths, log = logs["short"]
+    files = REF(jax_cli, e2e_config(), log, FLAGS[request.param], "whole")
+    jax_dir = jax_golden.write_dir(files, os.path.join(tmp, "jax"))
+    port = run("port", os.path.join(tmp, "port"), paths["whole"], *FLAGS[request.param])
+    return {"jax": os.path.join(jax_dir, "run"), "port": port}, request.param
 
 
 def _read(out):
@@ -242,14 +304,10 @@ def test_flags_equal_jax(flagged):
 
 
 def test_merge_equals_jax(dense, tmp_path):
-    """``merge`` of the first half's checkpoint with the resumed session's."""
-    outs = {}
-    for pkg in ("jax", "port"):
-        ckpts = [os.path.join(dense[pkg][s], "checkpoint.npz") for s in ("first", "resumed")]
-        out = str(tmp_path / pkg)
-        argv = ["merge", *ckpts, "--out", out, "--profile", PROFILE]
-        (jcli.main(argv + ["--cpu"]) if pkg == "jax" else tcli.main(argv + ["--device", "cpu"]))
-        outs[pkg] = out
+    """``merge`` of the first half's checkpoint with the resumed session's
+    (the JAX package's stored with its sessions)."""
+    ckpts = [os.path.join(dense["port"][s], "checkpoint.npz") for s in ("first", "resumed")]
+    outs = {"jax": dense["jax"]["merge"], "port": merge("port", str(tmp_path / "port"), ckpts)}
     js, ts = (json.load(open(os.path.join(outs[p], "summary.json"))) for p in ("jax", "port"))
     assert set(ts) == set(js)
     for k in ("sessions", "poses", "landmarks", "edges", "landmarks_per_session", "lm_iterations"):
@@ -269,12 +327,12 @@ def test_merge_equals_jax(dense, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_autosave_equals_explicit_checkpoint(short_log, tmp_path):
+def test_autosave_equals_explicit_checkpoint(logs, tmp_path):
     """Autosave every 2 ticks leaves the checkpoint that an explicit save
     after the session's last even tick writes (the same engine saves both:
     the autosave at the end of the tick, the explicit one as ``run()``
     returns)."""
-    log = treplay.load_log(short_log["whole"])
+    log = treplay.load_log(logs["short"][0]["whole"])
     auto, explicit = str(tmp_path / "auto.npz"), str(tmp_path / "explicit.npz")
     e = TorchEngine(to_port(e2e_config()).replace(autosave_every_n_ticks=2, autosave_path=auto), device="cpu")
     run_tick, saved = e.run, []

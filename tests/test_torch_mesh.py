@@ -9,8 +9,9 @@ Inputs: ``tests/test_soa_dist.py``'s chain graph (``build_chain_graph``,
 observations in the engine's order), in f64, handed to both packages; a
 fixed-lag prior from ``fixed_lag.marginalize`` (drop 2) in the JAX package,
 carried across. The JAX side runs its distributed loop's XLA channel math
-(``use_tiled=False``) on ``make_mesh(4)``; the port's ranks run their
-kernels' plain versions (CPU tensors).
+(``use_tiled=False``) on ``make_mesh(4)``, its results stored (``REF``,
+``tests/jax_golden.py``); the port's ranks run their kernels' plain
+versions (CPU tensors).
 
 Tolerances, at fixed work (``rel_tol=0``, ``cg_tol=0``):
   * against the JAX sharded loop (marginals, prior, huber): poses,
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.parallel import sharded as jsh
 from semantic_slam_tpu.solver import fixed_lag as jfl
 from semantic_slam_tpu.solver import soa_dist as jsd
@@ -43,6 +45,7 @@ from torch_cases import MeshCache, close_to, collectives, one_torch_thread, port
 KW = dict(max_iterations=12, rel_tol=0.0, max_cg_iters=8, cg_tol=0.0)
 MESHES = MeshCache(timeout_s=30.0)
 mesh = MESHES.get
+REF = jax_golden.Recorded("torch_mesh", tol=1e-8)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,24 +59,25 @@ def points():
     """The chain graph, and after a 2-pose marginalization with its prior."""
     g, rows = _sort_obs_edges(build_chain_graph(np.random.default_rng(0), noise=0.05)[0])
     L = g.landmarks.shape[0]
-    g2, prior, _ = jfl.marginalize(g, jfl.empty_prior(L, dtype=g.poses.dtype), drop=2)
+    g2, prior, _ = REF(jfl.marginalize, g, jfl.empty_prior(L, dtype=g.poses.dtype), drop=2)
     g2, rows2 = _sort_obs_edges(g2)
     tprior = tfl.prior_from_numpy({k: np.asarray(v) for k, v in prior._asdict().items()})
     return {"plain": (g, port_graph(g), rows, None, None), "prior": (g2, port_graph(g2), rows2, prior, tprior)}
 
 
-def _jax(fn, *args):
-    """A JAX package call jitted, as its engine's tick program jits it (its
-    sharded entries are plain functions around ``shard_map``)."""
-    return jax.jit(fn)(*args)
+def jax_sharded_points(g, prior, kw):
+    """The JAX package's sharded point loop on its 4-device mesh, jitted as
+    its engine's tick program jits it (its sharded entries are plain
+    functions around ``shard_map``)."""
+    m4 = jsh.make_mesh(4)
+    return jax.jit(lambda g, p: jsd.sharded_lm_optimize_soa(g, m4, prior=p, use_tiled=False, **kw))(g, prior)
 
 
 def test_sharded_points_match_jax(points):
     """The point loop with the prior, huber and the marginals."""
     g, tg, rows, prior, tprior = points["prior"]
     kw = dict(KW, ell_rows=rows, robust_kind="huber", robust_delta=1.0, with_marginals=True)
-    m4 = jsh.make_mesh(4)
-    ja = _jax(lambda g, p: jsd.sharded_lm_optimize_soa(g, m4, prior=p, use_tiled=False, **kw), g, prior)
+    ja = REF(jax_sharded_points, g, prior, kw)
     ta = tsd.sharded_lm_optimize_soa(tg, mesh(4), prior=tprior, ops=tsd.PLAIN_OPS, **kw)
     assert ta[1].iterations == int(ja[1].iterations) > 0
     close_to(ta[0].poses, ja[0].poses, 1e-8, "poses")

@@ -9,7 +9,8 @@ keyframes) with Mahalanobis gating (the marginals run every optimizing
 tick), ``linear_solver="pcg"`` with 32 CG steps, capacities 32 (no growth,
 so that the JAX engine compiles one set of programs):
   * the port on 4 ranks against the JAX engine on its 4-device mesh with
-    ``SLAM_SOLVER_IMPL=soa_dist`` (its row-range loop): equal keyframes,
+    ``SLAM_SOLVER_IMPL=soa_dist`` (its row-range loop; stored: ``REF``,
+    ``tests/jax_golden.py``): equal keyframes,
     landmarks and edges, poses and covariances within 1e-6, and the
     ``host_state.json`` of ``io.checkpoint.save_checkpoint_dist`` equal to
     the JAX package's ``_engine_host_meta`` (its orbax route's host state;
@@ -21,16 +22,14 @@ Each mesh's timeout (30 s) bounds every wait on its ranks.
 import dataclasses
 import json
 
-import jax
 import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.config import AssociationConfig, CapacityConfig, MeshConfig
-from semantic_slam_tpu.io import checkpoint as jckpt
 from semantic_slam_tpu.io import replay as jreplay
 from semantic_slam_tpu.io import synthetic as jsynth
-from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
 from semantic_slam_tpu_torch.assoc.association import TABLE_FIELDS
 from semantic_slam_tpu_torch.graph import state as tgs
 from semantic_slam_tpu_torch.io import checkpoint as tckpt
@@ -59,9 +58,12 @@ def mesh_config(n: int, planes: bool = False, fixed_lag: int = 0, caps=None):
                                                   fixed_lag_window=fixed_lag, fixed_lag_chunk=8 if fixed_lag else 0))
 
 
+LOG = dict(seed=3, n_steps=240, sensor_every=5, drift_noise=0.008, H=96, W=128)
+
+
 @pytest.fixture(scope="module")
 def session_log():
-    return jsynth.make_synthetic_log(seed=3, n_steps=240, sensor_every=5, drift_noise=0.008, H=96, W=128)
+    return jsynth.make_synthetic_log(**LOG)
 
 
 def port_session(cfg, log, n: int):
@@ -70,17 +72,33 @@ def port_session(cfg, log, n: int):
     return te
 
 
+def jax_session(cfg, log, impl) -> dict:
+    """The JAX engine on its 4-device mesh with the loop ``impl`` forced
+    (``SLAM_SOLVER_IMPL``), and its ``_engine_host_meta``."""
+    import jax
+
+    from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SLAM_SOLVER_IMPL", impl)
+        jax.clear_caches()
+        je = JaxEngine(cfg)
+        jreplay.replay(log, je)
+        out = jax_golden.engine_outputs(je, host_meta=True)
+    jax.clear_caches()
+    return out
+
+
+# the JAX package's session, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_mesh_engine", tol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def sessions(session_log):
-    """The JAX engine on its 4-device mesh (the row-range loop forced) and
-    the port on 4 ranks."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SLAM_SOLVER_IMPL", "soa_dist")
-        jax.clear_caches()
-        je = JaxEngine(mesh_config(4))
-        jreplay.replay(session_log, je)
-    jax.clear_caches()
-    return je, port_session(mesh_config(4), session_log, 4)
+    """The JAX engine's stored session on its 4-device mesh and the port on
+    4 ranks."""
+    cfg = mesh_config(4)
+    return jax_golden.EngineSnapshot(REF(jax_session, cfg, session_log, "soa_dist")), port_session(cfg, session_log, 4)
 
 
 def _same_map(te, ref, tol):
@@ -126,7 +144,7 @@ def test_host_state_matches_jax_orbax_route(sessions, tmp_path):
     tckpt.save_checkpoint_dist(str(tmp_path / "ck"), te)
     with open(tmp_path / "ck" / "host_state.json") as f:
         got = json.load(f)
-    _assert_meta_equal(got, json.loads(json.dumps(jckpt._engine_host_meta(je))))
+    _assert_meta_equal(got, je.host_meta)
 
 
 def test_dist_checkpoint_round_trip_and_resume(sessions, tmp_path):

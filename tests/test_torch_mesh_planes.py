@@ -7,8 +7,9 @@ Inputs: ``tests/test_soa_dist.py``'s plane graph (the chain graph, two
 planes seen from every pose), in f64, handed to both packages; a fixed-lag
 prior with a plane part from ``fixed_lag.marginalize_planes`` (drop 2) in
 the JAX package, carried across. The JAX side runs its distributed loop's
-XLA channel math (``use_tiled=False``) on ``make_mesh(4)``; the port's ranks
-run their kernels' plain versions (CPU tensors).
+XLA channel math (``use_tiled=False``) on ``make_mesh(4)``, its results
+stored (``REF``, ``tests/jax_golden.py``); the port's ranks run their
+kernels' plain versions (CPU tensors).
 
 Tolerances, at fixed work (``rel_tol=0``, ``cg_tol=0``):
   * against the JAX sharded loop (marginals, prior, dcs): poses, planes and
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.graph import planes as jgp
 from semantic_slam_tpu.parallel import sharded as jsh
 from semantic_slam_tpu.solver import fixed_lag as jfl
@@ -41,6 +43,7 @@ from torch_cases import MeshCache, close_to, collectives, one_torch_thread, port
 KW = dict(max_iterations=12, rel_tol=0.0, max_cg_iters=8, cg_tol=0.0)
 MESHES = MeshCache(timeout_s=30.0)
 mesh = MESHES.get
+REF = jax_golden.Recorded("torch_mesh_planes", tol=1e-8)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -68,7 +71,7 @@ def planes():
             pn = jgp.add_se3_plane_edge(pn, k, pid, z, info3)
     g, rows = _sort_obs_edges(g)
     L, Pl = g.landmarks.shape[0], pn.planes.shape[0]
-    g2, pn2, prior, _ = jfl.marginalize_planes(g, pn, jfl.empty_prior(L, Pl=Pl, dtype=jnp.float64), drop=2)
+    g2, pn2, prior, _ = REF(jfl.marginalize_planes, g, pn, jfl.empty_prior(L, Pl=Pl, dtype=jnp.float64), drop=2)
     g2, rows2 = _sort_obs_edges(g2)
 
     def port_pn(p):
@@ -79,19 +82,20 @@ def planes():
             "prior": (g2, pn2, port_graph(g2), port_pn(pn2), rows2 + (4,), prior, tprior)}
 
 
-def _jax(fn, *args):
-    """A JAX package call jitted, as its engine's tick program jits it (its
-    sharded entries are plain functions around ``shard_map``)."""
-    return jax.jit(fn)(*args)
+def jax_sharded_planes(g, pn, prior, kw):
+    """The JAX package's sharded plane loop on its 4-device mesh, jitted as
+    its engine's tick program jits it (its sharded entries are plain
+    functions around ``shard_map``)."""
+    m4 = jsh.make_mesh(4)
+    return jax.jit(lambda g, pn, p: jsd.sharded_lm_optimize_soa_planes(g, pn, m4, prior=p, use_tiled=False, **kw))(
+        g, pn, prior)
 
 
 def test_sharded_planes_match_jax(planes):
     """The plane loop with the prior, dcs and the marginals."""
     g, pn, tg, tpn, rows, prior, tprior = planes["prior"]
     kw = dict(KW, ell_rows=rows, robust_kind="dcs", robust_delta=1.0, with_marginals=True)
-    m4 = jsh.make_mesh(4)
-    ja = _jax(lambda g, pn, p: jsd.sharded_lm_optimize_soa_planes(g, pn, m4, prior=p, use_tiled=False, **kw), g, pn,
-              prior)
+    ja = REF(jax_sharded_planes, g, pn, prior, kw)
     ta = tsd.sharded_lm_optimize_soa_planes(tg, tpn, mesh(4), prior=tprior, ops=tsd.PLAIN_OPS, **kw)
     assert ta[2].iterations == int(ja[2].iterations) > 0
     close_to(ta[0].poses, ja[0].poses, 1e-8, "poses")

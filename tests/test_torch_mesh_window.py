@@ -11,7 +11,8 @@ padding row masked; ``--precond tridiag`` at fixed work on 2 ranks against
 ``pcg.sharded_lm_optimize_pcg(precond_kind="tridiag")``, 1e-6; the merge's
 joint BA on 4 ranks against the JAX package's (``tests/test_multisession.py``):
 points 1e-8 with the same iterations, planes 1e-6 (the JAX package solves
-them with its edge-sharded ELL PCG). Each mesh's timeout (30 s) bounds every
+them with its edge-sharded ELL PCG). The JAX package's results are stored
+(``REF``, ``tests/jax_golden.py``). Each mesh's timeout (30 s) bounds every
 wait on its ranks.
 """
 
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.parallel import sharded as jsh
 from semantic_slam_tpu.runtime import multisession as jms
 from semantic_slam_tpu.solver import pcg as jpcg
@@ -36,6 +38,7 @@ from torch_cases import MeshCache, close_to, one_torch_thread, port_graph  # noq
 KW = dict(max_iterations=12, rel_tol=0.0, max_cg_iters=16, cg_tol=0.0)
 MESHES = MeshCache(timeout_s=30.0)
 mesh = MESHES.get
+REF = jax_golden.Recorded("torch_mesh_window", tol=1e-8)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -44,12 +47,39 @@ def _close_mesh():
     MESHES.close()
 
 
+def jax_tridiag(g, kw):
+    m2 = jsh.make_mesh(2)
+    return jax.jit(lambda g: jpcg.sharded_lm_optimize_pcg(g, m2, precond_kind="tridiag", **kw))(g)
+
+
+def jax_window_step(B, n, valid):
+    """The JAX package's sharded window step on ``make_window_inputs``'
+    run of ``B`` rows (``valid`` of them), on ``n`` devices."""
+    from semantic_slam_tpu.parallel.window_inputs import make_window_inputs as jinputs
+
+    jgraph, jtable, jargs, jstat = jinputs(B, n, jnp.float64)
+    return jsh.sharded_window_step(jgraph, jtable, jargs[0], jnp.asarray(valid), *jargs[2:], jsh.make_mesh(n),
+                                   **jstat)
+
+
+def jax_dense_sharded(g):
+    """The JAX package's edge-sharded dense LM on 2 devices."""
+    return jsh.sharded_lm_optimize(jsh.shard_graph_edges(g, jsh.make_mesh(2)), jsh.make_mesh(2))
+
+
+def jax_joint_ba(merged, mp, pn):
+    """The JAX package's joint BA of merged sessions on 4 devices: points,
+    then planes."""
+    m4 = jsh.make_mesh(4)
+    jg, js = jms.joint_bundle_adjust(merged, mesh=m4)
+    return jg, js, *jax.jit(lambda g, p: jms.joint_bundle_adjust_planes(g, p, mesh=m4, max_iterations=20))(mp, pn)
+
+
 def test_tridiag_matches_jax():
     g, rows = _sort_obs_edges(build_chain_graph(np.random.default_rng(0), noise=0.05)[0])
     tg = port_graph(g)
     kw = dict(KW, ell_rows=rows)
-    m2 = jsh.make_mesh(2)
-    ja = jax.jit(lambda g: jpcg.sharded_lm_optimize_pcg(g, m2, precond_kind="tridiag", **kw))(g)
+    ja = REF(jax_tridiag, g, kw, tol=1e-6)
     ta = tsd.sharded_lm_optimize_soa(tg, mesh(2), precond_kind="tridiag", ops=tsd.PLAIN_OPS, **kw)
     assert ta[1].iterations == int(ja[1].iterations)
     close_to(ta[0].poses, ja[0].poses, 1e-6, "poses")
@@ -64,7 +94,7 @@ def test_sharded_window_step_matches_jax():
     from semantic_slam_tpu_torch.parallel.window_inputs import make_window_inputs as tinputs
 
     B, n = 4, 2
-    jgraph, jtable, jargs, jstat = jinputs(B, n, jnp.float64)
+    jstat = jinputs(B, n, jnp.float64)[3]
     solve = {k: jstat[k] for k in ("max_iterations", "min_edges", "rel_tol", "max_cg_iters")}
     tgraph, ttable, targs, tstat = tinputs(B, torch.float64, device="cpu")
     for k in ("cam_intr", "depth_scale"):
@@ -72,8 +102,7 @@ def test_sharded_window_step_matches_jax():
     tstat.pop("depth_input")
     m = mesh(n)
     for valid in ([True] * B, [True, True, True, False]):
-        jg, jt, js = jsh.sharded_window_step(jgraph, jtable, jargs[0], jnp.asarray(valid), *jargs[2:],
-                                             jsh.make_mesh(n), **jstat)
+        jg, jt, js = REF(jax_window_step, B, n, valid, tol=1e-6)
         odoms = targs.pop("odoms")
         tg, tt, ts = tsh.sharded_window_step(tgraph, ttable, odoms, torch.tensor(valid), **targs, mesh=m, **tstat,
                                              **solve)
@@ -93,7 +122,7 @@ def test_dense_sharded_matches_jax(n):
     """``tests/test_sharded.py``'s graph: the edge-sharded dense LM on n
     ranks against the JAX package's on 2 devices, and the min-edges gate."""
     g = build_chain_graph(np.random.default_rng(0), noise=0.05)[0]
-    jg, js = jsh.sharded_lm_optimize(jsh.shard_graph_edges(g, jsh.make_mesh(2)), jsh.make_mesh(2))
+    jg, js = REF(jax_dense_sharded, g)
     m = mesh(n)
     tg, ts = tsh.sharded_lm_optimize(tsh.shard_graph_edges(port_graph(g), m), m)
     assert ts.iterations == int(js.iterations)
@@ -131,9 +160,7 @@ def test_joint_bundle_adjust_on_a_mesh_matches_jax():
     and planes (the row-range loop), against the JAX package's on 4
     devices (``tests/test_multisession.py``'s sessions)."""
     merged, mp, pn = _merge_inputs()
-    m4 = jsh.make_mesh(4)
-    jg, js = jms.joint_bundle_adjust(merged, mesh=m4)
-    jgp_, jpn, jps = jax.jit(lambda g, p: jms.joint_bundle_adjust_planes(g, p, mesh=m4, max_iterations=20))(mp, pn)
+    jg, js, jgp_, jpn, jps = REF(jax_joint_ba, merged, mp, pn, tol=1e-6)
 
     m = mesh(4)
     tg, ts = tms.joint_bundle_adjust(port_graph(merged), mesh=m)

@@ -8,7 +8,8 @@ residual: the hemisphere sign flip and the tangent reference picked by
 (``TestDistPlanes.plane_graph``: the chain graph of
 ``tests/test_solver.build_chain_graph``, 6 poses, with 2 world planes seen
 from every pose, k-major), its state carried across by ``graph_from_numpy``
-and ``plane_nodes_from_numpy``. The JAX references run once per module.
+and ``plane_nodes_from_numpy``. The solvers' JAX references are stored
+(``REF``, ``tests/jax_golden.py``); the geometry's run live.
 
 Tolerances:
   * geometry: 1e-12 for values, 1e-9 for Jacobians (the port's edge
@@ -32,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.frontend import hull as jhull
 from semantic_slam_tpu.graph import planes as jgp
 from semantic_slam_tpu.graph import residuals as jres
@@ -60,6 +62,8 @@ j_linearize_with_planes = jax.jit(jgp.linearize_with_planes, static_argnames=("r
                                                                              "assembly"))
 j_ell_linearize_planes = jax.jit(jpcg.ell_linearize_planes, static_argnames=("robust_kind", "robust_delta"))
 j_apply_prior_planes = jax.jit(jfl.apply_prior_planes)
+# the JAX package's results, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_planes", tol=1e-9)
 
 
 def close(got, want, rtol, err_msg=""):
@@ -201,7 +205,7 @@ def marg(plane_graph):
     re-sorted for the ELL layout."""
     g, pn, _ = plane_graph
     L, Pl = g.landmarks.shape[0], pn.planes.shape[0]
-    jg2, jpn2, jprior, jnb = jfl.marginalize_planes(g, pn, jfl.empty_prior(L, Pl=Pl, dtype=jnp.float64), drop=2)
+    jg2, jpn2, jprior, jnb = REF(jfl.marginalize_planes, g, pn, jfl.empty_prior(L, Pl=Pl, dtype=jnp.float64), drop=2)
     tg, tpn = _port(g, pn)
     tg2, tpn2, tprior, tnb = tfl.marginalize_planes(tg, tpn, tfl.empty_prior(L, Pl=Pl, dtype=torch.float64), 2)
     jg2s, rows3 = _sort_obs_edges(jg2)
@@ -231,11 +235,11 @@ def test_plane_nodes_numpy_round_trip_and_growth(plane_graph):
 def test_linearize_and_chi2_with_planes(plane_graph, kind):
     g, pn, _ = plane_graph
     tg, tpn = _port(g, pn)
-    jl = j_linearize_with_planes(g, pn, robust_kind=kind, assembly="scatter")
+    jl = REF(j_linearize_with_planes, g, pn, robust_kind=kind, assembly="scatter")
     tl = tgp.linearize_with_planes(tg, tpn, robust_kind=kind)
     for name, a, b in zip(tlm.Linearization._fields, tl, jl):
         close(a.numpy(), b, 1e-9, name)
-    close(tgp.chi2_with_planes(tg, tpn, kind).numpy(), jgp.chi2_with_planes(g, pn, kind), 1e-9)
+    close(tgp.chi2_with_planes(tg, tpn, kind).numpy(), REF(jgp.chi2_with_planes, g, pn, kind), 1e-9)
     close(tl.chi2.numpy(), tgp.chi2_with_planes(tg, tpn, kind).numpy(), 1e-12)
 
 
@@ -245,13 +249,13 @@ def dense_lm(request, plane_graph, marg):
         jg, jpn, jprior, _ = marg["jax"]
         tg, tpn, tprior, _ = marg["port"]
         kw = {}
-        jout = jgp.lm_optimize_with_planes(jg, jpn, prior=jprior)
+        jout = REF(jgp.lm_optimize_with_planes, jg, jpn, prior=jprior)
         tout = tgp.lm_optimize_with_planes(tg, tpn, prior=tprior)
     else:
         g, pn, _ = plane_graph
         tg, tpn = _port(g, pn)
         kw = dict(robust_kind=request.param)
-        jout = jgp.lm_optimize_with_planes(g, pn, **kw)
+        jout = REF(jgp.lm_optimize_with_planes, g, pn, **kw)
         tout = tgp.lm_optimize_with_planes(tg, tpn, **kw)
     return jout, tout
 
@@ -275,7 +279,7 @@ def test_lm_with_planes_below_min_edges(plane_graph):
     n = int(tg.num_edges() + tpn.num_pe)
     g2, pn2, st = tgp.lm_optimize_with_planes(tg, tpn, min_edges=n + 1)
     assert st.iterations == 0 and g2 is tg and pn2 is tpn
-    close(st.chi2_final.numpy(), jgp.chi2_with_planes(g, pn), 1e-12)
+    close(st.chi2_final.numpy(), REF(jgp.chi2_with_planes, g, pn), 1e-12)
     assert tgp.lm_optimize_with_planes(tg, tpn, min_edges=n, max_iterations=1)[2].iterations == 1
 
 
@@ -320,9 +324,9 @@ def test_prior_plane_terms(marg, plane_graph):
     tpl = tpba.plane_retract(tpn.planes, t64(delta))
     jpl = jnp.asarray(tpl.numpy())
     close(tfl.prior_chi2_planes(tp, tg.poses, tg.landmarks, tpl).numpy(),
-          jfl.prior_chi2_planes(jp, jg.poses, jg.landmarks, jpl), 1e-9)
-    jl = j_apply_prior_planes(j_linearize_with_planes(jg, jpn._replace(planes=jpl), assembly="scatter"), jp,
-                              jg.poses, jg.landmarks, jpl)
+          REF(jfl.prior_chi2_planes, jp, jg.poses, jg.landmarks, jpl), 1e-9)
+    jl = REF(j_apply_prior_planes, REF(j_linearize_with_planes, jg, jpn._replace(planes=jpl), assembly="scatter"),
+             jp, jg.poses, jg.landmarks, jpl)
     tl = tfl.apply_prior_planes(tgp.linearize_with_planes(tg, tpn.replace(planes=tpl)), tp, tg.poses, tg.landmarks,
                                 tpl)
     for name, a, b in zip(tlm.Linearization._fields, tl, jl):
@@ -346,8 +350,8 @@ def test_ell_linearize_planes(plane_graph):
     tg, tpn = _port(g, pn)
     K, L = g.poses.shape[0], g.landmarks.shape[0]
     jargs = (pn.pe_k, pn.pe_p, pn.pe_meas, pn.pe_info, pn.pe_mask())
-    jeep = jpcg.build_ell_edges_planes(jpcg._edge_args(g), jargs, K, rows[2], rows[3])
-    jeb = j_ell_linearize_planes(g.poses, g.landmarks, pn.planes, jeep, robust_kind="huber")
+    jeep = REF(jpcg.build_ell_edges_planes, jpcg._edge_args(g), jargs, K, rows[2], rows[3])
+    jeb = REF(j_ell_linearize_planes, g.poses, g.landmarks, pn.planes, jeep, robust_kind="huber")
     teep = tpcg.build_ell_edges_planes(tsd.plane_args(tpn), K, rows[3])
     for name, a in zip(("pl", "pmeas", "pinfo"), teep):
         close(a.numpy(), getattr(jeep, name), 0.0, name)
@@ -368,7 +372,7 @@ def test_lm_optimize_soa_planes_matches_xla(marg):
     jg, rows = marg["sorted"]
     jpn, jprior = marg["jax"][1], marg["jax"][2]
     tg, tpn = _port(jg, jpn)
-    jout = jsd.lm_optimize_soa_planes(jg, jpn, use_tiled=False, ell_rows=rows, prior=jprior, **kw)
+    jout = REF(jsd.lm_optimize_soa_planes, jg, jpn, use_tiled=False, ell_rows=rows, prior=jprior, tol=1e-8, **kw)
     tout = tsd.lm_optimize_soa_planes(tg, tpn, ell_rows=rows, prior=_prior_to_port(jprior), **kw)
     (jg, jpn, js), (tg, tpn, ts) = jout[:3], tout[:3]
     assert ts.iterations == int(js.iterations) == KWP["max_iterations"]
@@ -439,8 +443,8 @@ def test_lm_optimize_soa_planes_matches_pcg_planes(case, plane_graph, marg):
     tg, tpn = _port(jg, jpn)
     tprior = None if jprior is None else _prior_to_port(jprior)
     wm = case == "marginals"
-    ja = jpcg.lm_optimize_pcg_planes(jg, jpn, max_iterations=12, rel_tol=0.0, max_cg_iters=32, prior=jprior,
-                                     with_marginals=wm)
+    ja = REF(jpcg.lm_optimize_pcg_planes, jg, jpn, max_iterations=12, rel_tol=0.0, max_cg_iters=32, prior=jprior,
+             with_marginals=wm, tol=1e-6)
     tb = tsd.lm_optimize_soa_planes(tg, tpn, ell_rows=rows, prior=tprior, with_marginals=wm, **KWP)
     close(tb[0].poses.numpy(), ja[0].poses, 1e-6, "poses")
     close(tb[1].planes.numpy(), ja[1].planes, 1e-6, "planes")

@@ -13,8 +13,9 @@ lowered-threshold config registered as a profile in both (as
     each split after its first marginalization and resumed from the first
     part's checkpoint.
 
-The JAX engine runs with ``SLAM_SOLVER_IMPL=soa`` for this module, so that
-its pcg plane ticks take ``soa_dist.lm_optimize_soa_planes``, the route its
+The JAX package's output directories are stored (``REF``,
+``tests/jax_golden.py``); the port's run live. The JAX engine ran them with
+``SLAM_SOLVER_IMPL=soa``, so that its pcg plane ticks take ``soa_dist.lm_optimize_soa_planes``, the route its
 engine takes on the TPU and the port's at every K (off the TPU it would take
 ``pcg.lm_optimize_pcg_planes``, another algorithm), as
 ``tests/test_soa_dist.py``'s ``TestEnginePlanesDispatch`` runs it.
@@ -31,29 +32,24 @@ merge.
 import dataclasses
 import json
 import os
+import tempfile
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from semantic_slam_tpu import cli as jcli
-from semantic_slam_tpu import config as jcfg
-from semantic_slam_tpu.io import checkpoint as jckpt
-from semantic_slam_tpu.io import g2o_io as jg2o
-from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
-from semantic_slam_tpu_torch import cli as tcli
+import jax_golden
 from semantic_slam_tpu_torch import config as tcfg
 from semantic_slam_tpu_torch.graph import planes as tgp
 from semantic_slam_tpu_torch.graph import state as tgs
 from semantic_slam_tpu_torch.io import checkpoint as tckpt
 from semantic_slam_tpu_torch.io import g2o_io as tg2o
-from semantic_slam_tpu_torch.io import replay as treplay
 from semantic_slam_tpu_torch.io import synthetic as tsynth
 from semantic_slam_tpu_torch.io.tum import read_tum
 from semantic_slam_tpu_torch.runtime.engine import SlamEngine as TorchEngine
 from test_e2e import e2e_config
-from test_torch_lifecycle import PROFILE, to_port
+from test_torch_lifecycle import PROFILE, merge, save_parts, split_log, to_port
+from test_torch_lifecycle import run as run_cli
 from torch_cases import one_torch_thread  # noqa: F401 (a module fixture)
 
 TOL = {"dense": 1e-9, "pcg": 1e-8}
@@ -68,82 +64,115 @@ def pcg_config():
     return cfg.replace(solver=dataclasses.replace(cfg.solver, pcg_iters=32))
 
 
+PROFILES = {PROFILE: e2e_config, PCG_PROFILE: pcg_config}
+
+
 @pytest.fixture(scope="module")
 def profile():
     with pytest.MonkeyPatch.context() as mp:
-        for name, cfg in ((PROFILE, e2e_config()), (PCG_PROFILE, pcg_config())):
-            mp.setitem(jcfg.PROFILES, name, cfg)
-            mp.setitem(tcfg.PROFILES, name, to_port(cfg))
+        for name, cfg in PROFILES.items():
+            mp.setitem(tcfg.PROFILES, name, to_port(cfg()))
         yield
 
 
-@pytest.fixture(scope="module", autouse=True)
-def jax_soa_route():
-    """The JAX engine's pcg plane ticks on ``lm_optimize_soa_planes`` for
-    this module; programs traced under it are dropped before and after."""
-    with pytest.MonkeyPatch.context() as mp:
+# one loop of the scene (``short``), and two loops split at 92% of their
+# odometry stamps (35 keyframes of 38: after a window of 24 with a chunk of
+# 8 has marginalized once)
+LOGS = {"short": dict(seed=7, n_steps=240, sensor_every=6, H=120, W=160, loops=1.0),
+        "long": dict(seed=7, n_steps=480, sensor_every=6, H=120, W=160, loops=2.0)}
+SPLIT_AT = 0.92
+
+
+def save_logs(out_dir, short=None, long=None):
+    """The logs as .npz files: ``short`` whole, the long one's two parts."""
+    parts = dict(zip(("first", "second"), split_log(long, SPLIT_AT))) if long is not None else {}
+    return save_parts(out_dir, **({"short": short} if short is not None else {}), **parts)
+
+
+def run(pkg: str, out: str, log: str, *flags: str) -> str:
+    return run_cli(pkg, out, log, "--plane-landmarks", "--checkpoint", *flags,
+                   profile=PCG_PROFILE if "pcg" in flags else PROFILE)
+
+
+SESSIONS = {"dense": [], "pcg": ["--solver", "pcg"]}
+SPLITS = {"dense": ["--fixed-lag", "24", "--max-keyframes", "8"], "pcg": ["--fixed-lag", "24", "--solver", "pcg"]}
+
+
+def whole_flags(kind):
+    return SESSIONS[kind] + (["--save-graph"] if kind == "dense" else [])
+
+
+def split_run(pkg, tmp, paths, kind):
+    first = run(pkg, os.path.join(tmp, "first"), paths["first"], *SPLITS[kind])
+    resumed = run(pkg, os.path.join(tmp, "resumed"), paths["second"], "--resume",
+                  os.path.join(first, "checkpoint.npz"), *SPLITS[kind])
+    return {"first": first, "resumed": resumed}
+
+
+def merge_planes(pkg, out, sessions):
+    """``merge --plane-landmarks`` of a split's first part with its resumed
+    part (one session's two checkpoints, as ``tests/test_torch_lifecycle.py``
+    merges)."""
+    return merge(pkg, out, [os.path.join(sessions[s], "checkpoint.npz") for s in ("first", "resumed")],
+                 "--plane-landmarks")
+
+
+def jax_cli(configs: dict, log, part: str, kind: str) -> dict:
+    """The JAX CLI's output directories under the profiles ``configs``: for
+    ``whole`` a ``kind`` session on ``log`` (the short one), for ``split``
+    its ``first/`` and ``resumed/`` parts and ``merge/`` their merge. The JAX
+    engine runs with ``SLAM_SOLVER_IMPL=soa``, so that its pcg plane ticks
+    take ``soa_dist.lm_optimize_soa_planes``."""
+    import jax
+
+    from semantic_slam_tpu import config as jcfg
+
+    with tempfile.TemporaryDirectory() as tmp, pytest.MonkeyPatch.context() as mp:
+        for name, cfg in configs.items():
+            mp.setitem(jcfg.PROFILES, name, cfg)
         mp.setenv("SLAM_SOLVER_IMPL", "soa")
         jax.clear_caches()
-        yield
-    jax.clear_caches()
+        out = os.path.join(tmp, "jax")
+        if part == "whole":
+            run("jax", out, save_logs(tmp, short=log)["short"], *whole_flags(kind))
+        else:
+            merge_planes("jax", os.path.join(out, "merge"), split_run("jax", out, save_logs(tmp, long=log), kind))
+        return jax_golden.read_dir(out, skip=(".ply", "vio_pose.txt", "gt_pose.txt", "keyframes.ply"))
 
 
-def _split_at(log, frac: float):
-    t = log.odom[int(len(log.odom) * frac)].t
+# the JAX CLI's output directories, stored (tests/jax_golden.py); the calls'
+# context: the module's flags and split
+REF = jax_golden.Recorded("torch_planes_engine", tol=min(TOL.values()))
+CONTEXT = {"sessions": SESSIONS, "splits": SPLITS, "split_at": SPLIT_AT}
 
-    def part(keep):
-        return dataclasses.replace(log, **{f: [e for e in getattr(log, f) if keep(e.t)]
-                                           for f in ("odom", "clouds", "depths", "detections", "gt")})
 
-    return part(lambda s: s < t), part(lambda s: s >= t)
+def jax_dir(part: str, kind: str, log, tmp: str) -> str:
+    configs = {name: cfg() for name, cfg in PROFILES.items()}
+    return jax_golden.write_dir(REF(jax_cli, configs, log, part, kind, context=CONTEXT), os.path.join(tmp, "jax"))
 
 
 @pytest.fixture(scope="module")
 def logs(tmp_path_factory):
-    """One loop of the scene (``short``), two loops, and their parts split at
-    92% of its odometry stamps (35 keyframes of 38: after a window of 24
-    with a chunk of 8 has marginalized once)."""
-    d = tmp_path_factory.mktemp("plane_logs")
-    log = tsynth.make_synthetic_log(seed=7, n_steps=480, sensor_every=6, H=120, W=160, loops=2.0)
-    short = tsynth.make_synthetic_log(seed=7, n_steps=240, sensor_every=6, H=120, W=160, loops=1.0)
-    paths = {}
-    for name, part in (("short", short), ("whole", log), *zip(("first", "second"), _split_at(log, 0.92))):
-        paths[name] = str(d / f"{name}.npz")
-        treplay.save_log(paths[name], part)
-    return paths
-
-
-def run(pkg: str, out: str, log: str, *flags: str) -> str:
-    prof = PCG_PROFILE if "pcg" in flags else PROFILE
-    argv = ["run", "--log", log, "--out", out, "--profile", prof, "--compute-ate", "--plane-landmarks",
-            "--checkpoint", *flags]
-    jcli.main(argv + ["--cpu"]) if pkg == "jax" else tcli.main(argv + ["--device", "cpu"])
-    return out
-
-
-SESSIONS = {"dense": [], "pcg": ["--solver", "pcg"]}
+    """The logs' files, and the logs."""
+    logs = {k: tsynth.make_synthetic_log(**v) for k, v in LOGS.items()}
+    return save_logs(str(tmp_path_factory.mktemp("plane_logs")), **logs), logs
 
 
 @pytest.fixture(scope="module", params=sorted(SESSIONS))
 def whole(request, profile, logs, tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp(f"whole_{request.param}"))
-    flags = SESSIONS[request.param] + (["--save-graph"] if request.param == "dense" else [])
-    return request.param, {pkg: run(pkg, os.path.join(tmp, pkg), logs["short"], *flags) for pkg in ("jax", "port")}
-
-
-SPLITS = {"dense": ["--fixed-lag", "24", "--max-keyframes", "8"], "pcg": ["--fixed-lag", "24", "--solver", "pcg"]}
+    kind, (paths, data) = request.param, logs
+    tmp = str(tmp_path_factory.mktemp(f"whole_{kind}"))
+    return kind, {"jax": jax_dir("whole", kind, data["short"], tmp),
+                  "port": run("port", os.path.join(tmp, "port"), paths["short"], *whole_flags(kind))}
 
 
 @pytest.fixture(scope="module", params=sorted(SPLITS))
 def split(request, profile, logs, tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp(f"split_{request.param}"))
-    out = {}
-    for pkg in ("jax", "port"):
-        first = run(pkg, os.path.join(tmp, pkg, "first"), logs["first"], *SPLITS[request.param])
-        resumed = run(pkg, os.path.join(tmp, pkg, "resumed"), logs["second"], "--resume",
-                      os.path.join(first, "checkpoint.npz"), *SPLITS[request.param])
-        out[pkg] = {"first": first, "resumed": resumed}
-    return request.param, out
+    kind, (paths, data) = request.param, logs
+    tmp = str(tmp_path_factory.mktemp(f"split_{kind}"))
+    jdir = jax_dir("split", kind, data["long"], tmp)
+    return kind, {"jax": {k: os.path.join(jdir, k) for k in ("first", "resumed", "merge")},
+                  "port": split_run("port", os.path.join(tmp, "port"), paths, kind)}
 
 
 def _read(out):
@@ -207,6 +236,9 @@ def _cfg(fixed_lag: int = 0):
 
 
 def _jax_engine(path: str, fixed_lag: int = 0):
+    from semantic_slam_tpu.io import checkpoint as jckpt
+    from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
+
     cfg = e2e_config().replace(use_plane_landmarks=True)
     if fixed_lag:
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, fixed_lag_window=fixed_lag))
@@ -268,6 +300,8 @@ def test_plane_g2o_equals_jax(whole, tmp_path):
     byte (the JAX session's state, loaded into both packages), and
     ``load_g2o(with_planes=True)`` gives the JAX loader's arrays; the port's
     own --save-graph reads back as its graph."""
+    from semantic_slam_tpu.io import g2o_io as jg2o
+
     kind, outs = whole
     ck = os.path.join(outs["jax"], "checkpoint.npz")
     je, te = _jax_engine(ck), _port_engine(ck)
@@ -294,16 +328,10 @@ def test_plane_g2o_equals_jax(whole, tmp_path):
 
 def test_plane_merge_equals_jax(split, tmp_path):
     """``merge --plane-landmarks`` of the split's first part with its
-    resumed part (one session's two checkpoints, as
-    ``tests/test_torch_lifecycle.py`` merges), in both packages."""
+    resumed part, in both packages (the JAX package's stored with its
+    split)."""
     kind, outs = split
-    res = {}
-    for pkg in ("jax", "port"):
-        ckpts = [os.path.join(outs[pkg][s], "checkpoint.npz") for s in ("first", "resumed")]
-        out = str(tmp_path / pkg)
-        argv = ["merge", *ckpts, "--out", out, "--profile", PROFILE, "--plane-landmarks"]
-        jcli.main(argv + ["--cpu"]) if pkg == "jax" else tcli.main(argv + ["--device", "cpu"])
-        res[pkg] = out
+    res = {"jax": outs["jax"]["merge"], "port": merge_planes("port", str(tmp_path / "port"), outs["port"])}
     js, ts = (json.load(open(os.path.join(res[p], "summary.json"))) for p in ("jax", "port"))
     for k in ("sessions", "poses", "landmarks", "edges", "landmarks_per_session", "lm_iterations"):
         assert ts[k] == js[k], k

@@ -14,8 +14,10 @@ The Mahalanobis session runs twice: with the dense Schur LM and with
 ``linear_solver="pcg"``, where the port runs its SoA Schur-PCG solver (the
 plain versions of kernels K1-K4 on the CPU) and the JAX engine on the CPU
 its ELL PCG solver (``pcg.lm_optimize_pcg``): the same math up to summation
-order. Each session ends with ``finalize()``. Counts, landmark ids and per-tick LM
-iterations must be equal; keyframe poses agree to 1e-6.
+order. Each session ends with ``finalize()``. The JAX engine's sessions are
+stored (``REF``, ``tests/jax_golden.py``); the port's run live. Counts,
+landmark ids and per-tick LM iterations must be equal; keyframe poses agree
+to 1e-6.
 """
 
 import dataclasses
@@ -28,10 +30,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.config import AssociationConfig, CapacityConfig
 from semantic_slam_tpu.io import replay as replay_mod
 from semantic_slam_tpu.io import synthetic as synth_mod
-from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
 from semantic_slam_tpu_torch.runtime.engine import SlamEngine as TorchEngine
 from test_e2e import e2e_config
 
@@ -54,21 +56,38 @@ def maha_grow_pcg_config():
 
 
 CONFIGS = {"e2e-euclid-depth": e2e_config, "maha-grow": maha_grow_config, "maha-grow-pcg": maha_grow_pcg_config}
+LOG = dict(seed=3, n_steps=120, sensor_every=5, drift_noise=0.008, H=120, W=160)
+
+
+def session(name: str, engine, params=LOG):
+    """``engine`` after the session ``name`` (on the log of ``params``) and
+    its ``finalize()``."""
+    log = synth_mod.make_synthetic_log(**params)
+    if name.endswith("depth"):
+        log = synth_mod.clouds_to_depth(log)
+        assert log.depths and not log.clouds
+    replay_mod.replay(log, engine, run_ticks=not name.endswith("depth"))
+    assert engine.finalize()  # one forced optimize over the final graph
+    return engine
+
+
+def jax_session(name: str, cfg, params) -> dict:
+    from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
+
+    return jax_golden.engine_outputs(session(name, JaxEngine(cfg), params))
+
+
+# the JAX package's sessions, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_slice", tol=1e-6)
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def engines(request):
-    log = synth_mod.make_synthetic_log(seed=3, n_steps=120, sensor_every=5, drift_noise=0.008, H=120, W=160)
-    if request.param.endswith("depth"):
-        log = synth_mod.clouds_to_depth(log)
-        assert log.depths and not log.clouds
+    """The JAX engine's stored session and the port's live one."""
     cfg = CONFIGS[request.param]()
     assert cfg.solver.dtype == "float64"
-    jax_eng, torch_eng = JaxEngine(cfg), TorchEngine(cfg, device="cpu")
-    for eng in (jax_eng, torch_eng):
-        replay_mod.replay(log, eng, run_ticks=not request.param.endswith("depth"))
-        assert eng.finalize()  # one forced optimize over the final graph
-    return request.param, jax_eng, torch_eng
+    je = jax_golden.EngineSnapshot(REF(jax_session, request.param, cfg, LOG))
+    return request.param, je, session(request.param, TorchEngine(cfg, device="cpu"))
 
 
 def test_same_map(engines):

@@ -5,7 +5,8 @@ Inputs are seeded numpy graphs handed to both packages: the chain graph of
 engine's order (``tests/test_pcg._sort_obs_edges``), and
 ``__graft_entry__._build_graph``. On the CPU the port's kernel wrappers run
 their plain versions, so these tests hold the plain versions (and the loop
-around them) to the JAX functions.
+around them) to the JAX functions, whose results are stored (``REF``,
+``tests/jax_golden.py``) where they cost a compile.
 
 Tolerances:
   * f64 against JAX's XLA path: 1e-12 for the chain and PCR math, 1e-10
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _build_graph, _ell_rows_for
+import jax_golden
 from semantic_slam_tpu.solver import chain_soa as jchs
 from semantic_slam_tpu.solver import ellk_soa as jsoa
 from semantic_slam_tpu.solver import pcg as jpcg
@@ -44,6 +46,9 @@ from tests.test_solver import build_chain_graph
 
 ROBUST = ["none", "huber", "dcs"]
 
+
+# the JAX package's results, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_soa", tol=1e-10)
 
 def close(got, want, rtol, err_msg=""):
     """|got - want| <= rtol * max|want| (scale-relative)."""
@@ -195,7 +200,7 @@ def test_build_slots_and_ell_edges_exact(f64):
     for idx, mask, r in ((g.lme_k, g.lme_mask(), R), (g.odom_i, g.odom_mask(), 1)):
         got = tpcg.build_slots(torch.as_tensor(np.asarray(idx)), torch.as_tensor(np.asarray(mask)), K, r)
         np.testing.assert_array_equal(got.numpy(), np.asarray(jbuild_slots(idx, mask, K, r)))
-    want = jpcg.build_ell_edges(jpcg._edge_args(g), K, R)
+    want = REF(jpcg.build_ell_edges, jpcg._edge_args(g), K, R, tol=0.0)
     got = tpcg.build_ell_edges(tpcg._edge_args(tg), K, R)
     for name in want._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
@@ -248,23 +253,32 @@ def _lin_fields(lin_t, lin_j):
 @pytest.mark.parametrize("robust", ROBUST)
 def test_linearize_and_chi2_match_xla_f64(f64, robust):
     g, tg, _, jse, tse = f64
-    lin_j = jsoa.soa_linearize(g.poses, g.landmarks, jse, robust_kind=robust, robust_delta=1.0)
+    lin_j = REF(jsoa.soa_linearize, g.poses, g.landmarks, jse, robust_kind=robust, robust_delta=1.0)
     lin_t = tk.resident_linearize(tg.poses, tg.landmarks, tse, robust, 1.0)
     for name, got, want in _lin_fields(lin_t, lin_j):
         close(got.numpy(), want, 1e-10, name)
     chi_t = tk.resident_chi2(tg.poses, tg.landmarks, tse, robust, 1.0)
-    close(chi_t.numpy(), jsoa.soa_chi2(g.poses, g.landmarks, jse, robust_kind=robust, robust_delta=1.0), 1e-10)
+    close(chi_t.numpy(), REF(jsoa.soa_chi2, g.poses, g.landmarks, jse, robust_kind=robust, robust_delta=1.0), 1e-10)
     close(chi_t.numpy(), lin_t.chi2.numpy(), 1e-12)
+
+
+def test_stored_reference_matches_live(f64):
+    """A stored Schur step recomputed by the JAX package (on its stored
+    linearization): the stored file is still what the package computes, in
+    this run."""
+    g, _, _, jse, _ = f64
+    lin_j = REF(jsoa.soa_linearize, g.poses, g.landmarks, jse)
+    REF.check_live(jsoa.soa_schur_step, lin_j, jse, jnp.float64(1e-3), *jfree(g), 64, cg_tol=0.0)
 
 
 @pytest.mark.parametrize("cg_tol", [0.0, 1e-6], ids=["fixed-work", "early-exit"])
 def test_schur_step_matches_xla_f64(f64, cg_tol):
     """The port's fixed-count masked CG equals JAX's early-exit while loop."""
     g, tg, _, jse, tse = f64
-    lin_j = jsoa.soa_linearize(g.poses, g.landmarks, jse)
+    lin_j = REF(jsoa.soa_linearize, g.poses, g.landmarks, jse)
     lin_t = tsoa.soa_linearize(tg.poses, tg.landmarks, tse)
     for lam in (1e-3, 10.0):
-        dp_j, db_j = jsoa.soa_schur_step(lin_j, jse, jnp.float64(lam), *jfree(g), 64, cg_tol=cg_tol)
+        dp_j, db_j = REF(jsoa.soa_schur_step, lin_j, jse, jnp.float64(lam), *jfree(g), 64, cg_tol=cg_tol)
         dp_t, db_t = tk.resident_solve(lin_t, tse, torch.tensor(lam, dtype=torch.float64), *tfree(tg), 64, cg_tol)
         close(dp_t.numpy(), dp_j, 1e-10, "dp")
         close(db_t.numpy(), db_j, 1e-10, "db")
@@ -278,18 +292,19 @@ def test_plain_matches_pallas_interpret_f32(f32, kernel):
     g, tg, _, jse, tse = f32
     kw = dict(use_pallas=True, pallas_interpret=True)
     if kernel == "linearize":
-        lin_j = jsoa.soa_linearize(g.poses, g.landmarks, jse, robust_kind="huber", robust_delta=1.0, **kw)
+        lin_j = REF(jsoa.soa_linearize, g.poses, g.landmarks, jse, robust_kind="huber", robust_delta=1.0, tol=1e-5,
+                    **kw)
         lin_t = tk.resident_linearize(tg.poses, tg.landmarks, tse, "huber", 1.0)
         for name, got, want in _lin_fields(lin_t, lin_j):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5, err_msg=name)
     elif kernel == "chi2":
-        want = jsoa.soa_chi2(g.poses, g.landmarks, jse, robust_kind="huber", robust_delta=1.0, **kw)
+        want = REF(jsoa.soa_chi2, g.poses, g.landmarks, jse, robust_kind="huber", robust_delta=1.0, tol=1e-5, **kw)
         got = tk.resident_chi2(tg.poses, tg.landmarks, tse, "huber", 1.0)
         np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     else:
-        lin_j = jsoa.soa_linearize(g.poses, g.landmarks, jse)
+        lin_j = REF(jsoa.soa_linearize, g.poses, g.landmarks, jse, tol=1e-6)
         lin_t = tsoa.soa_linearize(tg.poses, tg.landmarks, tse)
-        dp_j, db_j = jsoa.soa_schur_step(lin_j, jse, jnp.float32(1e-3), *jfree(g), 64, cg_tol=1e-6, **kw)
+        dp_j, db_j = REF(jsoa.soa_schur_step, lin_j, jse, jnp.float32(1e-3), *jfree(g), 64, cg_tol=1e-6, tol=1e-6, **kw)
         dp_t, db_t = tk.resident_solve(lin_t, tse, torch.tensor(1e-3), *tfree(tg), 64, 1e-6)
         np.testing.assert_allclose(dp_t.numpy(), np.asarray(dp_j), rtol=1e-4, atol=1e-6)
         np.testing.assert_allclose(db_t.numpy(), np.asarray(db_j), rtol=1e-4, atol=1e-6)
@@ -307,7 +322,7 @@ def test_lm_optimize_soa_fixed_work_f64():
     jg = _build_graph(K, L, E2, jnp.float64, seed=0, noise=0.05)
     tg = to_torch(jg)
     kw = dict(max_iterations=6, rel_tol=0.0, ell_rows=_ell_rows_for(K, E2), max_cg_iters=32, with_marginals=True)
-    jg2, js, jm = jsoa.lm_optimize_soa(jg, use_pallas=False, **kw)
+    jg2, js, jm = REF(jsoa.lm_optimize_soa, jg, use_pallas=False, **kw)
     tg2, ts, tm = tsoa.lm_optimize_soa(tg, **kw)
     assert ts.iterations == int(js.iterations) == 6
     n, m = int(jg.num_poses), int(jg.num_landmarks)
@@ -323,7 +338,7 @@ def test_marginals_graph_matches_f64(f64):
     """The on-demand matrix-free recovery (Euclidean-gating export) equals
     the JAX package's ``pcg.landmark_marginals_graph``."""
     g, tg, rows, _, _ = f64
-    close(tsoa.landmark_marginals_graph(tg, rows).numpy(), jpcg.landmark_marginals_graph(g), 1e-10)
+    close(tsoa.landmark_marginals_graph(tg, rows).numpy(), REF(jpcg.landmark_marginals_graph, g), 1e-10)
 
 
 def test_skip_below_min_edges(f64):

@@ -12,7 +12,9 @@ channel math (``use_tiled=False``), and the tiled Pallas kernels in interpret
 mode with 4-row blocks (``use_tiled=True, interpret=True``). The XLA branch's
 per-range pieces are closures inside ``soa_dist.run_lm_loop_soa_dist``; the
 ``xla_*`` helpers below restate them with the JAX package's own channel
-functions. On the CPU the port's kernel wrappers run their plain versions.
+functions. The JAX side's results are stored (``REF``,
+``tests/jax_golden.py``). On the CPU the port's kernel wrappers run their
+plain versions.
 
 Tolerances:
   * f64 against the XLA branch: 1e-8 of each output's scale (summation order
@@ -32,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.solver import chain_soa as jchs
 from semantic_slam_tpu.solver import ellk_soa as jsoa
 from semantic_slam_tpu.solver import pallas_tiled as jpt
@@ -52,6 +55,7 @@ from torch_cases import one_torch_thread  # noqa: F401 (a module fixture)
 ROBUST = ["none", "huber", "dcs"]
 RANGES = {"whole": lambda K: (0, K), "upper-half": lambda K: (K // 2, K // 2)}
 KW = dict(max_iterations=12, rel_tol=0.0, max_cg_iters=16, cg_tol=0.0)
+REF = jax_golden.Recorded("torch_tiled", tol=1e-8)
 
 
 def close(got, want, rtol, err_msg=""):
@@ -113,17 +117,23 @@ def force_small_blocks():
     jpt._FORCE_BLOCK = old
 
 
-class Range:
-    """One row range of a graph, laid out for both packages."""
+def jax_range(g, rows, off, Kl, use_tiled):
+    """One row range of a graph as the JAX package lays it out: its dist
+    edges and its pose channels (t, q, tj, qj)."""
+    K, L, R = g.poses.shape[0], g.landmarks.shape[0], rows[2]
+    ee = jpcg.build_ell_edges(jpcg._edge_args(g), K, R)
+    jde = jsd.build_dist_edges(jax.tree.map(lambda a: a[off:off + Kl], ee), L, use_tiled)
+    t, q = jnp.transpose(g.poses[:, :3]), jnp.transpose(g.poses[:, 3:7])
+    tj, qj = jchs.roll_up_pose_ch(t), jchs.roll_up_pose_ch(q)
+    return jde, [a[:, off:off + Kl] for a in (t, q, tj, qj)]
 
-    def __init__(self, g, tg, rows, off, Kl, use_tiled):
+
+class Range:
+    """One row range of a graph, laid out for the port."""
+
+    def __init__(self, g, tg, rows, off, Kl):
         K, L, R = g.poses.shape[0], g.landmarks.shape[0], rows[2]
         self.off, self.Kl, self.L, self.R = off, Kl, L, R
-        ee = jpcg.build_ell_edges(jpcg._edge_args(g), K, R)
-        self.jde = jsd.build_dist_edges(jax.tree.map(lambda a: a[off:off + Kl], ee), L, use_tiled)
-        t, q = jnp.transpose(g.poses[:, :3]), jnp.transpose(g.poses[:, 3:7])
-        tj, qj = jchs.roll_up_pose_ch(t), jchs.roll_up_pose_ch(q)
-        self.jpose = [a[:, off:off + Kl] for a in (t, q, tj, qj)]
         self.de = tsd.build_dist_edges(_edge_args(tg), K, R, L, off, Kl)
         pc = tg.poses.T
         self.pc, self.pj = pc[:, off:off + Kl], tchs.roll_up_pose_ch(pc)[:, off:off + Kl]
@@ -141,8 +151,8 @@ class Range:
 # ---------------------------------------------------------------------------
 
 
-def xla_lin(rg, landmarks, kind):
-    de, (t, q, tj, qj), L, R, Kl = rg.jde, rg.jpose, rg.L, rg.R, rg.Kl
+def xla_lin(de, pose, landmarks, kind):
+    (t, q, tj, qj), L, (R, _, Kl) = pose, landmarks.shape[0], de.meas_t.shape
     Hii, Hij, Hjj, gi, gj, chi_k = jchs.chain_linearize_ch(t, q, tj, qj, de.omt, de.omq, de.oO)
     meas = jnp.transpose(de.meas_t, (1, 0, 2))
     info = jnp.transpose(de.info_t.reshape(R, 3, 3, Kl), (1, 2, 0, 3))
@@ -167,8 +177,8 @@ def xla_lin(rg, landmarks, kind):
                 gl=gl, Hll=Hll.reshape(L, 3, 3), chi2=jnp.sum(chi_k) + chi_l, chain_gi=gi, chain_chi2=jnp.sum(chi_k))
 
 
-def xla_mv(rg, lin, x, xj, z, Oa_in):
-    de, L, R, Kl = rg.jde, rg.L, rg.R, rg.Kl
+def xla_mv(de, lin, x, xj, z, Oa_in):
+    L, (R, _, Kl) = z.shape[0], de.meas_t.shape
     v, Ow, Rt = lin["v"], lin["Ow"], lin["Rt"][:, :, None, :]
     a = -x[:3, None, :] + jsoa._cross(v, jnp.broadcast_to(x[3:, None, :], v.shape))
     Oa = jsoa._m33_vec(Ow, a)
@@ -179,6 +189,40 @@ def xla_mv(rg, lin, x, xj, z, Oa_in):
     u = u + jsoa._m66_vec(lin["Hii"], x) + jsoa._m66_vec(lin["Hij"], xj)
     vj = jsoa._m66T_vec(lin["Hij"], x) + jsoa._m66_vec(lin["Hjj"], xj)
     return dict(Oa=Oa, T=T, u=u, vj=vj)
+
+
+def xla_range(g, rows, off, Kl, kind, x, xj, z, Oa_in):
+    """The XLA branch on one row range: the linearization (with the chain's
+    own gi and chi2) and the matvec halves on the inputs."""
+    de, pose = jax_range(g, rows, off, Kl, use_tiled=False)
+    lin = xla_lin(de, pose, g.landmarks, kind)
+    return lin, xla_mv(de, lin, *map(jnp.asarray, (x, xj, z, Oa_in)))
+
+
+def pallas_range(g, rows, off, Kl, x, xj, z):
+    """The tiled Pallas kernels in interpret mode on one row range (Huber),
+    laid out as the port's outputs: the linearization, the matvec halves on
+    the inputs and chi2. The landmark digit grids are converted with the JAX
+    package's helpers."""
+    de, pose = jax_range(g, rows, off, Kl, use_tiled=True)
+    L, R = g.landmarks.shape[0], rows[2]
+    lo_w, hi = digit_split(L)
+
+    def tab(grid, D):
+        return jsd._grids_to_tab(grid, lo_w, hi, D, L)
+
+    lmT = jsd._tab_to_grids(g.landmarks, lo_w, hi, 3, L)
+    args = (lmT, de.meas_t, de.info_t, de.lodig, de.hidig, de.omt, de.omq, de.oO, lo_w)
+    (v, Ow, Rt, Hii, Hij, Hjj, gp, gj, diag, _, glT, HllT, chi) = jpt.tiled_linearize(
+        *pose, *args, robust_kind="huber", interpret=True)
+    lin = dict(v=jnp.transpose(v, (1, 0, 2)), Ow=jnp.transpose(Ow.reshape(R, 3, 3, Kl), (1, 2, 0, 3)),
+               Rt=Rt.reshape(3, 3, Kl), Hii=Hii, Hij=Hij, Hjj=Hjj, gp=gp, gj=gj, diag=diag.reshape(6, 6, Kl),
+               gl=tab(glT, 3), Hll=tab(HllT, 9).reshape(L, 3, 3), chi2=chi)
+    Oa, T = jpt.tiled_mv_fwd(v, Ow, de.lodig, de.hidig, Rt, jnp.asarray(x), lo_w, hi, interpret=True)
+    u, vj = jpt.tiled_mv_bwd(v, Ow, de.lodig, de.hidig, Rt, Oa, jsd._tab_to_grids(jnp.asarray(z), lo_w, hi, 3, L),
+                             jnp.asarray(x), jnp.asarray(xj), Hii, Hij, Hjj, lo_w, hi, interpret=True)
+    mv = dict(Oa=jnp.transpose(Oa, (1, 0, 2)), T=tab(T, 3), u=u, vj=vj)
+    return lin, mv, jpt.tiled_chi2(*pose, *args, robust_kind="huber", interpret=True)
 
 
 def port_lin(rg, landmarks, kind):
@@ -206,13 +250,13 @@ def test_plain_matches_xla_f64(moved64, robust, where):
     (the matvec halves, on shared seeded inputs) and K10 (the objective)
     against the XLA branch."""
     g, tg, rows = moved64
-    rg = Range(g, tg, rows, *RANGES[where](g.poses.shape[0]), use_tiled=False)
-    want_lin = xla_lin(rg, g.landmarks, robust)
+    off, Kl = RANGES[where](g.poses.shape[0])
+    rg = Range(g, tg, rows, off, Kl)
+    x, xj, z, Oa = rg.inputs(1, np.float64)
+    want_lin, want = REF(xla_range, g, rows, off, Kl, robust, x, xj, z, Oa)
     got, lin = port_lin(rg, tg.landmarks, robust)
     for name, w in want_lin.items():
         close(got[name].numpy(), w, 1e-8, name)
-    x, xj, z, Oa = rg.inputs(1, np.float64)
-    want = xla_mv(rg, want_lin, *map(jnp.asarray, (x, xj, z, Oa)))
     got = port_mv(rg, lin, *map(torch.as_tensor, (x, xj, z, Oa)))
     for name, w in want.items():
         close(got[name].numpy(), w, 1e-8, name)
@@ -223,39 +267,20 @@ def test_plain_matches_xla_f64(moved64, robust, where):
 def test_plain_matches_pallas_interpret_f32(moved32, force_small_blocks):
     """Each plain version in f32 against the TPU kernel it replaces, run in
     Pallas interpret mode on the upper half of the rows (Huber: both rho and
-    the IRLS weight). The JAX landmark digit grids are converted with the JAX
-    package's helpers. (Interpret mode costs ~25 s of JAX compiles per row
+    the IRLS weight). (Interpret mode costs ~25 s of JAX compiles per row
     range on the CPU, so the whole range is left to the LM test below.)"""
     g, tg, rows = moved32
-    rg = Range(g, tg, rows, *RANGES["upper-half"](g.poses.shape[0]), use_tiled=True)
-    de, L, R, Kl = rg.jde, rg.L, rg.R, rg.Kl
-    lo_w, hi = digit_split(L)
-
-    def tab(grid, D):
-        return jsd._grids_to_tab(grid, lo_w, hi, D, L)
-
-    lmT = jsd._tab_to_grids(g.landmarks, lo_w, hi, 3, L)
-    args = (lmT, de.meas_t, de.info_t, de.lodig, de.hidig, de.omt, de.omq, de.oO, lo_w)
-    (v, Ow, Rt, Hii, Hij, Hjj, gp, gj, diag, _, glT, HllT, chi) = jpt.tiled_linearize(
-        *rg.jpose, *args, robust_kind="huber", interpret=True)
-    want = dict(v=jnp.transpose(v, (1, 0, 2)), Ow=jnp.transpose(Ow.reshape(R, 3, 3, Kl), (1, 2, 0, 3)),
-                Rt=Rt.reshape(3, 3, Kl), Hii=Hii, Hij=Hij, Hjj=Hjj, gp=gp, gj=gj, diag=diag.reshape(6, 6, Kl),
-                gl=tab(glT, 3), Hll=tab(HllT, 9).reshape(L, 3, 3), chi2=chi)
+    off, Kl = RANGES["upper-half"](g.poses.shape[0])
+    rg = Range(g, tg, rows, off, Kl)
+    x, xj, z, _ = rg.inputs(2, np.float32)
+    want, mv, chi = REF(pallas_range, g, rows, off, Kl, x, xj, z, context={"block": jpt._FORCE_BLOCK}, tol=1e-4)
     got, lin = port_lin(rg, tg.landmarks, "huber")
     for name, w in want.items():
         close(got[name].numpy(), w, 1e-4, name)
-
-    x, xj, z, _ = rg.inputs(2, np.float32)
-    Oa, T = jpt.tiled_mv_fwd(v, Ow, de.lodig, de.hidig, Rt, jnp.asarray(x), lo_w, hi, interpret=True)
-    u, vj = jpt.tiled_mv_bwd(v, Ow, de.lodig, de.hidig, Rt, Oa, jsd._tab_to_grids(jnp.asarray(z), lo_w, hi, 3, L),
-                             jnp.asarray(x), jnp.asarray(xj), Hii, Hij, Hjj, lo_w, hi, interpret=True)
-    Oa_t = torch.as_tensor(np.array(jnp.transpose(Oa, (1, 0, 2))))
-    got = port_mv(rg, lin, torch.as_tensor(x), torch.as_tensor(xj), torch.as_tensor(z), Oa_t)
-    for name, w in (("Oa", Oa_t.numpy()), ("T", tab(T, 3)), ("u", u), ("vj", vj)):
-        close(got[name].numpy(), w, 1e-4, name)
-
-    want = jpt.tiled_chi2(*rg.jpose, *args, robust_kind="huber", interpret=True)
-    close(ttk.tiled_chi2(rg.pc, rg.pj, tg.landmarks, rg.de, "huber", 1.0).numpy(), want, 1e-4, "chi2")
+    got = port_mv(rg, lin, torch.as_tensor(x), torch.as_tensor(xj), torch.as_tensor(z), torch.as_tensor(mv["Oa"]))
+    for name in ("Oa", "T", "u", "vj"):
+        close(got[name].numpy(), mv[name], 1e-4, name)
+    close(ttk.tiled_chi2(rg.pc, rg.pj, tg.landmarks, rg.de, "huber", 1.0).numpy(), chi, 1e-4, "chi2")
 
 
 def test_two_halves_equal_whole(moved64):
@@ -265,8 +290,7 @@ def test_two_halves_equal_whole(moved64):
     the sum, equal the whole range's result (K6+K7, then K8 -> K9)."""
     g, tg, rows = moved64
     K, L = g.poses.shape[0], g.landmarks.shape[0]
-    whole, lo, up = (Range(g, tg, rows, off, Kl, use_tiled=False) for off, Kl in ((0, K), (0, K // 2),
-                                                                                   (K // 2, K // 2)))
+    whole, lo, up = (Range(g, tg, rows, off, Kl) for off, Kl in ((0, K), (0, K // 2), (K // 2, K // 2)))
     parts = [ttk.tiled_linearize(r.pc, r.pj, tg.landmarks, r.de, "dcs", 1.0) for r in (whole, lo, up)]
     lw, la, lb = parts
 
@@ -319,7 +343,7 @@ def test_dist_edges_range_csr(f64):
 def test_lm_optimize_soa_tiled_fixed_work_f64(f64):
     """Fixed work, with the marginals: the JAX loop on XLA channel math."""
     g, tg, rows = f64
-    jg, js, jm = jsd.lm_optimize_soa_tiled(g, ell_rows=rows, use_tiled=False, with_marginals=True, **KW)
+    jg, js, jm = REF(jsd.lm_optimize_soa_tiled, g, ell_rows=rows, use_tiled=False, with_marginals=True, **KW)
     tg2, ts, tm = tsd.lm_optimize_soa_tiled(tg, ell_rows=rows, with_marginals=True, **KW)
     assert ts.iterations == int(js.iterations) == KW["max_iterations"]
     np.testing.assert_allclose(tg2.poses.numpy(), np.asarray(jg.poses), atol=1e-8, rtol=0)
@@ -332,7 +356,8 @@ def test_lm_optimize_soa_tiled_fixed_work_f64(f64):
 
 def test_lm_optimize_soa_tiled_matches_pallas_interpret_f32(f32, force_small_blocks):
     g, tg, rows = f32
-    jg, js = jsd.lm_optimize_soa_tiled(g, ell_rows=rows, use_tiled=True, interpret=True, **KW)
+    jg, js = REF(jsd.lm_optimize_soa_tiled, g, ell_rows=rows, use_tiled=True, interpret=True,
+                 context={"block": jpt._FORCE_BLOCK}, tol=5e-4, **KW)
     tg2, ts = tsd.lm_optimize_soa_tiled(tg, ell_rows=rows, **KW)
     np.testing.assert_allclose(tg2.poses.numpy(), np.asarray(jg.poses), atol=5e-4, rtol=0)
     np.testing.assert_allclose(float(ts.chi2_final), float(js.chi2_final), rtol=1e-3)
@@ -402,7 +427,7 @@ def test_wrappers_refuse_other_devices_and_bad_shapes(f32):
     CUDA is refused, and bad shapes and index types are refused on every
     device."""
     _, tg, rows = f32
-    rg = Range(*f32, 0, tg.poses.shape[0], use_tiled=False)
+    rg = Range(*f32, 0, tg.poses.shape[0])
     lin = ttk.tiled_linearize(rg.pc, rg.pj, tg.landmarks, rg.de)
     x = torch.zeros((6, rg.Kl))
     meta = rg.de._replace(**{k: v.to("meta") for k, v in rg.de._asdict().items()})

@@ -14,7 +14,8 @@ both of the port's PCG loops, against the JAX package, on the CPU in f64.
   (the sessions through both CLIs are in ``tests/test_torch_breadth_cli.py``).
 
 Inputs are the seeded chain and plane graphs of ``tests/test_torch_soa.py``
-and ``tests/test_torch_planes.py``. Tolerances: the Schur step and the
+and ``tests/test_torch_planes.py``; the JAX package's results are stored
+(``REF``, ``tests/jax_golden.py``). Tolerances: the Schur step and the
 resident LM 1e-10 of scale (summation order); the row-range LM 1e-8, its
 plane half 1e-6, as the jacobi tests of the same loops.
 """
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.solver import ellk_soa as jsoa
 from semantic_slam_tpu.solver import pcg as jpcg
 from semantic_slam_tpu.solver.lm import _free_masks as jfree
@@ -41,16 +43,18 @@ from torch_cases import one_torch_thread  # noqa: F401 (a module fixture)
 KW = dict(max_iterations=8, rel_tol=0.0, max_cg_iters=16, cg_tol=0.0)
 # compiled once, the lambdas traced (an eager call compiles every primitive)
 j_schur_step = jax.jit(jsoa.soa_schur_step, static_argnames=("max_cg_iters", "precond_kind", "cg_tol"))
+# the JAX package's results, stored (tests/jax_golden.py)
+REF = jax_golden.Recorded("torch_tridiag", tol=1e-10)
 
 
 @pytest.mark.parametrize("cg_tol", [0.0, 1e-6], ids=["fixed-work", "early-exit"])
 def test_schur_step_tridiag_matches_xla(f64, cg_tol):
     g, tg, _, jse, tse = f64
-    lin_j = jsoa.soa_linearize(g.poses, g.landmarks, jse)
+    lin_j = REF(jsoa.soa_linearize, g.poses, g.landmarks, jse)
     lin_t = tsoa.soa_linearize(tg.poses, tg.landmarks, tse)
     for lam in (1e-3, 10.0):
-        dp_j, db_j = j_schur_step(lin_j, jse, jnp.float64(lam), *jfree(g), max_cg_iters=16, precond_kind="tridiag",
-                                  cg_tol=cg_tol)
+        dp_j, db_j = REF(j_schur_step, lin_j, jse, jnp.float64(lam), *jfree(g), max_cg_iters=16,
+                         precond_kind="tridiag", cg_tol=cg_tol)
         dp_t, db_t = tsoa.soa_schur_step_tridiag(lin_t, tse, torch.tensor(lam, dtype=torch.float64), *tfree(tg), 16,
                                                  cg_tol)
         close(dp_t.numpy(), dp_j, 1e-10, "dp")
@@ -72,7 +76,7 @@ def test_tridiag_converges_in_fewer_steps_than_jacobi(f64):
 
 def test_lm_resident_tridiag_matches_xla(f64):
     g, tg, rows, _, _ = f64
-    jg2, js = jsoa.lm_optimize_soa(g, use_pallas=False, ell_rows=rows, precond_kind="tridiag", **KW)
+    jg2, js = REF(jsoa.lm_optimize_soa, g, use_pallas=False, ell_rows=rows, precond_kind="tridiag", **KW)
     tg2, ts = tsoa.lm_optimize_soa(tg, ell_rows=rows, precond_kind="tridiag", **KW)
     assert ts.iterations == int(js.iterations) == KW["max_iterations"]
     close(tg2.poses.numpy(), jg2.poses, 1e-10, "poses")
@@ -96,7 +100,7 @@ def test_row_range_tridiag_matches_pcg(f64):
     """The row-range loop with the chain factored over all rows against the
     JAX per-pose PCG LM with ``precond_kind="tridiag"``, marginals too."""
     g, tg, rows, _, _ = f64
-    jg2, js, jm = jpcg.lm_optimize_pcg(g, precond_kind="tridiag", with_marginals=True, **KW)
+    jg2, js, jm = REF(jpcg.lm_optimize_pcg, g, precond_kind="tridiag", with_marginals=True, **KW)
     tg2, ts, tm = tsd.lm_optimize_soa_tiled(tg, ell_rows=rows, precond_kind="tridiag", with_marginals=True, **KW)
     assert ts.iterations == int(js.iterations) == KW["max_iterations"]
     np.testing.assert_allclose(tg2.poses.numpy(), np.asarray(jg2.poses), atol=1e-8, rtol=0)
@@ -131,8 +135,8 @@ def test_row_range_two_ranges_equal_whole(f64):
 def test_row_range_planes_tridiag_matches_pcg_planes(plane_graph):  # noqa: F811
     jg, jpn, rows = plane_graph
     tg, tpn = _port(jg, jpn)
-    ja = jpcg.lm_optimize_pcg_planes(jg, jpn, max_iterations=8, rel_tol=0.0, max_cg_iters=32,
-                                     precond_kind="tridiag", with_marginals=True)
+    ja = REF(jpcg.lm_optimize_pcg_planes, jg, jpn, max_iterations=8, rel_tol=0.0, max_cg_iters=32,
+             precond_kind="tridiag", with_marginals=True)
     tb = tsd.lm_optimize_soa_planes(tg, tpn, ell_rows=rows, max_iterations=8, rel_tol=0.0, max_cg_iters=32,
                                     precond_kind="tridiag", with_marginals=True)
     close(tb[0].poses.numpy(), ja[0].poses, 1e-6, "poses")

@@ -16,7 +16,8 @@ sequential, and ``finalize()`` flushes the last, partial window. Sessions
   * ``w4-planes``: W=4 with plane landmarks (per keyframe inside the flush,
     as in the JAX engine).
 
-Each is held to the JAX engine's session: equal keyframes, landmarks,
+Each is held to the JAX engine's session, stored (``REF``,
+``tests/jax_golden.py``; the port's sessions run live): equal keyframes, landmarks,
 edges, landmark ids and per-tick LM iterations, poses within 1e-9 (and
 odometry information within 1e-12). The port's window sessions are also
 held to its own per-tick sessions within the JAX tests' 5e-4 (the cadence
@@ -29,10 +30,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax_golden
 from semantic_slam_tpu.config import AssociationConfig, CapacityConfig
 from semantic_slam_tpu.io import replay as replay_mod
 from semantic_slam_tpu.io import synthetic as synth_mod
-from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
 from semantic_slam_tpu_torch.frontend import segmentation as tseg
 from semantic_slam_tpu_torch.runtime import engine as teng
 from semantic_slam_tpu_torch.runtime.engine import SlamEngine as TorchEngine
@@ -69,10 +70,12 @@ def w4_planes():
 
 
 CONFIGS = {"w3-fitness-growth": w3_fitness_growth, "w8-maha-depth": w8_maha_depth, "w4-planes": w4_planes}
+LOG = dict(seed=3, sensor_every=5, drift_noise=0.008, H=120, W=160)
+PROGRAM_ROWS = (2, 5)
 
 
 def _log(name, n_steps=120):
-    log = synth_mod.make_synthetic_log(seed=3, n_steps=n_steps, sensor_every=5, drift_noise=0.008, H=120, W=160)
+    log = synth_mod.make_synthetic_log(n_steps=n_steps, **LOG)
     return synth_mod.clouds_to_depth(log) if name.endswith("depth") else log
 
 
@@ -82,8 +85,52 @@ def _session(engine, log):
     return engine
 
 
+def jax_window_program(B: int):
+    """The JAX engine's ``_process_keyframes_window`` (padded to its
+    power-of-two bucket) on ``parallel/window_inputs.py``'s synthetic run of
+    ``B`` rows, f64."""
+    import jax.numpy as jnp
+
+    from semantic_slam_tpu.parallel.window_inputs import make_window_inputs as jmake
+    from semantic_slam_tpu.runtime import engine as jeng
+
+    jg, jt, args, st = jmake(B, 1, jnp.float64)
+    (odoms, row_valid, prev, has_prev, info6, points, valid, boxes, cids, probs, xyz, cam, *rest) = args
+    return jeng._process_keyframes_window(
+        jg, jt, odoms, row_valid, jnp.asarray(B - 1, jnp.int32), prev, has_prev, info6, points, valid,
+        jnp.zeros((3, 3), points.dtype), jnp.asarray(1e-3, points.dtype), boxes, cids, probs, xyz, cam, *rest,
+        samp_h=st["samp_h"], samp_w=st["samp_w"], max_planes=st["max_planes"], num_hypotheses=st["num_hypotheses"],
+        smoothing_size=st["smoothing_size"], strict_frames=st["strict_frames"],
+        use_rtabmap_offset=st["use_rtabmap_offset"], depth_input=False, adaptive_normals=False)
+
+
+# what the tests read of the JAX engine's session
+READ = ("graph.num_poses", "graph.num_landmarks", "graph.num_odom", "graph.num_lme", "graph.lme_k", "graph.lme_l",
+        "graph.odom_info", "table.count", "plane_nodes.num_pe", "keyframe_poses", "robot_pose")
+
+
+def jax_session(cfg, log, keep) -> dict:
+    """The JAX engine's window session of ``log``: what the tests read of it."""
+    from semantic_slam_tpu.runtime.engine import SlamEngine as JaxEngine
+
+    return jax_golden.engine_outputs(_session(JaxEngine(cfg), log), keep=keep)
+
+
+def jax_program(B: int) -> dict:
+    g, t, d = jax_window_program(B)
+    return {**{f"graph.{k}": np.asarray(v) for k, v in g._asdict().items()}, "table.count": np.asarray(t.count),
+            "dets.valid": np.asarray(d.valid), "dets.world_pose": np.asarray(d.world_pose)}
+
+
+# the JAX package's results, stored (tests/jax_golden.py); the odometry
+# information is held to 1e-12, the window program's outputs exactly
+REF = jax_golden.Recorded("torch_window", tol=1e-9)
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def sessions(request):
+    """The JAX engine's stored window session; the port's window session
+    (its window program's calls recorded) and its per-tick session."""
     cfg, log = CONFIGS[request.param](), _log(request.param)
     calls = []
     orig = teng._process_keyframes_window
@@ -97,7 +144,7 @@ def sessions(request):
         te = _session(TorchEngine(cfg, device="cpu"), log)
     finally:
         teng._process_keyframes_window = orig
-    je = _session(JaxEngine(cfg), log)
+    je = jax_golden.EngineSnapshot(REF(jax_session, cfg, log, READ, tol={"graph.odom_info": 1e-12}))
     per_tick = _session(TorchEngine(_solver(cfg, ingest_window=1), device="cpu"), log)
     return request.param, je, te, per_tick, calls
 
@@ -225,29 +272,19 @@ def test_segment_window_batches_k5_once_a_round(monkeypatch):
     assert dets.valid.shape == (B, D * 2)
 
 
-@pytest.mark.parametrize("B", [2, 5])
+@pytest.mark.parametrize("B", PROGRAM_ROWS)
 def test_window_program_on_window_inputs(B):
     """The window program alone on ``parallel/window_inputs.py``'s synthetic
     run (each package's ``make_window_inputs``, f64): the JAX engine's
-    ``_process_keyframes_window`` (padded to its power-of-two bucket) and the
-    port's (B rows) give the same graph and table."""
-    import jax.numpy as jnp
-
-    from semantic_slam_tpu.parallel.window_inputs import make_window_inputs as jmake
-    from semantic_slam_tpu.runtime import engine as jeng
+    ``_process_keyframes_window`` (padded to its power-of-two bucket;
+    stored) and the port's (B rows) give the same graph and table."""
     from semantic_slam_tpu_torch.parallel.window_inputs import make_window_inputs as tmake
 
-    jg, jt, args, st = jmake(B, 1, jnp.float64)
-    (odoms, row_valid, prev, has_prev, info6, points, valid, boxes, cids, probs, xyz, cam, *rest) = args
-    g1, t1, d1 = jeng._process_keyframes_window(
-        jg, jt, odoms, row_valid, jnp.asarray(B - 1, jnp.int32), prev, has_prev, info6, points, valid,
-        jnp.zeros((3, 3), points.dtype), jnp.asarray(1e-3, points.dtype), boxes, cids, probs, xyz, cam, *rest,
-        samp_h=st["samp_h"], samp_w=st["samp_w"], max_planes=st["max_planes"], num_hypotheses=st["num_hypotheses"],
-        smoothing_size=st["smoothing_size"], strict_frames=st["strict_frames"],
-        use_rtabmap_offset=st["use_rtabmap_offset"], depth_input=False, adaptive_normals=False)
+    ref = REF(jax_program, B, tol=0.0)
+    g1 = jax_golden.EngineSnapshot.state(ref, "graph")
     tg, tt, targs, tst = tmake(B, torch.float64, device="cpu")
     g2, t2, d2 = teng._process_keyframes_window(tg, tt, **targs, **tst)
-    assert int(t2.count) == int(t1.count) > 0
+    assert int(t2.count) == int(ref["table.count"]) > 0
     for f in ("num_poses", "num_landmarks", "num_odom", "num_lme"):
         assert int(getattr(g2, f)) == int(getattr(g1, f)), f
     n, m = int(g1.num_lme), int(g1.num_landmarks)
@@ -257,5 +294,11 @@ def test_window_program_on_window_inputs(B):
     np.testing.assert_allclose(g2.landmarks[:m].numpy(), np.asarray(g1.landmarks[:m]), atol=1e-9, rtol=0)
     np.testing.assert_allclose(g2.poses[:B].numpy(), np.asarray(g1.poses[:B]), atol=0, rtol=0)
     # the last row's detections
-    np.testing.assert_array_equal(d2.valid.numpy(), np.asarray(d1.valid))
-    np.testing.assert_allclose(d2.world_pose.numpy(), np.asarray(d1.world_pose), atol=1e-9, rtol=0)
+    np.testing.assert_array_equal(d2.valid.numpy(), ref["dets.valid"])
+    np.testing.assert_allclose(d2.world_pose.numpy(), ref["dets.world_pose"], atol=1e-9, rtol=0)
+
+
+def test_stored_reference_matches_live():
+    """The smallest stored window program recomputed by the JAX package:
+    the stored file is still what the package computes, in this run."""
+    REF.check_live(jax_program, PROGRAM_ROWS[0], tol=0.0)
